@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of cloudvectordb_tpu for one NVIDIA H100.
 
 The JAX package (``cloudvectordb_tpu``) is the reference; each module here
-names its counterpart. This slice carries the residual-int8 ``BandIVFIndex``
-serving path: k-means, a device-streaming build, the device planner, the
-tile-table scan (a hand-written ``sm_90a`` kernel, ``csrc/tiles_resid.cu``),
-tuning and device QPS.
+names its counterpart. Ported so far: ``BandIVFIndex`` over residual-int8
+and whole-row arenas (k-means, device-streaming build, device planner, tiles
+and band searches, tuning, device QPS) and ``FlatIndex``, with their scans
+as hand-written ``sm_90a`` kernels (``csrc/tiles_resid.cu``,
+``csrc/tiles_scan.cu``).
 
 The package imports ``torch``, ``numpy`` and the standard library only.
 

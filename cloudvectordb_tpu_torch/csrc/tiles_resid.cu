@@ -15,8 +15,8 @@
 // live iff g < valid_end[t, local[g]]. Each query keeps L = l_buckets slots:
 // within a tile, slot b takes the best of rows t*tile_n + r*L + b over r
 // (smallest r on ties); across table entries a strict '>' keeps the earlier
-// entry. Slots start at (-inf, row 0). The final top-k over the slots is
-// done by the caller.
+// entry (csrc/slot_merge.cuh). Slots start at (-inf, row 0). The final
+// top-k over the slots is done by the caller.
 //
 // How it maps to the card. The TPU walks the table entries as a sequential
 // grid axis and carries the slots in VMEM between steps. Here one block owns
@@ -44,6 +44,8 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+
+#include "slot_merge.cuh"
 
 namespace {
 
@@ -105,10 +107,7 @@ tiles_resid_kernel(const int32_t* __restrict__ payload,     // (N_pad, D) int8 a
 #pragma unroll
   for (int i = 0; i < QPT; ++i)
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      best_v[i][j] = -INFINITY;
-      best_i[i][j] = 0;
-    }
+    for (int j = 0; j < SPT; ++j) slot_init(best_v[i][j], best_i[i][j]);
 
   for (int p = 0; p < p_entries; ++p) {
     const int t = tile_table[(size_t)qt * p_entries + p];
@@ -194,20 +193,15 @@ tiles_resid_kernel(const int32_t* __restrict__ payload,     // (N_pad, D) int8 a
             const float c = qc_s[(loc_s[sj] - wlo) * QB + qi];
             s = __fadd_rn(c, __fmul_rn(rs_s[qi], (float)acc[i][j]));
           }
-          if (r == 0 || s > tmx[i][j]) {  // within a tile the smallest r wins ties
-            tmx[i][j] = s;
-            tr[i][j] = r;
-          }
+          tile_take(s, r, tmx[i][j], tr[i][j]);
         }
     }
 #pragma unroll
     for (int i = 0; i < QPT; ++i)
 #pragma unroll
       for (int j = 0; j < SPT; ++j)
-        if (tmx[i][j] > best_v[i][j]) {  // strict: the earlier entry wins ties
-          best_v[i][j] = tmx[i][j];
-          best_i[i][j] = (int)(base + (long long)tr[i][j] * l_buckets + b0 + tx + TX * j);
-        }
+        slot_merge(tmx[i][j], base + (long long)tr[i][j] * l_buckets + b0 + tx + TX * j,
+                   best_v[i][j], best_i[i][j]);
   }
 
 #pragma unroll

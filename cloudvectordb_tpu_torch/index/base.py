@@ -4,7 +4,8 @@ Every index saves as a directory in the reference's on-disk format:
 ``manifest.json`` (format version, kind, metric, dim, counts, family meta,
 tuned op point, array names) plus one ``.npy`` per array, written to a
 temporary directory and swapped in atomically. An artifact saved by either
-package loads in the other. (The reference's ``RangeSearchMixin`` is not
+package loads in the other; bf16 arrays are stored as the two-byte void
+dtype the reference's ml_dtypes arrays save as (``to_numpy``/``from_numpy``). (The reference's ``RangeSearchMixin`` is not
 ported in this slice.)
 """
 
@@ -18,11 +19,30 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from cloudvectordb_tpu_torch.eval.tune import TunableMixin
 
 MANIFEST = "manifest.json"
 FORMAT_VERSION = 1
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Host copy of a tensor in the shared on-disk format: bf16 becomes the
+    two-byte void dtype the reference's ml_dtypes arrays save as."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Tensor of ``dtype`` from a saved or in-memory array (a copy, off any
+    memory map); two-byte void or ml_dtypes bf16 arrays are read as bf16."""
+    a = np.asarray(a)
+    if dtype == torch.bfloat16 and a.dtype.kind == "V":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(dtype)
 
 
 def replace_dir_atomic(tmp: Path, path: Path, old_prefix: str) -> None:

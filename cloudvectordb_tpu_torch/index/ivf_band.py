@@ -1,21 +1,26 @@
-"""Tile-pruned IVF over residual-int8 rows — the serving index (counterpart of
-cloudvectordb_tpu/index/ivf_band.py; this slice ports the residual-int8,
-inner-product ``BandIVFIndex``, its device planner ``_plan_tiles`` and its
-one-dispatch search ``_tiles_resid_plan_search``).
+"""Tile-pruned IVF — the serving index (counterpart of
+cloudvectordb_tpu/index/ivf_band.py: the inner-product ``BandIVFIndex`` over
+residual-int8 arenas and over whole-row int8, bf16 and f32 arenas, its
+device planner ``_plan_tiles``, its one-dispatch searches
+``_tiles_resid_plan_search`` and ``_tiles_plan_search``, and the band
+strategy ``_search_band``).
 
-Layout: rows sorted by coarse list into one int8 arena of residuals
-(row − its list centroid), padded to a multiple of ``tile_n``. A search
-sorts queries by their top-1 list, gives each group of ``tile_q`` queries
-one table of the ``p_tiles`` arena tiles its lists score best on, and scans
-those tiles with ops/band.py (the hand-written kernel on CUDA). The index
-lives on one explicit ``device``; only small metadata (assignments, offsets,
-per-tile tables) is computed on the host.
+Layout: rows sorted by coarse list into one arena, padded to a multiple of
+``tile_n``: int8 residuals (row − its list centroid) with
+``residual=True``, else whole rows (int8 with one scale, bf16 or f32). A
+tiles search sorts queries by their top-1 list, gives each group of
+``tile_q`` queries one table of the ``p_tiles`` arena tiles its lists score
+best on, and scans those tiles with ops/band.py (K1 for residual arenas,
+K3 for whole rows; hand-written kernels on CUDA). The band strategy scans
+each query group's contiguous band of tiles instead (K7). The index lives
+on one explicit ``device``; only small metadata (assignments, offsets,
+per-tile tables, band plans) is computed on the host.
 
 Not in this slice (each raises or is absent): filters and ``row_mask``,
-``metric='l2'``, ``top2``, slack arenas with ``add``/``remove``, the pending
-buffer and annex, ``merge_from``, whole-row (non-residual) arenas and
-``strategy='band'``. Without ``add`` there are never pending rows, so a
-search is the arena scan alone.
+``metric='l2'`` (residual arenas; the reference refuses it for whole rows),
+``top2``, slack arenas with ``add``/``remove``, the pending buffer and
+annex, ``merge_from`` and ``build_streaming``. Without ``add`` there are
+never pending rows, so a search is the arena scan alone.
 """
 
 from __future__ import annotations
@@ -23,17 +28,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cloudvectordb_tpu_torch.index.base import Index
+from cloudvectordb_tpu_torch.index.base import Index, from_numpy, to_numpy
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
 from cloudvectordb_tpu_torch.ops.assign import assign_clusters
-from cloudvectordb_tpu_torch.ops.band import order_centroids, tiles_topk_resid
-from cloudvectordb_tpu_torch.ops.topk import topk_stable
+from cloudvectordb_tpu_torch.ops.band import (
+    band_topk, order_centroids, tiles_topk, tiles_topk_resid)
+from cloudvectordb_tpu_torch.ops.flat_topk import quantize_queries
+from cloudvectordb_tpu_torch.ops.topk import f32_const, tiled_topk, topk_stable
 
 #: max list indices one arena tile may span: bounds the per-tile window W
 #: that sizes centroid_tiles (n_tiles, W, D) and the uint8 per-row local
 #: index (< 256). Enforced by _capacity_layout via tile-boundary hole
 #: padding; healthy data never triggers it.
 _W_CAP = 128
+_ARENA_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
@@ -67,6 +75,13 @@ def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
     return q_s, order, tile_table.to(torch.int32).contiguous()
 
 
+def _unsort(order, v, gids):
+    """Scores and global ids back in the caller's query order."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return v[inv], gids[inv]
+
+
 def _tiles_resid_plan_search(
     q, centroids, payload, local_ids, centroid_tiles, resid_scale, ids,
     tile_window, valid_end, *, k: int, p_tiles: int, tile_n: int,
@@ -81,10 +96,29 @@ def _tiles_resid_plan_search(
     v, rows = tiles_topk_resid(
         payload, local_ids, centroid_tiles, resid_scale, q_s, tile_table, k,
         valid_end, tile_n=tile_n, tile_q=tile_q, int8_q=int8_q)
-    gids = ids[rows.long().clamp(0, ids.shape[0] - 1)]
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=order.device)
-    return v[inv], gids[inv]
+    return _unsort(order, v, ids[rows.long().clamp(0, ids.shape[0] - 1)])
+
+
+def _tiles_plan_search(q, centroids, payload, ids, tile_window, db_scale, n_valid,
+                       *, k: int, p_tiles: int, tile_n: int, tile_q: int, int8):
+    """One-dispatch whole-row search: device planning, the tile scan (K3,
+    ops/band.py), the arena-row → global-id map and the unsort. ``int8``
+    is the reference's score mode: True quantizes each query to int8
+    (``round(q / (amax/127))``), 'hybrid' scores bf16 queries against the
+    int8 rows, False scores queries cast to the arena dtype."""
+    q_s, order, tile_table = _plan_tiles(q, centroids, tile_window, tile_q, p_tiles)
+    scale = f32_const(db_scale, q)
+    if int8 == "hybrid":
+        q_dev = q_s.to(torch.bfloat16)
+    elif int8:
+        q_dev, q_scale = quantize_queries(q_s)
+        scale = q_scale * scale
+    else:
+        q_dev = q_s.to(payload.dtype)
+    v, rows = tiles_topk(payload, q_dev, tile_table, k, tile_n=tile_n,
+                         tile_q=tile_q, int8=int8, n_valid=n_valid)
+    v = v * scale
+    return _unsort(order, v, ids[rows.long().clamp(0, ids.shape[0] - 1)])
 
 
 def _next_pow2(x: int) -> int:
@@ -111,18 +145,29 @@ class BandIVFIndex(Index):
         metric: str = "ip",
         device: str | torch.device = "cpu",
     ):
-        """The reference's constructor with an explicit ``device``. Only the
-        residual-int8 inner-product arena is ported (``residual=True,
-        dtype='int8', slack=0.0, metric='ip'``); anything else raises
-        NotImplementedError."""
-        if not (residual and dtype == "int8"):
-            raise NotImplementedError(
-                "only the residual-int8 arena (residual=True, dtype='int8') is "
-                "ported; whole-row arenas arrive with the tiles_topk slice")
+        """The reference's constructor with an explicit ``device``.
+        ``residual=True`` (int8 only) stores int8 residuals and adds the
+        centroid term back in the kernel; otherwise the arena holds whole
+        rows in ``dtype``. What the reference refuses raises ValueError
+        (residual bf16/f32, slack on whole rows, l2 on whole rows); what
+        this slice has not ported raises NotImplementedError (slack arenas,
+        residual l2)."""
+        if dtype not in ("int8", "bfloat16", "float32"):
+            raise ValueError(f"unknown arena dtype {dtype!r}")
+        if residual and dtype != "int8":
+            raise ValueError("residual is the int8 path")
+        if metric not in ("ip", "l2"):
+            raise ValueError(f"unknown metric {metric!r}")
         if slack != 0.0:
+            if not residual:
+                raise ValueError("slack slots require the residual-int8 arena")
             raise NotImplementedError(
                 "slack arenas (in-place add/remove) arrive with the mutation slice")
-        if metric != "ip":
+        if metric == "l2":
+            if not residual:
+                # the whole-row kernels carry no l2 bias (as the reference)
+                raise ValueError(
+                    "BandIVFIndex metric='l2' requires the residual-int8 arena")
             raise NotImplementedError("metric='l2' arrives with the l2/top2 slice")
         self.dim = dim
         self.metric = metric
@@ -136,7 +181,7 @@ class BandIVFIndex(Index):
         self.tile_q = tile_q
         self.device = torch.device(device)
         self.centroids: np.ndarray | None = None  # (nlist, D) f32, locality-ordered
-        self._payload: torch.Tensor | None = None  # (N_pad, D) int8 on device
+        self._payload: torch.Tensor | None = None  # (N_pad, D) on device
         self._ids: np.ndarray | None = None  # arena row -> global id (-1: hole)
         self._offsets: np.ndarray | None = None  # (nlist+1,) row offsets
         self._list_lens: np.ndarray | None = None  # valid rows per list (holes)
@@ -195,26 +240,38 @@ class BandIVFIndex(Index):
         a_np = a.cpu().numpy()
         order = np.argsort(a_np, kind="stable")
         order_d = torch.as_tensor(order, device=self.device)
-        xs = x[order_d] - cdev[a[order_d]]  # residuals in list order
-        rms = torch.sqrt(torch.mean(xs * xs))
-        amax = torch.max(torch.abs(xs))
-        scale = float(torch.clamp_min(torch.minimum(amax, 4.0 * rms) / 127.0, 1e-12))
-        payload = torch.clamp(torch.round(xs / scale), -127, 127).to(torch.int8)
+        xs = x[order_d]  # list order
+        if self.residual:
+            xs = xs - cdev[a[order_d]]
+        if self.dtype == "int8":
+            rms = torch.sqrt(torch.mean(xs * xs))
+            amax = torch.max(torch.abs(xs))
+            scale = float(torch.clamp_min(
+                torch.minimum(amax, 4.0 * rms) / f32_const(127.0, xs), 1e-12))
+            payload = torch.clamp(torch.round(xs / f32_const(scale, xs)), -127,
+                                  127).to(torch.int8)
+        else:
+            scale = 1.0
+            payload = xs.to(_ARENA_DTYPES[self.dtype])
         n = int(payload.shape[0])
         counts = np.bincount(a_np, minlength=self.nlist)
-        # tile-span cap (_capacity_layout doc): skewed list sizes may force
-        # hole padding; the identity layout costs nothing otherwise
-        offsets, dest = self._capacity_layout(counts)
+        if self.residual:
+            # tile-span cap (_capacity_layout doc): skewed list sizes may
+            # force hole padding; the identity layout costs nothing otherwise
+            offsets, dest = self._capacity_layout(counts)
+        else:  # whole rows: no cap (the reference caps residual arenas only)
+            offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            dest = np.arange(n, dtype=np.int64)
         extent = int(offsets[-1])
         n_pad = -(-extent // self.tile_n) * self.tile_n
-        arena = torch.zeros((n_pad, self.dim), dtype=torch.int8, device=self.device)
+        arena = torch.zeros((n_pad, self.dim), dtype=payload.dtype, device=self.device)
         arena[torch.as_tensor(dest, device=self.device)] = payload
         if extent != n:
             ids = np.full(n_pad, -1, np.int64)
             ids[dest] = order
             self._list_lens = counts.astype(np.int64)
-        else:
-            ids = order.astype(np.int64)
+        else:  # the reference keeps int64 ids for residual, int32 for whole rows
+            ids = order.astype(np.int64 if self.residual else np.int32)
         self._set_arena(arena, ids, offsets, extent, scale)
 
     @classmethod
@@ -229,7 +286,9 @@ class BandIVFIndex(Index):
         arena at positions from the host-side native counting sort). Peak
         device memory ≈ int8 arena + one f32 chunk. ``centroids``, when
         given, is the final, locality-ordered quantizer and skips training.
-        The first chunk sets the residual scale."""
+        The first chunk sets the int8 scale (of residuals, or of whole rows
+        with ``residual=False``). The arena is int8 either way, as the
+        reference's."""
         from cloudvectordb_tpu_torch.utils.native import arena_sort
 
         idx = None
@@ -241,6 +300,8 @@ class BandIVFIndex(Index):
             chunk = chunk_fn(ci)
             if idx is None:
                 idx = cls(int(chunk.shape[1]), nlist, **kw)
+                if idx.dtype != "int8":
+                    raise ValueError("device-streaming is the int8 path")
             chunk = torch.as_tensor(chunk, dtype=torch.float32).to(idx.device)
             if cdev is None:
                 if centroids is None:
@@ -252,8 +313,8 @@ class BandIVFIndex(Index):
                 idx.centroids = np.asarray(centroids, np.float32)
                 cdev = torch.as_tensor(idx.centroids, device=idx.device)
             a, _ = assign_clusters(chunk, cdev)
-            if scale == 0.0:  # first chunk sets the residual scale
-                enc = chunk - cdev[a]
+            if scale == 0.0:  # first chunk sets the scale
+                enc = chunk - cdev[a] if idx.residual else chunk
                 rms = float(torch.sqrt(torch.mean(enc * enc)))
                 amax = float(torch.max(torch.abs(enc)))
                 scale = max(min(amax, 4.0 * rms) / 127.0, 1e-12)
@@ -268,7 +329,10 @@ class BandIVFIndex(Index):
         n = assign_all.shape[0]
         order, offsets = arena_sort(assign_all, nlist)
         counts = np.diff(offsets)
-        offsets, cap_dest = idx._capacity_layout(counts)
+        if idx.residual:  # tile-span cap, as in _populate
+            offsets, cap_dest = idx._capacity_layout(counts)
+        else:
+            cap_dest = np.arange(n, dtype=np.int64)
         extent = int(offsets[-1])
         dest = np.empty(n, np.int64)
         dest[order] = cap_dest  # source row -> arena position
@@ -276,14 +340,15 @@ class BandIVFIndex(Index):
         arena = torch.zeros((n_pad, idx.dim), dtype=torch.int8, device=idx.device)
         # the f32 value the reference divides by (its scale rides into jit
         # as a weakly typed f32 constant)
-        scale_t = torch.tensor(scale, dtype=torch.float32, device=idx.device)
+        scale_t = f32_const(scale, arena)
         base = 0
         for ci in range(n_chunks):
             chunk = torch.as_tensor(chunk_fn(ci), dtype=torch.float32).to(idx.device)
             d = torch.as_tensor(dest[base : base + sizes[ci]], device=idx.device)
-            a_dev = torch.as_tensor(assigns[ci], device=idx.device).long()
-            q8 = torch.clamp(torch.round((chunk - cdev[a_dev]) / scale_t),
-                             -127, 127).to(torch.int8)
+            if idx.residual:
+                a_dev = torch.as_tensor(assigns[ci], device=idx.device).long()
+                chunk = chunk - cdev[a_dev]
+            q8 = torch.clamp(torch.round(chunk / scale_t), -127, 127).to(torch.int8)
             # the reference's donated scatter (``ar.at[d].set(q8)``) becomes an
             # in-place write into the preallocated arena
             arena[d] = q8
@@ -306,7 +371,8 @@ class BandIVFIndex(Index):
         self._n = extent
         self._scale = scale
         self._tile_window = self._compute_tile_window()
-        self._build_residual_aux()
+        if self.residual:
+            self._build_residual_aux()
         self._dev = None
 
     def _capacity_layout(self, counts: np.ndarray):
@@ -393,25 +459,41 @@ class BandIVFIndex(Index):
                 centroids=torch.as_tensor(self.centroids, dtype=torch.float32, device=dev),
                 ids=torch.as_tensor(self._ids.astype(np.int32), device=dev),
                 tile_window=torch.as_tensor(self._tile_window, device=dev).long(),
-                local=torch.as_tensor(self._local, device=dev),
-                centroid_tiles=torch.as_tensor(self._centroid_tiles, device=dev).to(
-                    torch.bfloat16),
-                valid_end=torch.as_tensor(self._valid_end, device=dev),
             )
+            if self.residual:
+                self._dev.update(
+                    local=torch.as_tensor(self._local, device=dev),
+                    centroid_tiles=torch.as_tensor(self._centroid_tiles, device=dev).to(
+                        torch.bfloat16),
+                    valid_end=torch.as_tensor(self._valid_end, device=dev),
+                )
         return self._dev
 
-    def search(self, queries, k: int, nprobe: int = 32, p_tiles: int = 0,
-               scoring: str = "hybrid", tile_q: int | None = None):
+    def search(self, queries, k: int, nprobe: int = 32, strategy: str = "tiles",
+               p_tiles: int = 0, scoring: str = "hybrid", tile_q: int | None = None,
+               top2: bool | None = None):
         """Numpy in, numpy out: (scores (Q, k) f32, ids (Q, k) int64).
 
-        Device-planned, query-clustered tile probing in one dispatch;
-        compute ∝ p_tiles/n_tiles of a full scan. p_tiles=0 and tile_q=None
-        take the tuned op point, else the span-aware auto budget.
-        scoring 'hybrid' (default) and 'int8' both score the residual with
-        int8 queries, as the reference does; 'precise' is not ported yet."""
+        strategy='tiles' (default): device-planned, query-clustered tile
+        probing in one dispatch; compute ∝ p_tiles/n_tiles of a full scan.
+        p_tiles=0 and tile_q=None take the tuned op point, else the
+        span-aware auto budget. strategy='band' (whole-row arenas): each
+        query group scans a contiguous band of tiles (``_search_band``).
+        scoring on int8 arenas: residual arenas score the residual with
+        int8 queries for 'hybrid' and 'int8' ('precise' is not ported yet);
+        whole-row arenas score bf16 queries against the int8 rows for
+        'hybrid' and 'precise' and int8 x int8 for 'int8'. top2 is not
+        ported yet."""
         assert self._n, "empty index"
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
+        self._refuse_top2(top2)
+        if strategy == "band":
+            if self.residual:
+                raise ValueError("band strategy lacks the centroid term; use tiles")
+            return self._search_band(queries, k, nprobe)
+        if strategy != "tiles":
+            raise ValueError(f"unknown strategy {strategy!r}")
         p_tiles, tq = self._resolve_knobs(nq, nprobe, p_tiles, tile_q)
         q_pad = -(-nq // tq) * tq
         qp = queries if q_pad == nq else np.concatenate(
@@ -422,12 +504,13 @@ class BandIVFIndex(Index):
 
     def search_device(self, queries, k: int, nprobe: int = 32,
                       p_tiles: int = 0, scoring: str = "hybrid",
-                      tile_q: int | None = None):
+                      tile_q: int | None = None, top2: bool | None = None):
         """All-device serving path: ``queries`` is (or becomes) a (B, D) f32
         tensor on the index's device and the returned (scores (B, k) f32,
         ids (B, k) int32) stay there — no host transfer or sync in the call.
         Knobs resolve as in ``search()``."""
         assert self._n, "empty index"
+        self._refuse_top2(top2)
         queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = queries.shape[0]
         p_tiles, tq = self._resolve_knobs(nq, nprobe, p_tiles, tile_q)
@@ -436,6 +519,12 @@ class BandIVFIndex(Index):
             [queries, queries[-1:].expand(q_pad - nq, -1)])
         v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring)
         return v[:nq], gids[:nq]
+
+    def _refuse_top2(self, top2) -> None:
+        if top2 is None:
+            top2 = bool((self._op_point or {}).get("top2", False))
+        if top2:
+            raise NotImplementedError("top2 arrives with the l2/top2 slice")
 
     def _resolve_knobs(self, nq: int, nprobe: int, p_tiles: int, tile_q):
         """Tuned op point for knobs left at their sentinels, then
@@ -451,13 +540,95 @@ class BandIVFIndex(Index):
         if scoring not in ("hybrid", "int8", "precise"):
             raise ValueError(f"unknown scoring {scoring!r}")
         st = self._device_state()
-        return _tiles_resid_plan_search(
-            qp, st["centroids"], st["payload"], st["local"],
-            st["centroid_tiles"], self._scale, st["ids"],
-            st["tile_window"], st["valid_end"],
-            k=k, p_tiles=p_tiles, tile_n=self.tile_n, tile_q=tq,
-            int8_q=(scoring != "precise"),
-        )
+        if self.residual:
+            return _tiles_resid_plan_search(
+                qp, st["centroids"], st["payload"], st["local"],
+                st["centroid_tiles"], self._scale, st["ids"],
+                st["tile_window"], st["valid_end"],
+                k=k, p_tiles=p_tiles, tile_n=self.tile_n, tile_q=tq,
+                int8_q=(scoring != "precise"),
+            )
+        if self.dtype == "int8":
+            # 'precise' maps to the hybrid scan: two-sided int8 is the
+            # noisiest mode and serves scoring='int8' only
+            int8 = True if scoring == "int8" else "hybrid"
+        else:
+            int8 = False
+        return _tiles_plan_search(
+            qp, st["centroids"], st["payload"], st["ids"], st["tile_window"],
+            self._scale, self._n, k=k, p_tiles=p_tiles, tile_n=self.tile_n,
+            tile_q=tq, int8=int8)
+
+    def _search_band(self, queries: np.ndarray, k: int, nprobe: int):
+        """Contiguous-band search (whole-row arenas; kept for comparison:
+        1-D id locality is weak in high dimensions, so bands prune poorly):
+        the host plan (``_plan_band``), the band scan (K7) and the unsort."""
+        nq = queries.shape[0]
+        st = self._device_state()
+        perm, q_dev, q_scale, band_start, band_tiles = self._plan_band(queries, nprobe)
+        v, rows = band_topk(
+            st["payload"], q_dev, band_start, k, band_tiles=band_tiles,
+            tile_n=self.tile_n, tile_q=self.tile_q, int8=self.dtype == "int8",
+            n_valid=self._n)
+        v = v.cpu().numpy() * (q_scale * self._scale)
+        gids = st["ids"][rows.long().clamp(0, self._n - 1)].cpu().numpy()
+
+        # unsort: perm[pos] is the caller's index of the query at sorted
+        # position pos; positions >= nq are padding
+        out_v = np.empty((nq, v.shape[1]), np.float32)
+        out_i = np.empty((nq, v.shape[1]), np.int64)
+        out_v[perm[:nq]] = v[:nq]
+        out_i[perm[:nq]] = gids[:nq]
+        return out_v, out_i
+
+    def _plan_band(self, queries: np.ndarray, nprobe: int):
+        """Host band planning: each query's nprobe nearest lists give it an
+        id band [lo, hi]; queries sort by band centre into groups of tile_q
+        (the last query repeated to fill the last group); each group scans
+        the arena tiles covering its union band, band_tiles of them (the
+        widest band, bucketed to a power of two), its start clamped so the
+        band ends inside the arena. Returns (perm, device queries in the
+        score mode's type, (Q_pad, 1) f32 query scales, (n_qt,) int32
+        band_start on the device, band_tiles)."""
+        nq = queries.shape[0]
+        nprobe = min(nprobe, self.nlist)
+        st = self._device_state()
+        _, probed = tiled_topk(st["centroids"], torch.as_tensor(queries, device=self.device),
+                               nprobe, metric="l2", tile=min(8192, self.nlist))
+        probed = probed.cpu().numpy()
+        lo = probed.min(axis=1)
+        hi = probed.max(axis=1)
+
+        order = np.argsort(lo + hi, kind="stable")
+        q_pad = -(-nq // self.tile_q) * self.tile_q
+        perm = np.concatenate([order, np.full(q_pad - nq, order[-1])])
+        q_sorted = queries[perm]
+        lo_s, hi_s = lo[perm], hi[perm]
+
+        n_tiles = int(self._payload.shape[0]) // self.tile_n
+        n_qt = q_pad // self.tile_q
+        t0 = np.empty(n_qt, np.int64)
+        t1 = np.empty(n_qt, np.int64)
+        for i in range(n_qt):
+            sl = slice(i * self.tile_q, (i + 1) * self.tile_q)
+            row_lo = self._offsets[lo_s[sl].min()]
+            row_hi = self._offsets[hi_s[sl].max() + 1]
+            t0[i] = row_lo // self.tile_n
+            t1[i] = -(-max(int(row_hi), int(row_lo) + 1) // self.tile_n)
+        band_tiles = min(_next_pow2(int((t1 - t0).max())), n_tiles)
+        band_start = np.minimum(t0, n_tiles - band_tiles).astype(np.int32)
+
+        if self.dtype == "int8":
+            q_amax = np.maximum(np.abs(q_sorted).max(axis=1, keepdims=True), 1e-12)
+            q_scale = q_amax / 127.0
+            q_dev = torch.as_tensor(
+                np.clip(np.round(q_sorted / q_scale), -127, 127).astype(np.int8),
+                device=self.device)
+        else:
+            q_scale = np.ones((q_pad, 1), np.float32)
+            q_dev = torch.as_tensor(q_sorted, device=self.device).to(st["payload"].dtype)
+        return (perm, q_dev, q_scale,
+                torch.as_tensor(band_start, device=self.device), band_tiles)
 
     def _resolve_tiles_knobs(self, nq, nprobe, p_tiles, tile_q):
         """Small-batch query-tile shrink + span-aware auto coverage."""
@@ -521,7 +692,7 @@ class BandIVFIndex(Index):
     def _state_arrays(self) -> dict:
         out = {
             "centroids": self.centroids,
-            "payload": self._payload.cpu().numpy(),
+            "payload": to_numpy(self._payload),
             "ids": self._ids,
             "offsets": self._offsets,
         }
@@ -554,9 +725,10 @@ class BandIVFIndex(Index):
         idx.centroids = np.array(arrays["centroids"], np.float32)  # off the mmap
         if "list_lens" in arrays:
             idx._list_lens = np.array(arrays["list_lens"], np.int64)
-        payload = torch.from_numpy(np.array(arrays["payload"], np.int8))
+        payload = from_numpy(arrays["payload"], _ARENA_DTYPES[idx.dtype])
         idx._set_arena(payload.to(idx.device), np.array(arrays["ids"], np.int64),
-                       arrays["offsets"], int(meta["n"]), float(meta["scale"]))
+                       np.asarray(arrays["offsets"], np.int64), int(meta["n"]),
+                       float(meta["scale"]))
         idx._next_id = int(meta.get("next_id", 0))
         return idx
 

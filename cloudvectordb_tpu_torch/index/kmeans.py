@@ -1,9 +1,9 @@
 """Lloyd's k-means (counterpart of cloudvectordb_tpu/index/kmeans.py).
 
 Per iteration: tiled nearest-centroid assignment (ops/assign.py), centroid
-update by scatter-add, and empty-cluster repair by re-seeding dead
-centroids onto jittered copies of the heaviest centroid. A fixed number of
-iterations, no host round trip between them.
+update by a segment sum in a fixed order, and empty-cluster repair by
+re-seeding dead centroids onto jittered copies of the heaviest centroid. A
+fixed number of iterations.
 """
 
 from __future__ import annotations
@@ -17,6 +17,33 @@ def _assign_tiled(x: torch.Tensor, centroids: torch.Tensor, tile: int) -> torch.
     c_sqnorm = (centroids * centroids).sum(dim=1)
     return torch.cat([_assign_block(x[s : s + tile], centroids, c_sqnorm)[0]
                       for s in range(0, x.shape[0], tile)])
+
+
+def _segment_sums(x: torch.Tensor, a: torch.Tensor, k: int):
+    """(k, D) f32 sums of the rows of ``x`` per assignment, and (k,) f32
+    counts, in an order fixed by the data alone (the reference's
+    ``segment_sum``; ``index_add_`` on CUDA adds with atomics in an order
+    that changes between runs).
+
+    Rows are stably sorted by assignment, then a segmented Hillis-Steele
+    scan doubles its span until it covers the longest segment: at span s,
+    row i adds row i-s when both lie in one segment. Each step is
+    elementwise, so every sum is the same pairwise tree on every run. The
+    last row of each segment then holds its sum. Integer counts
+    (``bincount``) are exact in any order.
+    """
+    order = torch.argsort(a, stable=True)
+    seg = a[order]
+    v = x[order]
+    counts = torch.bincount(a, minlength=k)
+    span, longest = 1, int(counts.max())
+    while span < longest:
+        same = (seg[span:] == seg[:-span])[:, None]
+        v = torch.cat([v[:span], v[span:] + torch.where(same, v[:-span], 0.0)])
+        span *= 2
+    last = (torch.cumsum(counts, 0) - 1).clamp_min(0)
+    sums = torch.where((counts > 0)[:, None], v[last], 0.0)
+    return sums, counts.float()
 
 
 def train_kmeans(
@@ -35,10 +62,9 @@ def train_kmeans(
     ``jax.random.permutation``, which torch cannot reproduce, so parity
     tests pass the same ``init_centroids`` to both packages.
 
-    The centroid update sums with ``index_add_``. On CUDA that sums with
-    atomics in an order that changes from run to run, so centroids vary in
-    their last bits between runs (and so, at rounding edges, can the
-    assignments that follow).
+    The centroid update is ``_segment_sums``: the same input gives
+    bit-identical centroids on every run, on the CPU and on CUDA, with no
+    global determinism switch.
     """
     n, d = x.shape
     xf = x.float()
@@ -55,9 +81,7 @@ def train_kmeans(
             centroids += 1e-4 * torch.randn((k, d), generator=gen, device=x.device)
     for _ in range(iters):
         a = _assign_tiled(xf, centroids, tile)
-        sums = torch.zeros((k, d), dtype=torch.float32, device=x.device).index_add_(0, a, xf)
-        counts = torch.zeros(k, dtype=torch.float32, device=x.device).index_add_(
-            0, a, torch.ones(n, dtype=torch.float32, device=x.device))
+        sums, counts = _segment_sums(xf, a, k)
         new_c = sums / counts.clamp_min(1.0)[:, None]
         # empty-cluster repair: dead centroids become jittered copies of the
         # heaviest one (jitter from the seeded generator)

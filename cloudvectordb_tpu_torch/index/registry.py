@@ -1,8 +1,9 @@
 """Polymorphic load (counterpart of cloudvectordb_tpu/index/registry.py).
 
 Reads a directory in the shared on-disk format (index/base.py), saved by
-either package, onto an explicit device. This slice loads the residual-int8
-``band_ivf`` kind; every other kind raises and names the slice it waits for.
+either package, onto an explicit device. This slice loads the ``flat`` and
+``band_ivf`` kinds (residual-int8 and whole-row arenas); every other kind
+raises and names the slice it waits for.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ from pathlib import Path
 import torch
 
 from cloudvectordb_tpu_torch.index.base import MANIFEST, Index
+from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
 
+_KINDS = {"flat": FlatIndex, "band_ivf": BandIVFIndex}
 _LATER = {
-    "flat": "the flat-index slice (flat_topk kernel)",
     "ivf_flat": "the probe-scan families slice",
     "ivf_pq": "the probe-scan families slice",
     "band_ivf_pq": "the PQ-tiles slice (pq_tiles_topk kernel)",
@@ -33,13 +35,10 @@ def load_index(path: str | Path, device: str | torch.device = "cpu",
             "distribution slice")
     manifest = Index.read_manifest(path)
     kind = manifest["kind"]
-    if kind != "band_ivf":
+    if kind not in _KINDS:
         raise NotImplementedError(
             f"index kind {kind!r} arrives with {_LATER.get(kind, 'a later slice')}")
-    if not manifest["meta"].get("residual", False):
-        raise NotImplementedError(
-            "whole-row band_ivf arenas arrive with the tiles_topk slice")
-    idx = BandIVFIndex._from_state(manifest, Index.load_arrays(path, mmap=mmap),
+    idx = _KINDS[kind]._from_state(manifest, Index.load_arrays(path, mmap=mmap),
                                    device=device)
     if manifest.get("op_point"):  # tuned serving knobs (eval/tune.py)
         idx._op_point = dict(manifest["op_point"])

@@ -1,15 +1,19 @@
-"""Build and bind ``csrc/tiles_resid.cu`` (the CUDA side of ops/band.py; the
-JAX package has no counterpart: Pallas compiled its kernel inside jit).
+"""Build and bind the hand-written kernels in ``csrc/*.cu`` (the CUDA side of
+ops/band.py and ops/flat_topk.py; the JAX package has no counterpart:
+Pallas compiled its kernels inside jit).
 
-nvcc compiles the source into a shared library with a plain C interface,
-on first use, into the package's gitignored ``_build/`` directory, under a
-name keyed by a hash of the source's content. ctypes loads it; every pointer
-and the stream pass as ``c_void_p``. The C function returns
-``cudaGetLastError()`` after the launch and the wrapper raises if it is not
-0. Nothing here falls back to the plain version: a kernel that does not
-build or launch is an error.
+nvcc compiles each source into a shared library of its own with a plain C
+interface, on first use, into the package's gitignored ``_build/``
+directory, under a name keyed by a hash of the source and of every local
+header it includes (``#include "x.cuh"``, followed transitively), so an
+edited shared header never loads a stale library. ``build()`` starts one
+nvcc per source, all at once. ctypes loads a library; every pointer and the
+stream pass as ``c_void_p``. Each C function returns ``cudaGetLastError()``
+after its launch and the wrapper raises if it is not 0. Nothing here falls
+back to a plain version: a kernel that does not build or launch is an error.
 
-Only ops/band.py imports this module, and only for CUDA tensors.
+The kernel wrappers (ops/band.py, ops/flat_topk.py) import this module only
+for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,10 +29,27 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "tiles_resid.cu"
+_CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"  # gitignored
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
-_lib = None
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+#: C functions of each library: name -> (argtypes, restype)
+_SIGNATURES = {
+    "tiles_resid": {
+        "cvdb_tiles_resid": ([_VP] * 10 + [_CI] * 8 + [_VP], _CI),
+        "cvdb_tiles_resid_smem_bytes": ([_CI, _CI], _CI),
+        "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
+    },
+    "tiles_scan": {
+        "cvdb_tiles_scan": ([_CI] * 3 + [_VP] * 6 + [_CI] * 8 + [_VP], _CI),
+        "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
+    },
+}
+#: element types, as tiles_scan.cu numbers them
+_ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -41,40 +63,71 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library if this source has not been built yet.
-    Returns (library path, compiler output: ptxas' register and shared
-    memory report, empty when the library was already built)."""
-    src_hash = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    lib_path = _BUILD / f"libtiles_resid.{src_hash}.so"
-    if lib_path.exists():
-        return lib_path, ""
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD / f"{lib_path.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    tmp.replace(lib_path)  # atomic: concurrent loaders see whole files
-    return lib_path, res.stderr
+def _sources(src: Path) -> list[Path]:
+    """``src`` and every local header it includes, transitively."""
+    seen: list[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [(path.parent / name).resolve()
+                 for name in _INCLUDE.findall(path.read_text())]
+    return seen
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib_path, _ = build()
-        lib = ctypes.CDLL(str(lib_path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.cvdb_tiles_resid.argtypes = [vp] * 10 + [ci] * 8 + [vp]
-        lib.cvdb_tiles_resid.restype = ci
-        lib.cvdb_tiles_resid_smem_bytes.argtypes = [ci, ci]
-        lib.cvdb_tiles_resid_smem_bytes.restype = ci
-        lib.cvdb_cuda_error_string.argtypes = [ci]
-        lib.cvdb_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    h = hashlib.sha256()
+    for path in sorted(_sources(_CSRC / f"{name}.cu")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return _BUILD / f"lib{name}.{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, tuple[Path, str]]:
+    """Compile the given sources (default: every ``csrc/*.cu``) that are not
+    built yet, one nvcc each, all started together. Returns name ->
+    (library path, compiler output: ptxas' register and shared memory
+    report, empty when the library was already built)."""
+    names = names or sorted(p.stem for p in _CSRC.glob("*.cu"))
+    done: dict[str, tuple[Path, str]] = {}
+    running = []
+    for name in names:
+        lib = lib_path(name)
+        if lib.exists():
+            done[name] = (lib, "")
+            continue
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = _BUILD / f"{lib.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        running.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, lib, tmp, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu: nvcc failed ({proc.returncode}):\n{err}")
+            continue
+        tmp.replace(lib)  # atomic: concurrent loaders see whole files
+        done[name] = (lib, err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def _load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        lib_file, _ = build([name])[name]
+        lib = ctypes.CDLL(str(lib_file))
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _need(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device):
@@ -85,10 +138,20 @@ def _need(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device):
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _check(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
+    if rc != 0:
+        msg = lib.cvdb_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({rc})")
+
+
 def tiles_resid_slots(db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale,
                       tile_table, valid_end, *, tile_n: int, tile_q: int,
                       l_buckets: int):
-    """Launch the scan: (Q_pad, L) f32 slot values and (Q_pad, L) int32 arena
+    """Launch K1: (Q_pad, L) f32 slot values and (Q_pad, L) int32 arena
     rows, on the tensors' device and PyTorch's current stream. Shapes are
     checked by ops/band.py; this checks what the kernel reads raw."""
     dev = db_resid.device
@@ -108,7 +171,7 @@ def tiles_resid_slots(db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale
     w = centroid_tiles.shape[1]
     if n >= 2**31:
         raise ValueError(f"arena rows {n} exceed the kernel's int32 row ids")
-    lib = _load()
+    lib = _load("tiles_resid")
     smem = lib.cvdb_tiles_resid_smem_bytes(d, w)
     if smem > _SMEM_MAX:
         raise ValueError(f"D={d}, W={w} need {smem} B of shared memory > {_SMEM_MAX}")
@@ -119,9 +182,44 @@ def tiles_resid_slots(db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale
         q_bf16.data_ptr(), q8.data_ptr(), row_scale.data_ptr(),
         tile_table.data_ptr(), valid_end.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), n_qt, tile_q, p, tile_n, l_buckets, d, w,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "tiles_resid")
+    return out_v, out_i
+
+
+def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: int,
+                     steps: int, tile_n: int, l_buckets: int, n_valid: int):
+    """Launch the whole-row scan (K2, K3 or K7, by ``source``, numbered as
+    ops/band.py's SCAN_*): (Q, L) f32 slot values and (Q, L) int32 arena
+    rows, on the tensors' device and PyTorch's current stream. ``table`` is
+    None (ALL), the (n_qt, steps) tile table (TABLE) or the (n_qt,) band
+    starts (BAND);
+    ``sqnorm`` is None or the (N,) f32 l2 bias. Shapes are checked by the
+    callers; this checks what the kernel reads raw."""
+    dev = db.device
+    if db.dtype not in _ELEM or q.dtype not in _ELEM:
+        raise TypeError(f"no scan for {q.dtype} queries x {db.dtype} rows")
+    _need(db, "db", db.dtype, dev)
+    _need(q, "queries", q.dtype, dev)
+    if table is not None:
+        _need(table, "table", torch.int32, dev)
+    if sqnorm is not None:
+        _need(sqnorm, "sqnorm", torch.float32, dev)
+    n, d = db.shape
+    nq = q.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"arena rows {n} exceed the kernel's int32 row ids")
+    if n_qt * -(-tile_q // 32) > 65535:
+        raise ValueError(f"{n_qt} query tiles of {tile_q} exceed the launch grid")
+    lib = _load("tiles_scan")
+    out_v = torch.empty((nq, l_buckets), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, l_buckets), dtype=torch.int32, device=dev)
+    rc = lib.cvdb_tiles_scan(
+        source, _ELEM[q.dtype], _ELEM[db.dtype], db.data_ptr(), q.data_ptr(),
+        None if table is None else table.data_ptr(),
+        None if sqnorm is None else sqnorm.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), n_qt, tile_q, steps, tile_n,
+        l_buckets, d, n_valid, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        msg = lib.cvdb_cuda_error_string(rc).decode()
-        raise RuntimeError(f"tiles_resid kernel launch failed: {msg} ({rc})")
+    _check(lib, rc, "tiles_scan")
     return out_v, out_i

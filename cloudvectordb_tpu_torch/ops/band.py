@@ -1,26 +1,33 @@
-"""Residual-int8 tile-table scan (counterpart of
-cloudvectordb_tpu/ops/pallas_band.py; this slice ports ``order_centroids``
-and ``tiles_topk_resid_pallas``).
+"""Tile scans over an arena (counterpart of cloudvectordb_tpu/ops/pallas_band.py:
+``order_centroids``, ``tiles_topk_resid_pallas`` (K1), ``tiles_topk_pallas``
+(K3) and ``band_topk_pallas`` (K7); K2, ``flat_topk_pallas``, is
+ops/flat_topk.py on the same scan).
 
-``tiles_topk_resid`` dispatches on the device of its tensors: CUDA tensors
-go to the hand-written kernel (``csrc/tiles_resid.cu``, built and bound by
-``ops/_cuda.py``), CPU tensors to the plain version
-``tiles_topk_resid_reference``. There is no third path and no fallback: a
-kernel that fails to build or launch raises.
+Each wrapper dispatches on the device of its tensors: CUDA tensors go to a
+hand-written kernel (K1 ``csrc/tiles_resid.cu``; K2, K3 and K7 one kernel,
+``csrc/tiles_scan.cu``; built and bound by ``ops/_cuda.py``), CPU tensors to
+the plain version (``*_reference``). There is no third path and no
+fallback: a kernel that fails to build or launch raises.
 
-Contract (the reference kernel ``_tiles_resid_kernel`` with int8_q=True,
-no row_mask, no l2, no top2). For query tile ``qt``, table entry ``p``,
-arena tile ``t = tile_table[qt, p]`` and arena row ``g`` of that tile::
+The bucketed-slot merge, written once (``_bucket_merge``; its CUDA twin is
+``csrc/slot_merge.cuh``). Each query keeps ``l_buckets`` slots (L). Within a
+tile, bucket ``b`` takes the best of rows ``t·tile_n + r·L + b`` over r (the
+smallest r on ties); across steps a strict ``>`` keeps the earlier step on
+ties. Slots start at (-inf, row 0). The final top-k over the slots is a
+stable descending sort, so ties go to the lower slot as ``lax.top_k`` does.
+
+K1 (the reference kernel ``_tiles_resid_kernel`` with int8_q=True, no
+row_mask, no l2, no top2). For query tile ``qt``, table entry ``p``, arena
+tile ``t = tile_table[qt, p]`` and arena row ``g`` of that tile::
 
     score = bf16(q)·bf16(c[local[g]])  (f32 accumulation)
             + row_scale[q] · (q8 · r8[g])  (exact int32)
     live  = g < valid_end[t, local[g]]
 
-Each query keeps ``l_buckets`` slots (L). Within a tile, bucket ``b`` takes
-the best of rows ``t·tile_n + r·L + b`` over r (the smallest r on ties);
-across table entries a strict ``>`` keeps the earlier entry on ties. Slots
-start at (-inf, row 0). The final top-k over the slots is a stable
-descending sort, so ties go to the lower slot as ``lax.top_k`` does.
+K3 and K7 (``_tiles_kernel``, ``_band_kernel``; no top2): whole rows, step j
+of query tile qt reads tile ``tile_table[qt, j]`` (K3) or ``band_start[qt]
++ j`` (K7), scores ``q·row[g]`` under the mode the reference's ``int8`` flag
+names (``_score_tile``), and rows ``g >= n_valid`` score -inf.
 """
 
 from __future__ import annotations
@@ -28,7 +35,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cloudvectordb_tpu_torch.ops.topk import NEG_INF, topk_stable
+from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const, topk_stable
+
+#: where step j of a whole-row scan reads, as csrc/tiles_scan.cu numbers it:
+#: tile j (K2), tile_table[qt, j] (K3), band_start[qt] + j (K7)
+SCAN_ALL, SCAN_TABLE, SCAN_BAND = 0, 1, 2
 
 
 def order_centroids(centroids: np.ndarray) -> np.ndarray:
@@ -69,13 +80,21 @@ def order_centroids(centroids: np.ndarray) -> np.ndarray:
 def _quantize_queries(queries_sorted: torch.Tensor, resid_scale: float):
     """(bf16 queries, int8 queries, (Q,) f32 row scale) — the reference's
     expressions (pallas_band.py:675-680), so q8 matches it byte for byte
-    (torch.round, like jnp.round, rounds half to even)."""
+    (torch.round, like jnp.round, rounds half to even; the constants are
+    f32 tensors, see ``f32_const``)."""
     qf = queries_sorted.float()
     q_amax = qf.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
-    q8 = torch.clamp(torch.round(qf * (127.0 / q_amax)), -127, 127).to(torch.int8)
-    rs = torch.tensor(resid_scale, dtype=torch.float32, device=qf.device)
-    row_scale = ((q_amax / 127.0) * rs).reshape(-1)
+    c127 = f32_const(127.0, qf)
+    q8 = torch.clamp(torch.round(qf * (c127 / q_amax)), -127, 127).to(torch.int8)
+    row_scale = ((q_amax / c127) * f32_const(resid_scale, qf)).reshape(-1)
     return qf.to(torch.bfloat16), q8, row_scale
+
+
+def _resolve_buckets(tile_n: int, l_buckets: int) -> int:
+    l_buckets = min(l_buckets or tile_n, tile_n)  # 0: L = tile_n (R = 1)
+    if tile_n % l_buckets:
+        raise ValueError(f"l_buckets {l_buckets} must divide tile_n {tile_n}")
+    return l_buckets
 
 
 def _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
@@ -92,11 +111,7 @@ def _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
                          f"tile_n {tile_n} / tile_q {tile_q}")
     if d % 4:
         raise ValueError(f"D={d} must be a multiple of 4")
-    if l_buckets == 0:
-        l_buckets = tile_n
-    l_buckets = min(l_buckets, tile_n)
-    if tile_n % l_buckets:
-        raise ValueError(f"l_buckets {l_buckets} must divide tile_n {tile_n}")
+    l_buckets = _resolve_buckets(tile_n, l_buckets)
     n_tiles = n // tile_n
     w = centroid_tiles.shape[1]
     if tuple(centroid_tiles.shape) != (n_tiles, w, d):
@@ -118,6 +133,31 @@ def _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
     return l_buckets
 
 
+def _slots_init(n_qt: int, tile_q: int, l_buckets: int, dev):
+    """(n_qt, tile_q, L) slots at (-inf, row 0)."""
+    return (torch.full((n_qt, tile_q, l_buckets), NEG_INF, device=dev),
+            torch.zeros((n_qt, tile_q, l_buckets), dtype=torch.int64, device=dev))
+
+
+def _bucket_merge(scores, base, l_buckets: int, best_v, best_i):
+    """One step of the bucketed-slot merge (module docstring; the plain twin
+    of csrc/slot_merge.cuh). ``scores`` (n_qt, tile_q, tile_n) are the
+    step's tile scores with masked rows at -inf, ``base`` (n_qt,) int64 the
+    arena row of each tile's first row, ``best_*`` the (n_qt, tile_q, L)
+    running slots. Returns the updated slots."""
+    n_qt, tile_q, tile_n = scores.shape
+    r_per = tile_n // l_buckets
+    dev = scores.device
+    s4 = scores.view(n_qt, tile_q, r_per, l_buckets)
+    mx = s4.amax(dim=2)
+    r_iota = torch.arange(r_per, device=dev).view(1, 1, r_per, 1)
+    r_star = torch.where(s4 >= mx[:, :, None, :], r_iota, r_per).amin(dim=2)
+    b_iota = torch.arange(l_buckets, device=dev, dtype=torch.int64)
+    new_idx = base[:, None, None] + r_star * l_buckets + b_iota
+    better = mx > best_v
+    return torch.where(better, mx, best_v), torch.where(better, new_idx, best_i)
+
+
 def _slots_reference(db_resid, local_ids, centroid_tiles, q_bf16, q8,
                      row_scale, tile_table, valid_end, tile_n, tile_q,
                      l_buckets):
@@ -127,7 +167,6 @@ def _slots_reference(db_resid, local_ids, centroid_tiles, q_bf16, q8,
     n, d = db_resid.shape
     nq = q8.shape[0]
     n_qt, p = tile_table.shape
-    r_per = tile_n // l_buckets
     dev = db_resid.device
     rows3 = db_resid.view(n // tile_n, tile_n, d)
     local3 = local_ids.reshape(n // tile_n, tile_n).long()
@@ -136,10 +175,7 @@ def _slots_reference(db_resid, local_ids, centroid_tiles, q_bf16, q8,
     rst = row_scale.view(n_qt, tile_q, 1)
     ct = centroid_tiles.to(torch.bfloat16).float()
     row_iota = torch.arange(tile_n, device=dev, dtype=torch.int64)
-    r_iota = torch.arange(r_per, device=dev).view(1, 1, r_per, 1)
-    b_iota = torch.arange(l_buckets, device=dev, dtype=torch.int64)
-    best_v = torch.full((n_qt, tile_q, l_buckets), NEG_INF, device=dev)
-    best_i = torch.zeros((n_qt, tile_q, l_buckets), dtype=torch.int64, device=dev)
+    best_v, best_i = _slots_init(n_qt, tile_q, l_buckets, dev)
     for j in range(p):
         t = tile_table[:, j].long()  # (n_qt,)
         r_scores = torch.bmm(q8t, rows3[t].double().transpose(1, 2)).float()
@@ -149,15 +185,8 @@ def _slots_reference(db_resid, local_ids, centroid_tiles, q_bf16, q8,
         scores = c_scores + rst * r_scores
         g = t[:, None] * tile_n + row_iota[None, :]
         ve = torch.gather(valid_end[t].long(), 1, loc)
-        scores = torch.where((g < ve)[:, None, :], scores,
-                             torch.full_like(scores, NEG_INF))
-        s4 = scores.view(n_qt, tile_q, r_per, l_buckets)
-        mx = s4.amax(dim=2)
-        r_star = torch.where(s4 >= mx[:, :, None, :], r_iota, r_per).amin(dim=2)
-        new_idx = t[:, None, None] * tile_n + r_star * l_buckets + b_iota
-        better = mx > best_v
-        best_v = torch.where(better, mx, best_v)
-        best_i = torch.where(better, new_idx, best_i)
+        scores = torch.where((g < ve)[:, None, :], scores, NEG_INF)
+        best_v, best_i = _bucket_merge(scores, t * tile_n, l_buckets, best_v, best_i)
     return best_v.view(nq, l_buckets), best_i.view(nq, l_buckets).int()
 
 
@@ -232,3 +261,189 @@ def tiles_topk_resid(
 
 #: kernel launches since the last reset (the card run resets and reads it)
 tiles_topk_resid.launches = 0
+
+
+# -- whole-row scans: K3 (tile table), K7 (band); K2 in ops/flat_topk.py ------
+#: the (query, row) element types the scan takes, by the reference's int8
+#: flag: True int8 x int8, 'hybrid' bf16 x int8, False the native dtypes
+_NATIVE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                 (torch.float32, torch.bfloat16)}
+
+
+def _check_score_mode(queries, db, int8) -> None:
+    pair = (queries.dtype, db.dtype)
+    if int8 == "hybrid":
+        ok = pair == (torch.bfloat16, torch.int8)
+    elif int8:
+        ok = pair == (torch.int8, torch.int8)
+    else:
+        ok = pair in _NATIVE_PAIRS
+    if not ok:
+        raise TypeError(f"int8={int8!r} does not score {queries.dtype} queries "
+                        f"against {db.dtype} rows")
+
+
+def _scan_reference(db, q, tiles, sqnorm, tile_n: int, tile_q: int,
+                    l_buckets: int, n_valid: int):
+    """Plain whole-row scan (K2, K3, K7): (Q, L) f32 slot values and (Q, L)
+    int32 arena rows. ``tiles`` (n_qt, S) int64 names the arena tile of each
+    query tile at each step (n_qt = 1 and tile_q = Q for the flat scan).
+    Rows outside [0, n_valid) score -inf; only tile-sized row blocks are
+    gathered, never a padded copy of ``db``. int8 x int8 dots are exact:
+    every partial sum is an integer below 2^24 in f32 (D <= 1024), else the
+    dot runs in float64."""
+    n, d = db.shape
+    nq = q.shape[0]
+    n_qt = tiles.shape[0]
+    dev = db.device
+    acc = torch.float32
+    if q.dtype == torch.int8 and 128 * 128 * d > 2**24:
+        acc = torch.float64
+    qt = q.to(acc).view(n_qt, tile_q, d)
+    row_iota = torch.arange(tile_n, device=dev, dtype=torch.int64)
+    best_v, best_i = _slots_init(n_qt, tile_q, l_buckets, dev)
+    for j in range(tiles.shape[1]):
+        t = tiles[:, j]
+        g = t[:, None] * tile_n + row_iota  # (n_qt, tile_n)
+        gc = g.clamp(0, n - 1)
+        scores = torch.bmm(qt, db[gc].to(acc).transpose(1, 2)).float()
+        if sqnorm is not None:  # the flat index's l2: 2 q·x - ||x||²
+            scores = 2.0 * scores - sqnorm[gc][:, None, :]
+        live = (g >= 0) & (g < n_valid)
+        scores = torch.where(live[:, None, :], scores, NEG_INF)
+        best_v, best_i = _bucket_merge(scores, t * tile_n, l_buckets, best_v, best_i)
+    return best_v.view(nq, l_buckets), best_i.view(nq, l_buckets).int()
+
+
+def _scan_slots(source: int, db, q, table, steps: int, sqnorm, *, tile_n: int,
+                tile_q: int, l_buckets: int, n_valid: int, plain: bool):
+    """(Q, L) slots of a whole-row scan: the plain version when ``plain`` or
+    on CPU tensors, the kernel (csrc/tiles_scan.cu) on CUDA tensors.
+    Returns (values, rows, launched)."""
+    dev = db.device
+    if plain or dev.type == "cpu":
+        step = torch.arange(steps, device=dev, dtype=torch.int64)
+        if source == SCAN_ALL:
+            tiles = step[None, :]
+        elif source == SCAN_TABLE:
+            tiles = table.long()
+        else:
+            tiles = table.long()[:, None] + step
+        out = _scan_reference(db, q, tiles, sqnorm, tile_n, tile_q, l_buckets, n_valid)
+        return (*out, False)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no whole-row scan for {dev.type} tensors")
+    from cloudvectordb_tpu_torch.ops import _cuda
+
+    out = _cuda.tiles_scan_slots(
+        source, db, q.contiguous(), None if table is None else table.to(torch.int32).contiguous(),
+        sqnorm, n_qt=q.shape[0] // tile_q, tile_q=tile_q, steps=steps, tile_n=tile_n,
+        l_buckets=l_buckets, n_valid=n_valid)
+    return (*out, True)
+
+
+def _check_arena(db, queries_sorted, tile_n: int, tile_q: int, int8, top2: bool,
+                 others=()) -> None:
+    if top2:
+        raise NotImplementedError("top2 arrives with the l2/top2 slice")
+    n = db.shape[0]
+    nq = queries_sorted.shape[0]
+    if n % tile_n or nq % tile_q:
+        raise ValueError(f"rows {n} / queries {nq} not multiples of "
+                         f"tile_n {tile_n} / tile_q {tile_q}")
+    if queries_sorted.shape[1] != db.shape[1]:
+        raise ValueError(f"queries D={queries_sorted.shape[1]} != rows D={db.shape[1]}")
+    _check_score_mode(queries_sorted, db, int8)
+    devices = {t.device for t in (db, queries_sorted, *others)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {devices}")
+
+
+def _tiles_topk(db, queries_sorted, tile_table, k, tile_n, tile_q, l_buckets,
+                int8, n_valid, top2, plain):
+    _check_arena(db, queries_sorted, tile_n, tile_q, int8, top2, (tile_table,))
+    l_buckets = _resolve_buckets(tile_n, l_buckets)
+    n_qt = queries_sorted.shape[0] // tile_q
+    if tile_table.dim() != 2 or tile_table.shape[0] != n_qt:
+        raise ValueError(f"tile_table {tuple(tile_table.shape)} needs {n_qt} rows")
+    out_v, out_i, launched = _scan_slots(
+        SCAN_TABLE, db, queries_sorted, tile_table, tile_table.shape[1], None,
+        tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets,
+        n_valid=db.shape[0] if n_valid is None else int(n_valid), plain=plain)
+    tiles_topk.launches += launched
+    return _final_topk(out_v, out_i, k)
+
+
+def tiles_topk(
+    db,              # (N_pad, D) whole rows: int8, bf16 or f32
+    queries_sorted,  # (Q_pad, D) pre-sorted queries, as the score mode takes them
+    tile_table,      # (n_qt, P) int32 arena-tile ids (repeats harmless)
+    k: int,
+    tile_n: int = 2048,
+    tile_q: int = 256,
+    l_buckets: int = 0,
+    int8=False,      # True int8 x int8, 'hybrid' bf16 x int8, False native dtypes
+    n_valid=None,    # true row count; rows >= n_valid never become candidates
+    top2: bool = False,
+):
+    """K3: top-k over each query tile's table of arena tiles: (Q_pad, k) f32
+    scores and (Q_pad, k) int32 arena rows (module docstring). CUDA tensors
+    launch the hand-written kernel; CPU tensors run the plain version."""
+    return _tiles_topk(db, queries_sorted, tile_table, k, tile_n, tile_q,
+                       l_buckets, int8, n_valid, top2, plain=False)
+
+
+def tiles_topk_reference(db, queries_sorted, tile_table, k: int, tile_n: int = 2048,
+                         tile_q: int = 256, l_buckets: int = 0, int8=False,
+                         n_valid=None, top2: bool = False):
+    """Plain PyTorch version of ``tiles_topk`` on any device: the CPU path
+    of the wrapper, and the kernel's yardstick on the card."""
+    return _tiles_topk(db, queries_sorted, tile_table, k, tile_n, tile_q,
+                       l_buckets, int8, n_valid, top2, plain=True)
+
+
+def _band_topk(db, queries_sorted, band_start, k, band_tiles, tile_n, tile_q,
+               l_buckets, int8, n_valid, plain):
+    _check_arena(db, queries_sorted, tile_n, tile_q, int8, False, (band_start,))
+    l_buckets = _resolve_buckets(tile_n, l_buckets)
+    n_qt = queries_sorted.shape[0] // tile_q
+    if tuple(band_start.shape) != (n_qt,):
+        raise ValueError(f"band_start {tuple(band_start.shape)} needs ({n_qt},)")
+    out_v, out_i, launched = _scan_slots(
+        SCAN_BAND, db, queries_sorted, band_start, band_tiles, None,
+        tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets,
+        n_valid=db.shape[0] if n_valid is None else int(n_valid), plain=plain)
+    band_topk.launches += launched
+    return _final_topk(out_v, out_i, k)
+
+
+def band_topk(
+    db,              # (N_pad, D) whole rows: int8, bf16 or f32
+    queries_sorted,  # (Q_pad, D) pre-sorted queries, as the score mode takes them
+    band_start,      # (n_qt,) int32 first arena tile of each query tile's band
+    k: int,
+    band_tiles: int,  # tiles per band; the caller clamps band_start
+    tile_n: int = 2048,
+    tile_q: int = 256,
+    l_buckets: int = 0,
+    int8=False,
+    n_valid=None,
+):
+    """K7: top-k over each query tile's contiguous band of arena tiles,
+    ``band_start[qt] + j`` for j < band_tiles: (Q_pad, k) f32 scores and
+    (Q_pad, k) int32 arena rows. CUDA tensors launch the hand-written
+    kernel; CPU tensors run the plain version."""
+    return _band_topk(db, queries_sorted, band_start, k, band_tiles, tile_n,
+                      tile_q, l_buckets, int8, n_valid, plain=False)
+
+
+def band_topk_reference(db, queries_sorted, band_start, k: int, band_tiles: int,
+                        tile_n: int = 2048, tile_q: int = 256, l_buckets: int = 0,
+                        int8=False, n_valid=None):
+    """Plain PyTorch version of ``band_topk`` on any device."""
+    return _band_topk(db, queries_sorted, band_start, k, band_tiles, tile_n,
+                      tile_q, l_buckets, int8, n_valid, plain=True)
+
+
+tiles_topk.launches = 0
+band_topk.launches = 0

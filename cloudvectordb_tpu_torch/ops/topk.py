@@ -18,6 +18,15 @@ import torch
 NEG_INF = float("-inf")
 
 
+def f32_const(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to f32 as a 0-d tensor on ``like``'s device, made by a
+    fill (no host copy, no sync). Arithmetic with it rounds as the
+    reference's with an f32 constant does; with a Python scalar it need not:
+    torch divides a CUDA tensor by a scalar as a multiply by its reciprocal,
+    and computes ``scalar / tensor`` as ``tensor.reciprocal() * scalar``."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
 def topk_stable(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last axis with ``lax.top_k``'s tie order: equal values
     keep their original order, so the lower position wins."""

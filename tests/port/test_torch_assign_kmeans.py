@@ -4,7 +4,9 @@ on the same numpy inputs.
 Tolerances: assignments >= 99.9% equal (f32 distances summed in another
 order can flip a near-tie), squared distances within 1e-4; k-means
 centroids within 1e-4 after a fixed number of Lloyd iterations from the same
-init on data where no cluster empties."""
+init on data where no cluster empties. The fixed-order segment sum of the
+centroid update within 2e-6 relative of a float64 sum (f32 rounding of a
+pairwise tree over at most a few thousand rows)."""
 
 import jax
 import numpy as np
@@ -14,7 +16,7 @@ import torch
 from cloudvectordb_tpu.data.synthetic import clustered_vectors
 from cloudvectordb_tpu.index.kmeans import train_kmeans as jax_train_kmeans
 from cloudvectordb_tpu.ops.assign import assign_clusters as jax_assign_clusters
-from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
+from cloudvectordb_tpu_torch.index.kmeans import _segment_sums, train_kmeans
 from cloudvectordb_tpu_torch.ops.assign import assign_clusters
 
 
@@ -55,3 +57,19 @@ def test_train_kmeans_own_init_is_seeded_and_repairs_empties():
     c3, a3 = train_kmeans(tiny, 32, iters=3, seed=0)
     assert c3.shape == (32, 16) and torch.isfinite(c3).all()
     assert a3.shape == (10,)
+
+
+@pytest.mark.parametrize("k", [1, 7, 300])
+def test_segment_sums_match_a_float64_sum(k):
+    """The centroid update's sums, in a fixed order: skewed segment sizes
+    (one segment holds half the rows), empty segments, ragged spans."""
+    rng = np.random.default_rng(k)
+    x = rng.normal(size=(5000, 24)).astype(np.float32)
+    a = np.where(rng.random(5000) < 0.5, 0, rng.integers(0, k, 5000)) % max(k - 1, 1)
+    sums, counts = _segment_sums(torch.from_numpy(x), torch.from_numpy(a), k)
+    ref = np.zeros((k, 24), np.float64)
+    np.add.at(ref, a, x.astype(np.float64))
+    np.testing.assert_array_equal(counts.numpy(), np.bincount(a, minlength=k))
+    np.testing.assert_allclose(sums.numpy(), ref, rtol=2e-6, atol=2e-5)
+    again, _ = _segment_sums(torch.from_numpy(x), torch.from_numpy(a), k)
+    assert torch.equal(again, sums)

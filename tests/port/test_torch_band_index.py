@@ -173,12 +173,12 @@ def test_search_device_matches_search(data, jidx):
 
 def test_unported_options_raise(data, jidx, tmp_path):
     with pytest.raises(NotImplementedError):
-        BandIVFIndex(64, 16)  # whole-row arena
-    with pytest.raises(NotImplementedError):
         BandIVFIndex(64, 16, residual=True, slack=0.5)
     with pytest.raises(NotImplementedError):
         BandIVFIndex(64, 16, residual=True, metric="l2")
     t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays())
+    with pytest.raises(NotImplementedError):
+        t.search(data[1], 10, top2=True)  # K1's top2 variant
     with pytest.raises(NotImplementedError):
         t.add(data[0][:4])
     with pytest.raises(NotImplementedError):

@@ -113,3 +113,19 @@ def test_unported_variants_raise(kw):
         band.tiles_topk_resid(t(x["payload"]), t(x["local"]), t(x["ct"]), 0.1,
                               t(x["queries"]), t(x["table"]), 10,
                               t(x["valid_end"]), tile_n=256, tile_q=16, **kw)
+
+
+def test_query_quantization_is_the_reference_byte_for_byte():
+    """K1's int8 queries and row scales are the reference's expressions
+    (pallas_band.py:676-680) to the bit. torch computes ``127.0 / t`` as
+    ``t.reciprocal() * 127`` (two roundings), which moved q8 by one step on
+    a few codes in a million; the port divides by f32 tensors instead."""
+    import jax.numpy as jnp
+
+    q = np.random.default_rng(6).normal(size=(200_000, 64)).astype(np.float32)
+    q_amax = jnp.maximum(jnp.max(jnp.abs(q), axis=1, keepdims=True), 1e-12)
+    q8_j = jnp.clip(jnp.round(q * (127.0 / q_amax)), -127, 127).astype(jnp.int8)
+    rs_j = (q_amax / 127.0) * jnp.asarray(0.02, jnp.float32)
+    _, q8, row_scale = band._quantize_queries(torch.from_numpy(q), 0.02)
+    np.testing.assert_array_equal(q8.numpy(), np.asarray(q8_j))
+    np.testing.assert_array_equal(row_scale.numpy(), np.asarray(rs_j).reshape(-1))

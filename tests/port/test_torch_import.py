@@ -1,6 +1,7 @@
-"""The port stands alone: importing it, and running its main path on CPU
-tensors, loads no JAX, Flax, Triton or reference package, and never reaches
-the CUDA binding (ops/_cuda.py): CPU tensors go to the plain version."""
+"""The port stands alone: importing it, and running its paths on CPU tensors
+(residual and whole-row tiles search, the band strategy, the fused flat
+scan), loads no JAX, Flax, Triton or reference package, and never reaches
+the CUDA binding (ops/_cuda.py): CPU tensors go to the plain versions."""
 
 import json
 import subprocess
@@ -17,21 +18,26 @@ import json, sys
 import numpy as np
 import cloudvectordb_tpu_torch
 from cloudvectordb_tpu_torch.eval import qps, recall, tune
-from cloudvectordb_tpu_torch.index import base, ivf_band, kmeans, registry
-from cloudvectordb_tpu_torch.ops import assign, band, topk
+from cloudvectordb_tpu_torch.index import arena, base, flat, ivf_band, kmeans, registry
+from cloudvectordb_tpu_torch.ops import assign, band, flat_topk, topk
 from cloudvectordb_tpu_torch.utils import metrics, native
 
 rng = np.random.default_rng(0)
-db = rng.normal(size=(1500, 32)).astype(np.float32)
-idx = ivf_band.BandIVFIndex.build(db, nlist=8, residual=True, kmeans_iters=3,
-                                  tile_n=128, tile_q=16)
-v, ids = idx.search(db[:20], 5)
+db = rng.normal(size=(2500, 32)).astype(np.float32)
+hits = []
+for kw in (dict(residual=True), dict(dtype="float32")):
+    idx = ivf_band.BandIVFIndex.build(db, nlist=8, kmeans_iters=3, tile_n=128,
+                                      tile_q=16, **kw)
+    hits.append(idx.search(db[:20], 5)[1][:, 0])
+hits.append(idx.search(db[:20], 5, strategy="band")[1][:, 0])
+hits.append(flat.FlatIndex.build(db, metric="l2").search(db[:20], 5, exact=False)[1][:, 0])
 print(json.dumps({
     "loaded": sorted(m for m in ("jax", "flax", "triton", "cloudvectordb_tpu",
                                  "cloudvectordb_tpu_torch.ops._cuda")
                      if m in sys.modules),
-    "self_hit": float((ids[:, 0] == np.arange(20)).mean()),
-    "launches": band.tiles_topk_resid.launches,
+    "self_hit": min(float((h == np.arange(20)).mean()) for h in hits),
+    "launches": [band.tiles_topk_resid.launches, band.tiles_topk.launches,
+                 band.band_topk.launches, flat_topk.flat_topk.launches],
 }))
 """
 
@@ -41,7 +47,7 @@ def test_import_and_cpu_path_pull_in_no_jax_and_no_cuda_binding():
                          capture_output=True, text=True, timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
-    assert res["launches"] == 0
+    assert res["launches"] == [0, 0, 0, 0]
     assert res["self_hit"] >= 0.9
 
 

@@ -1,0 +1,143 @@
+"""K3 (tile-table scan over whole rows) and K7 (band scan): the port's plain
+versions (the wrappers' CPU path) against the reference's
+``tiles_topk_pallas`` / ``band_topk_pallas`` in interpret mode, on the same
+numpy inputs, in every score mode; and the shared bucketed-slot merge.
+(The CUDA kernel is held to the plain versions on the card by
+chip_smoke.py.)
+
+Tolerances: int8 x int8 scores are exact integers, so values and ids are
+equal outright. bf16 x int8 ('hybrid'), bf16 and f32 scores within 1e-5
+absolute (f32 sums of the same products in another order; data scaled to
+unit-order scores); ids equal except at near-ties (scores within 1e-5).
+"""
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from cloudvectordb_tpu.ops.pallas_band import band_topk_pallas, tiles_topk_pallas
+from cloudvectordb_tpu_torch.ops import band
+
+TOL = 1e-5
+#: the reference's int8 flag -> (query dtype, row dtype)
+MODES = {"int8": (True, "int8", "int8"), "hybrid": ("hybrid", "bfloat16", "int8"),
+         "bf16": (False, "bfloat16", "bfloat16"), "f32": (False, "float32", "float32")}
+
+
+def _inputs(seed, mode, *, d=48, tile_n=256, tile_q=16, n_tiles=6, nq=32, p=5):
+    """Rows and queries of the mode's types, a table whose last entry
+    repeats its first, and n_valid inside the last tile."""
+    int8, qt, rt = MODES[mode]
+    rng = np.random.default_rng(seed)
+    n = n_tiles * tile_n
+
+    def make(m, dt, scale):
+        if dt == "int8":
+            return rng.integers(-127, 128, size=(m, d), dtype=np.int8)
+        x = (rng.normal(size=(m, d)) * scale).astype(np.float32)
+        return x.astype(ml_dtypes.bfloat16) if dt == "bfloat16" else x
+
+    rows = make(n, rt, 1 / np.sqrt(d))
+    # unit-order scores: against int8 rows the queries carry 1/127
+    queries = make(nq, qt, (1 / 127 if rt == "int8" else 1.0) / np.sqrt(d))
+    table = rng.integers(0, n_tiles, size=(nq // tile_q, p)).astype(np.int32)
+    table[:, -1] = table[:, 0]
+    return dict(int8=int8, db=rows, q=queries, table=table, n_valid=n - tile_n // 3,
+                tile_n=tile_n, tile_q=tile_q)
+
+
+def _torch(a):
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _assert_agree(mode, v_ref, i_ref, v, i):
+    v_ref, i_ref = np.asarray(v_ref), np.asarray(i_ref)
+    if mode == "int8":
+        np.testing.assert_array_equal(v, v_ref)
+        np.testing.assert_array_equal(i, i_ref)
+        return
+    np.testing.assert_allclose(v, v_ref, atol=TOL, rtol=0)
+    same = i == i_ref
+    assert np.all(np.abs(v - v_ref)[~same] <= TOL)
+    assert same.mean() >= 0.99, same.mean()
+
+
+@pytest.mark.parametrize("l_buckets", [0, 64], ids=["R1", "R4"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_tiles_reference_matches_pallas_interpret(mode, l_buckets):
+    x = _inputs(1, mode)
+    kw = dict(tile_n=x["tile_n"], tile_q=x["tile_q"], l_buckets=l_buckets,
+              int8=x["int8"], n_valid=x["n_valid"])
+    v_j, i_j = tiles_topk_pallas(jnp.asarray(x["db"]), jnp.asarray(x["q"]),
+                                 jnp.asarray(x["table"]), 10, interpret=True, **kw)
+    v, i = band.tiles_topk(_torch(x["db"]), _torch(x["q"]), torch.from_numpy(x["table"]),
+                           10, **kw)
+    _assert_agree(mode, v_j, i_j, v.numpy(), i.numpy())
+    assert np.isfinite(v.numpy()).all()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_band_reference_matches_pallas_interpret_clamped(mode):
+    """The second band starts at n_tiles - band_tiles: the clamp the index
+    applies, so the band ends at the arena's last (partly valid) tile."""
+    x = _inputs(2, mode)
+    starts = np.array([1, 6 - 3], np.int32)
+    kw = dict(tile_n=x["tile_n"], tile_q=x["tile_q"], int8=x["int8"],
+              n_valid=x["n_valid"])
+    v_j, i_j = band_topk_pallas(jnp.asarray(x["db"]), jnp.asarray(x["q"]),
+                                jnp.asarray(starts), 10, band_tiles=3, interpret=True, **kw)
+    v, i = band.band_topk(_torch(x["db"]), _torch(x["q"]), torch.from_numpy(starts), 10,
+                          3, **kw)
+    _assert_agree(mode, v_j, i_j, v.numpy(), i.numpy())
+    assert (i.numpy() < x["n_valid"]).all()
+
+
+def test_n_valid_defaults_to_the_padded_size():
+    x = _inputs(3, "f32")
+    args = (jnp.asarray(x["db"]), jnp.asarray(x["q"]), jnp.asarray(x["table"]), 7)
+    v_j, i_j = tiles_topk_pallas(*args, tile_n=256, tile_q=16, interpret=True)
+    v, i = band.tiles_topk(_torch(x["db"]), _torch(x["q"]), torch.from_numpy(x["table"]),
+                           7, tile_n=256, tile_q=16)
+    _assert_agree("f32", v_j, i_j, v.numpy(), i.numpy())
+
+
+def test_wrappers_cpu_path_is_the_reference():
+    x = _inputs(4, "hybrid")
+    args = (_torch(x["db"]), _torch(x["q"]), torch.from_numpy(x["table"]), 10)
+    kw = dict(tile_n=256, tile_q=16, int8="hybrid", n_valid=x["n_valid"])
+    before = (band.tiles_topk.launches, band.band_topk.launches)
+    for a, b in zip(band.tiles_topk(*args, **kw), band.tiles_topk_reference(*args, **kw)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    starts = torch.tensor([0, 2], dtype=torch.int32)
+    bargs = (args[0], args[1], starts, 10, 4)
+    for a, b in zip(band.band_topk(*bargs, **kw), band.band_topk_reference(*bargs, **kw)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (band.tiles_topk.launches, band.band_topk.launches) == before
+
+
+def test_top2_and_wrong_score_modes_raise():
+    x = _inputs(5, "int8")
+    args = (_torch(x["db"]), _torch(x["q"]), torch.from_numpy(x["table"]), 10)
+    with pytest.raises(NotImplementedError):
+        band.tiles_topk(*args, tile_n=256, tile_q=16, int8=True, top2=True)
+    with pytest.raises(TypeError):  # int8 queries are not the hybrid mode's
+        band.tiles_topk(*args, tile_n=256, tile_q=16, int8="hybrid")
+    with pytest.raises(TypeError):  # int8 rows need the int8 flag
+        band.tiles_topk(*args, tile_n=256, tile_q=16, int8=False)
+
+
+def test_bucket_merge_tie_order():
+    """Within a step the smallest r wins a tie; across steps a strict '>'
+    keeps the earlier step; slots start at (-inf, row 0)."""
+    best_v, best_i = band._slots_init(1, 1, 2, torch.device("cpu"))
+    s = torch.tensor([[[1.0, float("-inf"), 1.0, float("-inf")]]])  # tile_n 4, L 2
+    best_v, best_i = band._bucket_merge(s, torch.tensor([8]), 2, best_v, best_i)
+    assert best_v.tolist() == [[[1.0, float("-inf")]]]
+    assert best_i.tolist() == [[[8, 0]]]  # r = 0 won the tie; slot 1 never filled
+    s2 = torch.tensor([[[0.5, 2.0, 1.0, 2.0]]])
+    best_v, best_i = band._bucket_merge(s2, torch.tensor([20]), 2, best_v, best_i)
+    assert best_v.tolist() == [[[1.0, 2.0]]] and best_i.tolist() == [[[8, 21]]]
