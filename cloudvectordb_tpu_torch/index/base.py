@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from cloudvectordb_tpu_torch.eval.tune import TunableMixin
+from cloudvectordb_tpu_torch.utils.device import DEFAULT
 
 MANIFEST = "manifest.json"
 FORMAT_VERSION = 1
@@ -91,7 +92,7 @@ class Index(TunableMixin, abc.ABC):
 
     @classmethod
     @abc.abstractmethod
-    def _from_state(cls, manifest: dict, arrays: dict, device="cpu") -> "Index":
+    def _from_state(cls, manifest: dict, arrays: dict, device=DEFAULT) -> "Index":
         ...
 
     def save(self, path: str | Path, extra_meta: dict | None = None) -> None:

@@ -18,6 +18,7 @@ from cloudvectordb_tpu_torch.index.arena import normalize_remove_ids
 from cloudvectordb_tpu_torch.index.base import Index, from_numpy, to_numpy
 from cloudvectordb_tpu_torch.ops.flat_topk import flat_topk, flat_topk_int8
 from cloudvectordb_tpu_torch.ops.topk import f32_const, tiled_topk
+from cloudvectordb_tpu_torch.utils.device import DEFAULT, as_device
 
 _STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 #: the fused scan's tile: below one tile of rows the exact scan serves
@@ -28,7 +29,7 @@ class FlatIndex(Index):
     kind = "flat"
 
     def __init__(self, dim: int, metric: str = "ip", dtype: str = "float32",
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = DEFAULT):
         """The reference's constructor with an explicit ``device``."""
         if metric not in ("ip", "l2"):
             raise ValueError(f"unknown metric {metric!r}")
@@ -39,7 +40,7 @@ class FlatIndex(Index):
         self.dim = dim
         self.metric = metric
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = as_device(device)
         self._vecs = torch.zeros((0, dim), dtype=_STORE_DTYPES[dtype], device=self.device)
         self._sqnorms = torch.zeros((0,), dtype=torch.float32, device=self.device)
         self._scale = 1.0  # int8 dequant scale (a Python float, as the reference's)
@@ -54,7 +55,7 @@ class FlatIndex(Index):
 
     @classmethod
     def build(cls, vectors, metric: str = "ip", dtype: str = "float32",
-              device: str | torch.device = "cpu") -> "FlatIndex":
+              device: str | torch.device = DEFAULT) -> "FlatIndex":
         idx = cls(int(vectors.shape[1]), metric=metric, dtype=dtype, device=device)
         idx.add(vectors)
         return idx
@@ -166,7 +167,7 @@ class FlatIndex(Index):
 
     @classmethod
     def from_state(cls, meta: dict, arrays: dict, metric: str = "ip",
-                   device: str | torch.device = "cpu") -> "FlatIndex":
+                   device: str | torch.device = DEFAULT) -> "FlatIndex":
         """Index from the reference's numpy state: ``meta`` as its
         ``_state_meta()``, ``arrays`` as its ``_state_arrays()`` (vecs, and
         sqnorms and ids where it has them)."""
@@ -182,7 +183,7 @@ class FlatIndex(Index):
         return idx
 
     @classmethod
-    def _from_state(cls, manifest: dict, arrays: dict, device="cpu") -> "FlatIndex":
+    def _from_state(cls, manifest: dict, arrays: dict, device=DEFAULT) -> "FlatIndex":
         idx = cls.from_state(manifest["meta"], arrays, manifest["metric"], device=device)
         if idx.dim != manifest["dim"]:
             raise ValueError(f"manifest dim {manifest['dim']} != vecs {idx.dim}")

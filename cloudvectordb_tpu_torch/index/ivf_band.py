@@ -35,6 +35,7 @@ from cloudvectordb_tpu_torch.ops.band import (
     band_topk, order_centroids, tiles_topk, tiles_topk_resid)
 from cloudvectordb_tpu_torch.ops.flat_topk import quantize_queries
 from cloudvectordb_tpu_torch.ops.topk import f32_const, tiled_topk, topk_stable
+from cloudvectordb_tpu_torch.utils.device import DEFAULT, as_device
 
 #: max list indices one arena tile may span: bounds the per-tile window W
 #: that sizes centroid_tiles (n_tiles, W, D) and the uint8 per-row local
@@ -143,7 +144,7 @@ class BandIVFIndex(Index):
         residual: bool = False,
         slack: float = 0.0,
         metric: str = "ip",
-        device: str | torch.device = "cpu",
+        device: str | torch.device = DEFAULT,
     ):
         """The reference's constructor with an explicit ``device``.
         ``residual=True`` (int8 only) stores int8 residuals and adds the
@@ -179,7 +180,7 @@ class BandIVFIndex(Index):
         self.seed = seed
         self.tile_n = tile_n
         self.tile_q = tile_q
-        self.device = torch.device(device)
+        self.device = as_device(device)
         self.centroids: np.ndarray | None = None  # (nlist, D) f32, locality-ordered
         self._payload: torch.Tensor | None = None  # (N_pad, D) on device
         self._ids: np.ndarray | None = None  # arena row -> global id (-1: hole)
@@ -710,7 +711,7 @@ class BandIVFIndex(Index):
         }
 
     @classmethod
-    def from_state(cls, meta: dict, arrays: dict, device: str | torch.device = "cpu"
+    def from_state(cls, meta: dict, arrays: dict, device: str | torch.device = DEFAULT
                    ) -> "BandIVFIndex":
         """Index from the reference's numpy state: ``meta`` as its
         ``_state_meta()`` (the manifest's "meta"), ``arrays`` as its
@@ -733,7 +734,7 @@ class BandIVFIndex(Index):
         return idx
 
     @classmethod
-    def _from_state(cls, manifest: dict, arrays: dict, device="cpu") -> "BandIVFIndex":
+    def _from_state(cls, manifest: dict, arrays: dict, device=DEFAULT) -> "BandIVFIndex":
         if manifest.get("metric", "ip") != "ip":
             raise NotImplementedError("metric='l2' arrives with the l2/top2 slice")
         idx = cls.from_state(manifest["meta"], arrays, device=device)

@@ -15,6 +15,7 @@ import torch
 from cloudvectordb_tpu_torch.index.base import MANIFEST, Index
 from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
+from cloudvectordb_tpu_torch.utils.device import DEFAULT
 
 _KINDS = {"flat": FlatIndex, "band_ivf": BandIVFIndex}
 _LATER = {
@@ -24,7 +25,7 @@ _LATER = {
 }
 
 
-def load_index(path: str | Path, device: str | torch.device = "cpu",
+def load_index(path: str | Path, device: str | torch.device = DEFAULT,
                mmap: bool = True) -> Index:
     """Load a saved index onto ``device``. A tuned op point in the manifest
     becomes the index's default serving config."""

@@ -1,6 +1,6 @@
 """Build and bind the hand-written kernels in ``csrc/*.cu`` (the CUDA side of
-ops/band.py and ops/flat_topk.py; the JAX package has no counterpart:
-Pallas compiled its kernels inside jit).
+ops/band.py, ops/flat_topk.py and ops/attn.py; the JAX package has no
+counterpart: Pallas compiled its kernels inside jit).
 
 nvcc compiles each source into a shared library of its own with a plain C
 interface, on first use, into the package's gitignored ``_build/``
@@ -12,8 +12,8 @@ stream pass as ``c_void_p``. Each C function returns ``cudaGetLastError()``
 after its launch and the wrapper raises if it is not 0. Nothing here falls
 back to a plain version: a kernel that does not build or launch is an error.
 
-The kernel wrappers (ops/band.py, ops/flat_topk.py) import this module only
-for CUDA tensors.
+The kernel wrappers (ops/band.py, ops/flat_topk.py, ops/attn.py) import
+this module only for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ _BUILD = _PKG / "_build"  # gitignored
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
-_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C functions of each library: name -> (argtypes, restype)
 _SIGNATURES = {
     "tiles_resid": {
@@ -46,9 +46,17 @@ _SIGNATURES = {
         "cvdb_tiles_scan": ([_CI] * 3 + [_VP] * 6 + [_CI] * 8 + [_VP], _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
+    "mha_small_head": {
+        "cvdb_mha_fwd": ([_CI] * 2 + [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP], _CI),
+        "cvdb_mha_bwd": ([_CI] * 2 + [_VP] * 11 + [_CI] * 3 + [_CF, _CI, _VP], _CI),
+        "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
+    },
 }
 #: element types, as tiles_scan.cu numbers them
 _ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: what mha_small_head.cu takes: row types, as it numbers them, and head widths
+_ATTN_ELEM = {torch.float32: 0, torch.bfloat16: 1}
+_ATTN_D = (16, 32, 64)
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -223,3 +231,62 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "tiles_scan")
     return out_v, out_i
+
+
+def _attn_shapes(q, k, v, mask, d: int) -> tuple[int, int]:
+    """Check what K4 reads raw and the widths it takes; returns (B, L).
+    Shapes are checked by ops/attn.py."""
+    if q.dtype not in _ATTN_ELEM:
+        raise TypeError(f"mha_small_head: no kernel for {q.dtype} rows")
+    dev = q.device
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _need(t, name, q.dtype, dev)
+    _need(mask, "mask", torch.int32, dev)
+    b, length, _ = q.shape
+    if d not in _ATTN_D:
+        raise ValueError(f"mha_small_head kernel: head width {d} (takes d in {_ATTN_D})")
+    if length % 128 or length > 512:
+        raise ValueError(f"mha_small_head kernel: L={length} (takes L % 128 == 0, L <= 512)")
+    return b, length
+
+
+def mha_fwd(q, k, v, mask, heads: int, d: int, scale: float):
+    """Launch K4's forward: (o (B, L, H*d) in q's type, row max (B, H, L)
+    f32, row sum (B, H, L) f32), on q's device and PyTorch's current
+    stream."""
+    b, length = _attn_shapes(q, k, v, mask, d)
+    dev = q.device
+    lib = _load("mha_small_head")
+    o = torch.empty_like(q)
+    row_max = torch.empty((b, heads, length), dtype=torch.float32, device=dev)
+    row_sum = torch.empty_like(row_max)
+    rc = lib.cvdb_mha_fwd(
+        _ATTN_ELEM[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        o.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(), b, length, heads, scale,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "mha_small_head forward")
+    return o, row_max, row_sum
+
+
+def mha_bwd(q, k, v, mask, dout, row_max, row_sum, heads: int, d: int, scale: float):
+    """Launch K4's backward (two kernels, dq then dk/dv) from the forward's
+    row statistics: (dq, dk, dv), each (B, L, H*d) in q's type."""
+    b, length = _attn_shapes(q, k, v, mask, d)
+    dev = q.device
+    _need(dout, "dout", q.dtype, dev)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    for t, name in ((row_max, "row_max"), (row_sum, "row_sum")):
+        _need(t, name, torch.float32, dev)
+        if tuple(t.shape) != (b, heads, length):
+            raise ValueError(f"{name} {tuple(t.shape)} != {(b, heads, length)}")
+    lib = _load("mha_small_head")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    delta = torch.empty_like(row_max)
+    rc = lib.cvdb_mha_bwd(
+        _ATTN_ELEM[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+        dout.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, length, heads, scale,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "mha_small_head backward")
+    return dq, dk, dv

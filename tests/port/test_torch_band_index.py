@@ -75,7 +75,7 @@ def _assert_same_search(t, j, q, gt, p_tiles, tile_q=None):
 
 def test_layout_parity_build(data, jidx):
     db, q, gt = data
-    t = BandIVFIndex.build(db, centroids=jidx.centroids, **KW)
+    t = BandIVFIndex.build(db, centroids=jidx.centroids, device="cpu", **KW)
     _assert_same_tables(t, jidx)
     assert t._scale == pytest.approx(jidx._scale, rel=1e-6)
     _assert_same_arena(t, jidx)
@@ -89,7 +89,7 @@ def test_layout_parity_device_streaming(data):
         lambda i: jnp.asarray(db[i * 1000:(i + 1) * 1000]), 4, **kw)
     t = BandIVFIndex.build_device_streaming(
         lambda i: torch.from_numpy(db[i * 1000:(i + 1) * 1000]), 4,
-        centroids=j.centroids, **kw)
+        centroids=j.centroids, device="cpu", **kw)
     _assert_same_tables(t, j)
     assert t._scale == pytest.approx(j._scale, rel=1e-6)
     _assert_same_arena(t, j)
@@ -103,7 +103,7 @@ def test_layout_parity_tile_span_cap_holes(data):
     kw = dict(KW, nlist=400, kmeans_iters=3)
     j = JaxBandIVFIndex.build(db[:600], **kw)
     assert j._offsets[-1] > 600 and j._list_lens is not None  # holes were padded
-    t = BandIVFIndex.build(db[:600], centroids=j.centroids, **kw)
+    t = BandIVFIndex.build(db[:600], centroids=j.centroids, device="cpu", **kw)
     _assert_same_tables(t, j)
     np.testing.assert_array_equal(t._list_lens, j._list_lens)
     _assert_same_arena(t, j)
@@ -115,10 +115,10 @@ def test_layout_parity_tile_span_cap_holes(data):
 def test_state_carried_across(data, jidx, route, tmp_path):
     db, q, gt = data
     if route == "from_state":
-        t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays())
+        t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays(), device="cpu")
     else:
         jidx.save(tmp_path / "jax_saved")
-        t = load_index(tmp_path / "jax_saved")
+        t = load_index(tmp_path / "jax_saved", device="cpu")
     _assert_same_tables(t, jidx)
     _assert_same_arena(t, jidx, min_equal=1.0)
     assert t._scale == jidx._scale and t._gid_bound() == jidx._gid_bound()
@@ -131,7 +131,7 @@ def test_state_carried_across(data, jidx, route, tmp_path):
 
 def test_port_save_loads_in_reference(data, jidx, tmp_path):
     db, q, gt = data
-    t = BandIVFIndex.build(db, centroids=jidx.centroids, **KW)
+    t = BandIVFIndex.build(db, centroids=jidx.centroids, device="cpu", **KW)
     t._op_point = {"p_tiles": 8, "tile_q": 16}
     t.save(tmp_path / "port_saved")
     manifest = json.loads((tmp_path / "port_saved" / "manifest.json").read_text())
@@ -141,14 +141,14 @@ def test_port_save_loads_in_reference(data, jidx, tmp_path):
     _assert_same_arena(t, j, min_equal=1.0)
     assert j._op_point == t._op_point
     _assert_same_search(t, j, q, gt, 0)  # both serve the saved op point
-    t2 = load_index(tmp_path / "port_saved")
+    t2 = load_index(tmp_path / "port_saved", device="cpu")
     assert t2._op_point == t._op_point
     np.testing.assert_array_equal(t2.search(q, 10)[1], t.search(q, 10)[1])
 
 
 def test_tune_picks_a_passing_op_point(data, jidx, tmp_path):
     db, q, gt = data
-    t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays())
+    t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays(), device="cpu")
     report = t.tune(q, k=10, target_recall=0.95)
     assert report["met"], report
     assert 0 < report["op"]["p_tiles"] <= t._tune_n_tiles()
@@ -157,12 +157,12 @@ def test_tune_picks_a_passing_op_point(data, jidx, tmp_path):
     _, found = t.search(q, 10)  # no knobs: the op point serves
     assert recall_at_k(found, gt) >= 0.85
     t.save(tmp_path / "tuned")
-    assert load_index(tmp_path / "tuned")._op_point == report["op"]
+    assert load_index(tmp_path / "tuned", device="cpu")._op_point == report["op"]
 
 
 def test_search_device_matches_search(data, jidx):
     db, q, _ = data
-    t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays())
+    t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays(), device="cpu")
     q45 = q[:45]  # not a tile_q multiple: padded by repeating the last query
     v_h, i_h = t.search(q45, 10, p_tiles=8)
     v_d, i_d = t.search_device(torch.from_numpy(q45), 10, p_tiles=8)
@@ -173,10 +173,10 @@ def test_search_device_matches_search(data, jidx):
 
 def test_unported_options_raise(data, jidx, tmp_path):
     with pytest.raises(NotImplementedError):
-        BandIVFIndex(64, 16, residual=True, slack=0.5)
+        BandIVFIndex(64, 16, residual=True, slack=0.5, device="cpu")
     with pytest.raises(NotImplementedError):
-        BandIVFIndex(64, 16, residual=True, metric="l2")
-    t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays())
+        BandIVFIndex(64, 16, residual=True, metric="l2", device="cpu")
+    t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays(), device="cpu")
     with pytest.raises(NotImplementedError):
         t.search(data[1], 10, top2=True)  # K1's top2 variant
     with pytest.raises(NotImplementedError):
@@ -187,7 +187,7 @@ def test_unported_options_raise(data, jidx, tmp_path):
     (tmp_path / "pq" / "manifest.json").write_text(json.dumps(
         {"kind": "ivf_pq", "meta": {}, "arrays": []}))
     with pytest.raises(NotImplementedError):
-        load_index(tmp_path / "pq")
+        load_index(tmp_path / "pq", device="cpu")
 
 
 def test_native_arena_sort_matches_reference_loader():

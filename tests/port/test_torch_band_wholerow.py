@@ -69,7 +69,7 @@ def _assert_same_search(t, j, q, gt, **kw):
 def test_layout_and_search_parity(data, jidx, dtype):
     db, q, gt = data
     j = jidx[dtype]
-    t = BandIVFIndex.build(db, centroids=j.centroids, dtype=dtype, **KW)
+    t = BandIVFIndex.build(db, centroids=j.centroids, dtype=dtype, device="cpu", **KW)
     _assert_same_layout(t, j)
     for scoring in ("hybrid", "int8", "precise"):
         _assert_same_search(t, j, q, gt, p_tiles=8, scoring=scoring)
@@ -86,7 +86,7 @@ def test_layout_parity_device_streaming(data):
         lambda i: jnp.asarray(db[i * 1000:(i + 1) * 1000]), 4, **kw)
     t = BandIVFIndex.build_device_streaming(
         lambda i: torch.from_numpy(db[i * 1000:(i + 1) * 1000]), 4,
-        centroids=j.centroids, **kw)
+        centroids=j.centroids, device="cpu", **kw)
     assert not t.residual and t._list_lens is None
     _assert_same_layout(t, j)
     for scoring in ("hybrid", "int8"):
@@ -97,7 +97,7 @@ def test_layout_parity_device_streaming(data):
 def test_search_device_matches_search(data, jidx):
     _, q, _ = data
     j = jidx["int8"]
-    t = BandIVFIndex.from_state(j._state_meta(), j._state_arrays())
+    t = BandIVFIndex.from_state(j._state_meta(), j._state_arrays(), device="cpu")
     q45 = q[:45]  # not a tile_q multiple: padded by repeating the last query
     for scoring in ("hybrid", "int8"):
         v_h, i_h = t.search(q45, 10, p_tiles=8, scoring=scoring)
@@ -112,7 +112,7 @@ def test_artifacts_load_both_ways(data, jidx, dtype, tmp_path):
     db, q, gt = data
     j = jidx[dtype]
     j.save(tmp_path / "jax")
-    t = load_index(tmp_path / "jax")
+    t = load_index(tmp_path / "jax", device="cpu")
     _assert_same_layout(t, j)
     _assert_same_search(t, j, q, gt, p_tiles=8)
     t._op_point = {"p_tiles": 8, "tile_q": 16}
@@ -126,17 +126,18 @@ def test_artifacts_load_both_ways(data, jidx, dtype, tmp_path):
 def test_bf16_arena_round_trips_in_the_port(data, jidx, tmp_path):
     db, q, gt = data
     t = BandIVFIndex.from_state(jidx["bfloat16"]._state_meta(),
-                                jidx["bfloat16"]._state_arrays())
+                                jidx["bfloat16"]._state_arrays(), device="cpu")
     _assert_same_layout(t, jidx["bfloat16"])
     t.save(tmp_path / "port")
-    t2 = load_index(tmp_path / "port")
+    t2 = load_index(tmp_path / "port", device="cpu")
     assert torch.equal(t2._payload, t._payload)
     np.testing.assert_array_equal(t2.search(q, 10, p_tiles=8)[1], t.search(q, 10, p_tiles=8)[1])
 
 
 def test_tune_picks_a_passing_op_point(data, jidx):
     db, q, gt = data
-    t = BandIVFIndex.from_state(jidx["int8"]._state_meta(), jidx["int8"]._state_arrays())
+    t = BandIVFIndex.from_state(jidx["int8"]._state_meta(), jidx["int8"]._state_arrays(),
+                                device="cpu")
     report = t.tune(q, k=10, target_recall=0.95)
     assert report["met"] and t._op_point == report["op"]
     assert recall_at_k(t.search(q, 10)[1], gt) >= 0.85
@@ -145,19 +146,20 @@ def test_tune_picks_a_passing_op_point(data, jidx):
 def test_refused_and_unported_options(data, jidx):
     db, q, _ = data
     with pytest.raises(ValueError):  # the reference refuses whole-row l2
-        BandIVFIndex(64, 16, metric="l2")
+        BandIVFIndex(64, 16, metric="l2", device="cpu")
     with pytest.raises(ValueError):
-        BandIVFIndex(64, 16, dtype="float32", residual=True)
+        BandIVFIndex(64, 16, dtype="float32", residual=True, device="cpu")
     with pytest.raises(ValueError):
-        BandIVFIndex(64, 16, dtype="float32", slack=0.5)
+        BandIVFIndex(64, 16, dtype="float32", slack=0.5, device="cpu")
     with pytest.raises(ValueError):  # device streaming is the int8 path
         BandIVFIndex.build_device_streaming(lambda i: torch.from_numpy(db[:500]), 1,
-                                            nlist=4, dtype="float32")
-    t = BandIVFIndex.from_state(jidx["int8"]._state_meta(), jidx["int8"]._state_arrays())
+                                            nlist=4, dtype="float32", device="cpu")
+    t = BandIVFIndex.from_state(jidx["int8"]._state_meta(), jidx["int8"]._state_arrays(),
+                                device="cpu")
     with pytest.raises(NotImplementedError):
         t.search(q, 10, top2=True)
     with pytest.raises(ValueError):
         t.search(q, 10, strategy="bands")
-    resid = BandIVFIndex.build(db, residual=True, **KW)
+    resid = BandIVFIndex.build(db, residual=True, device="cpu", **KW)
     with pytest.raises(ValueError):  # the band scan has no centroid term
         resid.search(q, 10, strategy="band")

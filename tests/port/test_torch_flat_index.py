@@ -67,7 +67,7 @@ def _assert_same_store(t, j):
 def test_search_matches_reference(data, dtype, metric, exact):
     db, q = data
     j = JaxFlatIndex.build(db, metric=metric, dtype=dtype)
-    t = FlatIndex.build(db, metric=metric, dtype=dtype)
+    t = FlatIndex.build(db, metric=metric, dtype=dtype, device="cpu")
     _assert_same_store(t, j)
     _assert_agree(*j.search(q, 10, exact=exact), *t.search(q, 10, exact=exact))
 
@@ -78,7 +78,7 @@ def test_fused_search_matches_reference_fused_scan(data, dtype, metric):
     against the reference's fused scan on the reference's store."""
     db, q = data
     j = JaxFlatIndex.build(db, metric=metric, dtype=dtype)
-    t = FlatIndex.build(db, metric=metric, dtype=dtype)
+    t = FlatIndex.build(db, metric=metric, dtype=dtype, device="cpu")
     if dtype == "int8":
         scale = jnp.float32(j._scale)
         sj, ij = flat_topk_pallas_int8(j._vecs, j._scale, (jnp.asarray(q) * scale) / scale,
@@ -98,7 +98,7 @@ def test_fused_search_matches_reference_fused_scan(data, dtype, metric):
 def test_int8_add_widens_the_scale(data):
     db, q = data
     j = JaxFlatIndex(48, dtype="int8")
-    t = FlatIndex(48, dtype="int8")
+    t = FlatIndex(48, dtype="int8", device="cpu")
     for part in (db[:2000] * 0.5, db[2000:]):  # the second batch is wider
         j.add(part)
         t.add(part)
@@ -111,7 +111,7 @@ def test_int8_add_widens_the_scale(data):
 def test_remove_maps_ids_back_and_reconstructs(data, dtype):
     db, q = data
     j = JaxFlatIndex.build(db, dtype=dtype)
-    t = FlatIndex.build(db, dtype=dtype)
+    t = FlatIndex.build(db, dtype=dtype, device="cpu")
     _, top = t.search(q, 10)
     gone = np.concatenate([top[:, 0], [-1, 10**9, 7, 7]])  # holes and unknowns ignored
     assert t.remove(gone) == j.remove(gone) > 0
@@ -132,7 +132,7 @@ def test_remove_maps_ids_back_and_reconstructs(data, dtype):
 def test_reconstruct_bf16(data):
     db, _ = data
     j = JaxFlatIndex.build(db, dtype="bfloat16")
-    t = FlatIndex.build(db, dtype="bfloat16")
+    t = FlatIndex.build(db, dtype="bfloat16", device="cpu")
     np.testing.assert_array_equal(t.reconstruct([0, 17, 4999]), j.reconstruct([0, 17, 4999]))
 
 
@@ -142,7 +142,7 @@ def test_artifacts_load_both_ways(data, dtype, metric, tmp_path):
     j = JaxFlatIndex.build(db, metric=metric, dtype=dtype)
     j.remove([3, 4])
     j.save(tmp_path / "jax")
-    t = load_index(tmp_path / "jax")
+    t = load_index(tmp_path / "jax", device="cpu")
     assert isinstance(t, FlatIndex) and t.metric == metric
     np.testing.assert_array_equal(t._vecs.float().numpy(),
                                   np.asarray(j._vecs).astype(np.float32))
@@ -153,7 +153,8 @@ def test_artifacts_load_both_ways(data, dtype, metric, tmp_path):
     np.testing.assert_array_equal(np.asarray(j2._vecs), np.asarray(j._vecs))
     np.testing.assert_array_equal(j2._ids, j._ids)
     _assert_agree(*j2.search(q, 10), *t.search(q, 10))
-    t2 = FlatIndex.from_state(j._state_meta(), j._state_arrays(), metric=metric)
+    t2 = FlatIndex.from_state(j._state_meta(), j._state_arrays(), metric=metric,
+                                device="cpu")
     np.testing.assert_array_equal(t2.search(q, 10)[1], t.search(q, 10)[1])
 
 
@@ -161,20 +162,20 @@ def test_bf16_store_loads_in_the_port(data, tmp_path):
     db, q = data
     j = JaxFlatIndex.build(db, metric="l2", dtype="bfloat16")
     j.save(tmp_path / "jax")
-    t = load_index(tmp_path / "jax")
+    t = load_index(tmp_path / "jax", device="cpu")
     assert t._vecs.dtype == torch.bfloat16
     np.testing.assert_array_equal(t._vecs.float().numpy(),
                                   np.asarray(j._vecs.astype(jnp.float32)))
     t.save(tmp_path / "port")
-    t2 = load_index(tmp_path / "port")
+    t2 = load_index(tmp_path / "port", device="cpu")
     assert torch.equal(t2._vecs, t._vecs) and torch.equal(t2._sqnorms, t._sqnorms)
     _assert_agree(*j.search(q, 10), *t2.search(q, 10))
 
 
 def test_refused_options_raise():
     with pytest.raises(ValueError):
-        FlatIndex(8, metric="l2", dtype="int8")
+        FlatIndex(8, metric="l2", dtype="int8", device="cpu")
     with pytest.raises(ValueError):
-        FlatIndex(8, dtype="float16")
+        FlatIndex(8, dtype="float16", device="cpu")
     with pytest.raises(ValueError):
-        FlatIndex(8).add(np.zeros((2, 9), np.float32))
+        FlatIndex(8, device="cpu").add(np.zeros((2, 9), np.float32))

@@ -1,13 +1,16 @@
 """The port stands alone: importing it, and running its paths on CPU tensors
 (residual and whole-row tiles search, the band strategy, the fused flat
-scan), loads no JAX, Flax, Triton or reference package, and never reaches
-the CUDA binding (ops/_cuda.py): CPU tensors go to the plain versions."""
+scan, an encoder forward, K4's plain forward and backward, a training
+step), loads no JAX, Flax, Triton or reference package, and never reaches
+the CUDA binding (ops/_cuda.py): CPU tensors go to the plain versions.
+Entry points default to the card: without one they raise."""
 
 import json
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,25 +22,44 @@ import numpy as np
 import cloudvectordb_tpu_torch
 from cloudvectordb_tpu_torch.eval import qps, recall, tune
 from cloudvectordb_tpu_torch.index import arena, base, flat, ivf_band, kmeans, registry
-from cloudvectordb_tpu_torch.ops import assign, band, flat_topk, topk
-from cloudvectordb_tpu_torch.utils import metrics, native
+from cloudvectordb_tpu_torch.data import tokenize
+from cloudvectordb_tpu_torch.models import embed, encoder, hf_import, presets
+from cloudvectordb_tpu_torch.ops import assign, attn, band, flat_topk, topk
+from cloudvectordb_tpu_torch.train import losses, trainer
+from cloudvectordb_tpu_torch.utils import checkpoint, config, device, metrics, native
 
 rng = np.random.default_rng(0)
 db = rng.normal(size=(2500, 32)).astype(np.float32)
 hits = []
 for kw in (dict(residual=True), dict(dtype="float32")):
     idx = ivf_band.BandIVFIndex.build(db, nlist=8, kmeans_iters=3, tile_n=128,
-                                      tile_q=16, **kw)
+                                      tile_q=16, device="cpu", **kw)
     hits.append(idx.search(db[:20], 5)[1][:, 0])
 hits.append(idx.search(db[:20], 5, strategy="band")[1][:, 0])
-hits.append(flat.FlatIndex.build(db, metric="l2").search(db[:20], 5, exact=False)[1][:, 0])
+hits.append(flat.FlatIndex.build(db, metric="l2", device="cpu").search(db[:20], 5, exact=False)[1][:, 0])
+import torch
+enc = config.EncoderConfig(vocab_size=64, hidden_dim=32, num_layers=1, num_heads=4,
+                           mlp_dim=64, max_len=128, dropout=0.0, dtype="float32")
+ids = torch.from_numpy(rng.integers(1, 64, size=(4, 128)))
+mask = torch.ones((4, 128), dtype=torch.int32)
+emb = embed.make_encode_fn(encoder.init_encoder(enc, device="cpu"), device="cpu")(ids, mask)
+q, k, v = (torch.randn(2, 128, 32, requires_grad=True) for _ in range(3))
+attn.mha_small_head(q, k, v, mask[:2], 4, 8, 8 ** -0.5).sum().backward()
+tcfg = config.TrainConfig(encoder=enc, batch_size=4, total_steps=2)
+tr = trainer.Trainer(tcfg, device="cpu")
+batch = tr.place_batch({f"{leg}_{x}": (ids if x == "ids" else mask)
+                        for leg in ("anchor", "pos", "neg") for x in ("ids", "mask")})
+_, m = tr.step_fn(tr.init_state(), batch)
 print(json.dumps({
     "loaded": sorted(m for m in ("jax", "flax", "triton", "cloudvectordb_tpu",
                                  "cloudvectordb_tpu_torch.ops._cuda")
                      if m in sys.modules),
     "self_hit": min(float((h == np.arange(20)).mean()) for h in hits),
     "launches": [band.tiles_topk_resid.launches, band.tiles_topk.launches,
-                 band.band_topk.launches, flat_topk.flat_topk.launches],
+                 band.band_topk.launches, flat_topk.flat_topk.launches,
+                 attn.mha_small_head.launches, attn.mha_small_head.bwd_launches],
+    "finite": bool(torch.isfinite(emb).all() and torch.isfinite(q.grad).all()
+                   and torch.isfinite(m["loss"])),
 }))
 """
 
@@ -47,8 +69,40 @@ def test_import_and_cpu_path_pull_in_no_jax_and_no_cuda_binding():
                          capture_output=True, text=True, timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
-    assert res["launches"] == [0, 0, 0, 0]
-    assert res["self_hit"] >= 0.9
+    assert res["launches"] == [0, 0, 0, 0, 0, 0]
+    assert res["self_hit"] >= 0.9 and res["finite"]
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """Without a card, an entry point given no device raises torch's own
+    error; none of them quietly builds on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the defaults run there")
+    from cloudvectordb_tpu_torch.index.flat import FlatIndex
+    from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
+    from cloudvectordb_tpu_torch.index.registry import load_index
+    from cloudvectordb_tpu_torch.models.embed import make_encode_fn
+    from cloudvectordb_tpu_torch.models.encoder import init_encoder
+    from cloudvectordb_tpu_torch.train.trainer import Trainer
+    from cloudvectordb_tpu_torch.utils.config import EncoderConfig, TrainConfig
+
+    no_card = (AssertionError, RuntimeError)  # torch's "not compiled with CUDA"
+    with pytest.raises(no_card):
+        FlatIndex(8)
+    with pytest.raises(no_card):
+        BandIVFIndex(8, 4)
+    FlatIndex.build(np.eye(8, dtype=np.float32), device="cpu").save(tmp_path / "flat")
+    with pytest.raises(no_card):
+        load_index(tmp_path / "flat")
+    assert load_index(tmp_path / "flat", device="cpu").ntotal == 8
+    enc = EncoderConfig(vocab_size=16, hidden_dim=8, num_layers=1, num_heads=2, mlp_dim=16,
+                        max_len=8)
+    with pytest.raises(no_card):
+        init_encoder(enc)
+    with pytest.raises(no_card):
+        make_encode_fn(init_encoder(enc, device="cpu"))
+    with pytest.raises(no_card):
+        Trainer(TrainConfig(encoder=enc))
 
 
 def test_device_measurement_refuses_the_cpu():
