@@ -17,7 +17,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    windows of 1 to 129 lists, valid_end holes, a short final tile, partial
    query blocks), K2 (flat_topk: ip/l2 x f32/bf16/int8, R 1 and 4, ragged
    N), K3 (tiles_topk: int8, hybrid, bf16, f32 scoring, repeated table
-   entries, n_valid holes) and K7 (band_topk: clamped bands);
+   entries, n_valid holes), K7 (band_topk: clamped bands), K5
+   (pq_tiles_topk: residual or not, pools 1-3, top-2 on and off, R 1 and 4,
+   repeated entries, n_valid cutting a tile, D 768 at m 64 and D 64) and K6
+   (pq_topk: ragged N); one line per kernel;
 5. the residual serving path: a 12.5M x 768 corpus generated on the device
    (the process of bench.py: latent 32, 256 centres, noise 0.3/sqrt(32),
    L2-normalised), ``BandIVFIndex.build_device_streaming`` with nlist 4096
@@ -39,18 +42,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exact f32 scan, and at bench.py's int8 flat shape (1M x 768 of the
    corpus, the 4096 queries, ip) its recall is logged; K2 must launch;
    then K2 against its plain version at both shapes, both timed;
-8. K4 (mha_small_head) against its plain version, forward outputs and dq,
+8. the PQ-tiles path at BASELINE config #3 (``run_pq``): the first 10M
+   rows of the corpus, ``BandIVFPQIndex.build_device_streaming`` (nlist
+   4096, m 64, nbits 8, OPQ, residual int8 refine, k-means 10 and PQ 8
+   iterations), ``tune``, the refine route (K1) at the op point (recall@10
+   >= 0.90 against the exact f32 ground truth on 512 queries), then the PQ
+   route (K5, then the exact int8 rescore) at the tuned p_tiles and tile_q
+   with refine_factor 16, 64 and 64 with top-2 (K5 must launch; recall@10
+   >= 0.85 at 64), device QPS of each; then K5 at refine_factor 64's shape
+   against its plain version, both timed, with its bound; the index is
+   freed before the next phase;
+9. K6 (``pq_topk``, ``run_k6``): codebooks trained (m 64) on 65,536
+   corpus rows, 1M rows encoded, the 4096 queries, k 10: recall against the
+   exact scan, then K6 against its plain version, both timed;
+10. K4 (mha_small_head) against its plain version, forward outputs and dq,
    dk, dv: L 128, 256 and 512, (H, d) (12, 32) and (12, 64), f32 and bf16,
    ragged key padding and a fully masked sequence; each check must count
    one forward and one backward launch;
-9. training: ``Trainer.fit`` on minilm-l6-384 at full width (bf16, max_len
+11. training: ``Trainer.fit`` on minilm-l6-384 at full width (bf16, max_len
    128, no probs dropout, 'auto'), 20 steps of 512 learnable triplets made
    on the device; finite losses, K4 forward and backward launched once per
    layer and step; from the checkpoint fit wrote, one step through 'auto'
    (K4) against one through 'naive' (dropout 0): loss within 1e-2 and grad
    norm within 1% relative; ms/step of 'auto', 'naive' and 'fused' (SDPA),
    and a torch.profiler split of one step;
-10. encoding and search: 1,000,000 passages of device-made token ids
+12. encoding and search: 1,000,000 passages of device-made token ids
    (lengths 16-128, padded to 128) through 'packed' (K4, launches counted)
    in batches of 1024 into ``FlatIndex(384)``; passages/s, also for
    'naive' and 'fused'; mean cosine 'packed' vs 'naive' on 4096 passages
@@ -59,7 +75,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    <= 32 tokens, 15% resampled) through 'auto' (packed_batch) and
    ``FlatIndex.search`` (K2) must reach recall@10 0.99 against the exact
    scan;
-11. K4 at the main path's shapes (bf16, B 1536 forward and backward, B 1024
+13. K4 at the main path's shapes (bf16, B 1536 forward and backward, B 1024
    forward) against its plain version, timed beside torch's
    scaled_dot_product_attention.
 
@@ -87,11 +103,13 @@ from cloudvectordb_tpu_torch.eval.qps import qps_device
 from cloudvectordb_tpu_torch.eval.recall import recall_at_k
 from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex, _plan_tiles
+from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
+from cloudvectordb_tpu_torch.index.pq import pq_decode, pq_encode, train_pq
 from cloudvectordb_tpu_torch.models.embed import encode_corpus_streaming, make_encode_fn
 from cloudvectordb_tpu_torch.models.encoder import Encoder
 from cloudvectordb_tpu_torch.models.presets import get_preset
-from cloudvectordb_tpu_torch.ops import attn, band, flat_topk as flat
+from cloudvectordb_tpu_torch.ops import attn, band, flat_topk as flat, pq
 from cloudvectordb_tpu_torch.ops.topk import merge_topk, tiled_topk
 from cloudvectordb_tpu_torch.train.trainer import Trainer
 from cloudvectordb_tpu_torch.utils.checkpoint import restore_checkpoint
@@ -107,6 +125,9 @@ RECALL_FLOOR = 0.90
 WHOLE_ROW_RECALL_FLOOR = 0.80
 FLAT_RECALL_FLOOR = 0.99
 SIFT_ROWS, SIFT_D, SIFT_Q = 1_000_000, 128, 10_000
+PQ_ROWS, PQ_M, PQ_NBITS = 10_000_000, 64, 8  # BASELINE config #3
+PQ_REFINE_FLOOR, PQ_ROUTE_FLOOR = 0.90, 0.85
+K6_TRAIN, K6_ROWS = 65_536, 1_000_000
 ID_MATCH_FLOOR = 0.999
 SCORE_TOL = 1e-4
 _SCAN = "cloudvectordb_tpu_torch/csrc/tiles_scan.cu"
@@ -123,10 +144,16 @@ KERNELS = {
 }
 _ATTN = {"route": "cuda", "source": "cloudvectordb_tpu_torch/csrc/mha_small_head.cu",
          "replaces": "cloudvectordb_tpu/ops/pallas_attn.py:109"}
+_PQ = "cloudvectordb_tpu_torch/csrc/pq_scan.cu"
+KERNELS["K5"] = {"name": "pq_tiles_topk", "route": "cuda", "source": _PQ,
+                 "replaces": "cloudvectordb_tpu/ops/pallas_pq.py:315"}
+KERNELS["K6"] = {"name": "pq_topk", "route": "cuda", "source": _PQ,
+                 "replaces": "cloudvectordb_tpu/ops/pallas_pq.py:510"}
 KERNELS["K4"] = {"name": "mha_small_head", **_ATTN}
 KERNELS["K4 bwd"] = {"name": "mha_small_head_bwd", **_ATTN}
 WRAPPERS = {"K1": band.tiles_topk_resid, "K2": flat.flat_topk,
-            "K3": band.tiles_topk, "K7": band.band_topk}
+            "K3": band.tiles_topk, "K7": band.band_topk, "K5": pq.pq_tiles_topk,
+            "K6": pq.pq_topk}
 #: the least time the card could take (NVIDIA's H100 SXM data sheet, dense
 #: rates): bytes over the memory rate against
 #: operations over the peak rate of their type
@@ -145,29 +172,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-_MANGLED = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+def kernel_name(sym: str) -> str:
+    """The ``*_kernel`` identifier inside a mangled symbol (a length-prefixed
+    name), else the symbol itself."""
+    for run in re.finditer(r"\d+", sym):
+        for i in range(len(run.group())):
+            n = int(run.group()[i:])
+            name = sym[run.end():run.end() + n]
+            if len(name) == n and name.endswith("_kernel") and name[0].isalpha():
+                return name
+    return sym
 
 
-def ptxas_report(out: str) -> list[str]:
-    """One line per kernel instance from ``nvcc -Xptxas -v``: its name and
-    template arguments (read from the mangled symbol; "rep" repeats an
-    earlier type), registers and spills."""
-    rows, name, spill = [], "?", ""
+def ptxas_report(out: str) -> str:
+    """One line for a library from ``nvcc -Xptxas -v``: per kernel name,
+    its instances (template arguments), their range of registers, and the
+    largest spill (bytes of spill stores)."""
+    kernels: dict[str, list[tuple[int, int]]] = {}
+    name, spill = "?", 0
     for line in out.splitlines():
         entry = re.search(r"entry function '(\S+)'", line)
         if entry:
-            sym = entry.group(1)
-            name = (re.findall(r"[a-z_]+_kernel", sym) or [sym])[0]
-            args = re.search(re.escape(name) + r"I(\w+?)EEv", sym)
-            if args:
-                tokens = re.findall(r"Li(\d+)E|(13__nv_bfloat16|S\d*_|[a-z])", args.group(1))
-                name += "<" + ",".join(n or _MANGLED.get(t, "rep") for n, t in tokens) + ">"
+            name = kernel_name(entry.group(1))
         elif "spill stores" in line:
-            spill = line.strip()
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif "Used" in line and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            rows.append(f"{name}: {regs} registers; {spill}")
-    return rows
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            kernels.setdefault(name, []).append((regs, spill))
+    return "; ".join(
+        f"{k} x{len(v)}: {min(r for r, _ in v)}-{max(r for r, _ in v)} registers, "
+        f"spill stores <= {max(s for _, s in v)} B" for k, v in kernels.items())
 
 
 def reset_launches() -> None:
@@ -203,11 +237,16 @@ def sync() -> None:
 
 
 # -- kernels against their plain versions ----------------------------------
-def compare(name: str, kernel, plain) -> float:
+#: small-shape checks per kernel: (shapes, worst id match, worst |dscore|),
+#: logged as one line per kernel by small_kernel_checks
+CHECKS: dict[str, list] = {}
+
+
+def compare(name: str, kernel, plain, quiet: bool = False) -> float:
     """kernel() against plain(), both returning (values, ids), on the same
     inputs; returns max |Δscore| over the filled slots. The wrapper named
     by the first word of ``name`` must count a launch in kernel() and none
-    in plain()."""
+    in plain(). ``quiet`` folds the result into CHECKS instead of a line."""
     wrapper = WRAPPERS[name.split()[0]]
     before = wrapper.launches
     v_ref, i_ref = plain()
@@ -225,10 +264,16 @@ def compare(name: str, kernel, plain) -> float:
     same = i == i_ref
     match = float(same.mean())
     near_tie = np.all(np.abs(v - v_ref)[~same & live] <= SCORE_TOL)
-    log(f"[kernel] {name}: ids {match:.5f} equal, max |dscore| {err:.3g}, "
-        f"mismatches near-ties: {bool(near_tie)}")
     if match < ID_MATCH_FLOOR or err > SCORE_TOL or not near_tie:
-        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        raise AssertionError(f"{name}: kernel disagrees with its plain version: ids "
+                             f"{match:.5f} equal, max |dscore| {err:.3g}, "
+                             f"mismatches near-ties: {bool(near_tie)}")
+    if quiet:
+        c = CHECKS.setdefault(name.split()[0], [0, 1.0, 0.0])
+        c[0], c[1], c[2] = c[0] + 1, min(c[1], match), max(c[2], err)
+    else:
+        log(f"[kernel] {name}: ids {match:.5f} equal, max |dscore| {err:.3g}, "
+            f"mismatches near-ties: {bool(near_tie)}")
     return err
 
 
@@ -279,7 +324,7 @@ def resid_checks(dev) -> float:
         a = random_resid_inputs(seed, dev, **shape)
         err = max(err, compare(
             f"K1 {name}", lambda: band.tiles_topk_resid(**a, k=K, l_buckets=lb),
-            lambda: band.tiles_topk_resid_reference(**a, k=K, l_buckets=lb)))
+            lambda: band.tiles_topk_resid_reference(**a, k=K, l_buckets=lb), quiet=True))
     return err
 
 
@@ -310,7 +355,8 @@ def flat_checks(dev) -> float:
             name = f"K2 {str(qt)[6:]}x{str(rt)[6:]} {metric} L{lb or 2048} D{d}"
             err = max(err, compare(
                 name, lambda: flat.flat_topk(db, q, K, metric=metric, l_buckets=lb),
-                lambda: flat.flat_topk_reference(db, q, K, metric=metric, l_buckets=lb)))
+                lambda: flat.flat_topk_reference(db, q, K, metric=metric, l_buckets=lb),
+                quiet=True))
     return err
 
 
@@ -335,17 +381,78 @@ def table_checks(dev) -> float:
             tag = f"{int8!r} L{lb or tile_n} D{d} tq{tile_q}"
             err3 = max(err3, compare(
                 f"K3 {tag}", lambda: band.tiles_topk(db, q, table, K, **kw),
-                lambda: band.tiles_topk_reference(db, q, table, K, **kw)))
+                lambda: band.tiles_topk_reference(db, q, table, K, **kw), quiet=True))
             starts = torch.tensor([1, n_tiles - 3], dtype=torch.int32, device=dev)
             err7 = max(err7, compare(
                 f"K7 {tag}", lambda: band.band_topk(db, q, starts, K, 3, **kw),
-                lambda: band.band_topk_reference(db, q, starts, K, 3, **kw)))
+                lambda: band.band_topk_reference(db, q, starts, K, 3, **kw), quiet=True))
     return err3, err7
+
+
+def random_pq_inputs(seed, dev, *, m=64, nbits=8, dsub=12, tile_n=1024, n_tiles=5,
+                     w=3, nq=64, tile_q=32, p=5, residual=True):
+    """Random K5 inputs: codes, codebooks, local bytes rising through each
+    tile's window, centroid tiles, a table with a repeated entry, n_valid
+    cutting the last tile."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * tile_n
+    local = np.zeros(n, np.uint8)
+    for t in range(n_tiles):
+        cuts = np.sort(rng.integers(0, tile_n, size=w - 1))
+        local[t * tile_n:(t + 1) * tile_n] = np.searchsorted(cuts, np.arange(tile_n),
+                                                             side="right")
+    table = rng.integers(0, n_tiles, size=(nq // tile_q, p)).astype(np.int32)
+    table[:, -1] = table[:, 0]  # plan padding repeats an entry
+    table[0, 1] = n_tiles - 1
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    d = m * dsub
+    ct = rng.normal(size=(n_tiles, w, d)).astype(np.float32) / np.sqrt(d)
+    return dict(
+        codes_cm=t(rng.integers(0, 2 ** nbits, size=(n, m), dtype=np.uint8)),
+        codebooks=t(rng.normal(size=(m, 2 ** nbits, dsub)).astype(np.float32) / np.sqrt(d)),
+        queries_sorted=t(rng.normal(size=(nq, d)).astype(np.float32) / np.sqrt(d)),
+        tile_table=t(table), centroid_tiles=t(ct) if residual else None,
+        local_ids=t(local) if residual else None, tile_n=tile_n, tile_q=tile_q,
+        n_valid=n - tile_n // 3, row_major=True)
+
+
+def pq_checks(dev) -> tuple[float, float]:
+    """K5 (residual and not; pools 1, 2, 3; top-2 on and off; R 1 and > 1;
+    repeated table entries; n_valid cutting a tile; D 768 at m 64 and a
+    narrow D) and K6 (ragged N, R 1 and 4)."""
+    err5 = 0.0
+    cases = [(resid, pools, top2, lb) for resid in (True, False) for pools in (1, 2, 3)
+             for top2 in (False, True) for lb in (0, 256)]
+    for seed, (resid, pools, top2, lb) in enumerate(cases):
+        shape = dict() if seed % 3 else dict(m=8, dsub=8, nbits=6, tile_n=512, tile_q=48,
+                                             nq=96)
+        a = random_pq_inputs(500 + seed, dev, residual=resid, **shape)
+        kw = dict(k=4 * K, l_buckets=lb, n_pools=pools, top2=top2)
+        err5 = max(err5, compare(
+            f"K5 resid={resid} pools={pools} top2={top2} L{lb}",
+            lambda: pq.pq_tiles_topk(**a, **kw),
+            lambda: pq.pq_tiles_topk_reference(**a, **kw), quiet=True))
+    err6 = 0.0
+    for seed, (n, lb) in enumerate(((5000, 0), (7777, 512))):
+        rng = np.random.default_rng(600 + seed)
+        codes = torch.as_tensor(rng.integers(0, 256, size=(PQ_M, n), dtype=np.uint8), device=dev)
+        cb = torch.as_tensor(rng.normal(size=(PQ_M, 256, 12)).astype(np.float32) / np.sqrt(D),
+                             device=dev)
+        q = torch.as_tensor(rng.normal(size=(100, D)).astype(np.float32) / np.sqrt(D),
+                            device=dev)
+        err6 = max(err6, compare(
+            f"K6 N{n} L{lb}", lambda: pq.pq_topk(codes, cb, q, K, l_buckets=lb),
+            lambda: pq.pq_topk_reference(codes, cb, q, K, l_buckets=lb), quiet=True))
+    return err5, err6
 
 
 def small_kernel_checks(dev) -> dict:
     err = {"K1": resid_checks(dev), "K2": flat_checks(dev)}
     err["K3"], err["K7"] = table_checks(dev)
+    err["K5"], err["K6"] = pq_checks(dev)
+    for key, (n, match, worst) in CHECKS.items():
+        log(f"[kernel] {key} against its plain version on {n} small shapes: ids >= "
+            f"{match:.5f} equal, max |dscore| {worst:.3g} (tolerance {SCORE_TOL})")
     return err
 
 
@@ -377,10 +484,11 @@ def attn_run(fn, q, k, v, mask, do, heads: int, d: int):
     return (out.detach(), *torch.autograd.grad(out, ts, do))
 
 
-def attn_compare(name: str, q, k, v, mask, do, heads: int, d: int) -> float:
+def attn_compare(name: str, q, k, v, mask, do, heads: int, d: int,
+                 quiet: bool = False) -> float:
     """K4's forward and backward against the plain version on the same
     inputs; each must count one launch, the plain version none. Returns the
-    largest |kernel - plain| over o, dq, dk and dv."""
+    largest |kernel - plain| over o, dq, dk and dv (``quiet``: no line)."""
     fn = attn.mha_small_head
     before = (fn.launches, fn.bwd_launches)
     ref = attn_run(attn.mha_small_head_reference, q, k, v, mask, do, heads, d)
@@ -401,22 +509,27 @@ def attn_compare(name: str, q, k, v, mask, do, heads: int, d: int) -> float:
             raise AssertionError(f"{name} {label}: kernel disagrees with its plain version "
                                  f"({err:.3g} > {bound:.3g})")
         worst = max(worst, err)
-    log(f"[kernel] {name}: max |kernel - plain| {', '.join(parts)}")
+    if not quiet:
+        log(f"[kernel] {name}: max |kernel - plain| {', '.join(parts)}")
     return worst
 
 
 def attn_checks(dev) -> float:
     """K4 at every shape the slice uses: L 128, 256, 512; (H, d) (12, 32)
     and (12, 64); f32 and bf16; ragged padding and a fully masked row."""
-    err, seed = 0.0, 300
+    err, seed = {}, 300
     for length in (128, 256, 512):
         for heads, d in ((12, 32), (12, 64)):
             for dtype in (torch.float32, torch.bfloat16):
                 seed += 1
                 args = attn_inputs(seed, dev, 3, length, heads, d, dtype)
-                err = max(err, attn_compare(
-                    f"K4 L{length} H{heads} d{d} {str(dtype)[6:]}", *args, heads, d))
-    return err
+                e = attn_compare(f"K4 L{length} H{heads} d{d} {str(dtype)[6:]}", *args,
+                                 heads, d, quiet=True)
+                err[dtype] = max(err.get(dtype, 0.0), e)
+    log(f"[kernel] K4 forward and backward against the plain version at 12 shapes (L 128, "
+        f"256, 512; d 32, 64; f32, bf16; ragged and fully masked rows): max |kernel - "
+        f"plain| f32 {err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
+    return max(err.values())
 
 
 def time_ms(fn, reps: int) -> float:
@@ -520,13 +633,23 @@ def build_and_tune(dev, chunk_fn, n_chunks, queries, residual: bool):
     log(f"[{'resid' if residual else 'whole'}] built {idx.ntotal} x {D}, nlist {NLIST}: "
         f"{build_s:.1f} s, W={idx._tile_window.shape[1]}, {idx._tune_n_tiles()} tiles, "
         f"scale {idx._scale:.6g}")
-    t0 = time.perf_counter()
-    report = idx.tune(queries.cpu().numpy(), k=K, target_recall=0.95, verbose=True)
-    tune_s = time.perf_counter() - t0
-    log(f"[{'resid' if residual else 'whole'}] tuned in {tune_s:.1f} s: op {report['op']}, "
-        f"met {report['met']}, self-relative recall {report['recall']:.4f}, "
-        f"tried {len(report['tried'])}")
+    report = tune_logged(idx, queries, "resid" if residual else "whole")
     return idx, report, build_s
+
+
+def tune_logged(idx, queries, label: str) -> dict:
+    """``tune(k=10, target_recall=0.95)`` against the index's own max-effort
+    reference, logged in one line: the op point, the candidates walked and
+    skipped by the cost proxy, and each finalist's host-API QPS."""
+    t0 = time.perf_counter()
+    report = idx.tune(queries.cpu().numpy(), k=K, target_recall=0.95)
+    tried = report["tried"]
+    skipped = sum("skipped" in r for r in tried)
+    finals = ", ".join(f"{f['op']}: {f['qps']:.0f}" for f in report["finalists"])
+    log(f"[{label}] tuned in {time.perf_counter() - t0:.1f} s: op {report['op']}, met "
+        f"{report['met']}, self-relative recall {report['recall']:.4f}; walked "
+        f"{len(tried) - skipped}, skipped {skipped}; finalists (qps) {finals}")
+    return report
 
 
 def serve(idx, queries, gt, reps: int, label: str, **kw) -> tuple[float, dict]:
@@ -559,7 +682,7 @@ def run_residual(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> d
     op = idx._op_point or {}
     p_tiles, tq = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
     st = idx._device_state()
-    q_s, _, table = _plan_tiles(queries, st["centroids"], st["tile_window"], tq, p_tiles)
+    q_s, _, _, table = _plan_tiles(queries, st["centroids"], st["tile_window"], tq, p_tiles)
     args = dict(db_resid=st["payload"], local_ids=st["local"],
                 centroid_tiles=st["centroid_tiles"], resid_scale=idx._scale,
                 queries_sorted=q_s, tile_table=table, valid_end=st["valid_end"],
@@ -608,7 +731,7 @@ def run_whole_row(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> 
     op = idx._op_point or {}
     p_tiles, tq = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
     st = idx._device_state()
-    q_s, _, table = _plan_tiles(queries, st["centroids"], st["tile_window"], tq, p_tiles)
+    q_s, _, _, table = _plan_tiles(queries, st["centroids"], st["tile_window"], tq, p_tiles)
     q_bf = q_s.to(torch.bfloat16)
     kw3 = dict(tile_n=idx.tile_n, tile_q=tq, int8="hybrid", n_valid=idx._n)
     mp = {"K3": main_shape_check(
@@ -709,6 +832,133 @@ def run_flat(dev, chunk_fn, queries, card) -> dict:
     log(f"[kernel] K2 bounds: f32 l2 {mp['K2']['bound_ms']:.3f} ms ({mp['K2']['bound_by']}), "
         f"int8 ip {mp['K2 int8']['bound_ms']:.3f} ms ({mp['K2 int8']['bound_by']})")
     return dict(launches=launches, mp=mp)
+
+
+# -- the PQ-tiles path (BASELINE config #3) ------------------------------------
+def pq_bound(codes_bytes_per_row: int, rows_scored: int, distinct_rows: int, ct_bytes: int,
+             q, out_bytes: int, m: int, ncode: int, dsub: int) -> dict:
+    """K5/K6's bound: the bytes of the distinct rows' codes (and local
+    bytes) and centroid tiles, the queries and the slots over the memory
+    rate, against the least arithmetic of the function, the LUT-ADC form, at
+    the f32 rate: m adds per (query, row) scored plus the queries' lookup
+    tables, B·m·ncode·dsub multiply-adds."""
+    n_bytes = distinct_rows * codes_bytes_per_row + ct_bytes + nbytes(q) + out_bytes
+    ops = rows_scored * m + 2.0 * q.shape[0] * m * ncode * dsub
+    return bound(n_bytes, ops, "f32")
+
+
+def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
+    """BASELINE config #3 (10M x 768, OPQ + IVF-PQ, m 64, nbits 8, residual
+    int8 refine): ``build_device_streaming`` on the first 10M rows of the
+    corpus, ``tune``, the refine route (K1) at the op point, then the PQ
+    route (K5 + int8 rescore) at the tuned p_tiles and tile_q with
+    refine_factor 16, 64 and 64 with top-2; the launch counts are reset
+    just before the build and read after the PQ route. Then K5 at the
+    refine_factor 64 shape against its plain version, both timed."""
+    n_chunks = PQ_ROWS // CHUNK
+    t0 = time.perf_counter()
+    gt = exact_gt(chunk_fn, n_chunks, CHUNK, queries[:NQ_GT])
+    log(f"[pq] exact f32 top-{K} of {NQ_GT} queries over {PQ_ROWS} rows: "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    idx = BandIVFPQIndex.build_device_streaming(
+        chunk_fn, n_chunks, nlist=NLIST, m=PQ_M, nbits=PQ_NBITS, opq=True, refine="int8",
+        kmeans_iters=10, pq_train_iters=8, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    log(f"[pq] built {idx.ntotal} x {D} OPQ+IVF-PQ (nlist {NLIST}, m {PQ_M}, nbits "
+        f"{PQ_NBITS}, residual int8 refine): {build_s:.1f} s, tile_n {idx.tile_n} after the "
+        f"skew fit, W={idx._tile_window.shape[1]}, {idx._tune_n_tiles()} tiles, refine "
+        f"scale {idx._scale:.6g}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    report = tune_logged(idx, queries, "pq")
+    op = dict(report["op"])
+    recall_rf, qps_rf = serve(idx, queries, gt, reps, "pq refine route")
+    if recall_rf < PQ_REFINE_FLOOR:
+        raise AssertionError(f"config #3 refine-route recall {recall_rf:.4f} < {PQ_REFINE_FLOOR}")
+    p_tiles, tq = op["p_tiles"], op["tile_q"]
+    routes = {}
+    for rf, top2 in ((16, False), (64, False), (64, True)):
+        name = f"rf{rf}{'+top2' if top2 else ''}"
+        routes[name] = serve(idx, queries, gt, reps, f"pq route {name} p{p_tiles} tq{tq}",
+                             serve_from="pq", p_tiles=p_tiles, tile_q=tq, refine_factor=rf,
+                             top2=top2)
+    launches = {"K5": pq.pq_tiles_topk.launches, "K1": band.tiles_topk_resid.launches}
+    rf64 = routes["rf64"][0]
+    log(f"[pq] {card}: build {build_s:.1f} s, op {op}, refine route recall@{K} "
+        f"{recall_rf:.4f} at {qps_rf['qps']:.1f} QPS; PQ route "
+        + "; ".join(f"{k}: {r:.4f} at {q_['qps']:.1f} QPS" for k, (r, q_) in routes.items())
+        + f"; launches {launches}")
+    if launches["K5"] <= 0 or rf64 < PQ_ROUTE_FLOOR:
+        raise AssertionError(f"config #3 PQ route: K5 launches {launches['K5']}, recall@{K} "
+                             f"{rf64:.4f} at refine_factor 64 (floor {PQ_ROUTE_FLOOR})")
+
+    st = idx._device_state()
+    _, k_cand, n_pools, l_buckets, _ = idx._pq_stage_plan(K, 64, 0, tq, p_tiles)
+    q_s, _, _, table = _plan_tiles(idx._rotate(queries), st["centroids"], st["tile_window"],
+                                   tq, p_tiles)
+    args = dict(codes_cm=st["codes"], codebooks=st["codebooks"], queries_sorted=q_s,
+                tile_table=table, k=k_cand, centroid_tiles=st["centroid_tiles"],
+                tile_n=idx.tile_n, tile_q=tq, l_buckets=l_buckets, n_valid=idx._n,
+                row_major=True, local_ids=st["local"], n_pools=n_pools)
+    mp = main_shape_check(
+        "K5", f"rf64 B{queries.shape[0]} p{p_tiles} tq{tq} k_cand {k_cand} L{l_buckets} "
+              f"pools {n_pools}",
+        lambda: pq.pq_tiles_topk(**args), lambda: pq.pq_tiles_topk_reference(**args),
+        reps=5, plain_reps=1)
+    used, rows_scored = table_work(table, tq, idx.tile_n, 1)
+    w = st["centroid_tiles"].shape[1]
+    mp.update(pq_bound(PQ_M + 1, rows_scored, used * idx.tile_n, used * w * D * 2, q_s,
+                       queries.shape[0] * n_pools * l_buckets * 8, PQ_M, 2 ** PQ_NBITS,
+                       D // PQ_M))
+    fma = rows_scored * D
+    log(f"[kernel] K5: {2.0 * fma / mp['ms'] / 1e9:.2f} T f32 FMA-ops/s (decode form); bound "
+        f"{mp['bound_ms']:.3f} ms ({mp['bound_by']}): {used} of {idx._tune_n_tiles()} "
+        f"tiles read, {rows_scored:.4g} (query, row) pairs scored")
+    del idx, st, args
+    return dict(launches={"K5": launches["K5"]}, mp={"K5": mp})
+
+
+def run_k6(dev, chunk_fn, queries, card) -> dict:
+    """K6 (``pq_topk``, the full PQ scan; no index reaches it): codebooks
+    trained non-residually (m 64) on 65,536 corpus rows, the first 1M rows
+    encoded, the 4096 queries, k 10, tile_n 2048; its launch count is reset
+    just before the scan and read after. Recall against the exact f32 scan
+    of those rows, then K6 against its plain version, both timed."""
+    x = torch.cat([chunk_fn(0), chunk_fn(1)])[:K6_ROWS]
+    t0 = time.perf_counter()
+    cb = train_pq(x[:K6_TRAIN], PQ_M, PQ_NBITS, iters=8, seed=0)
+    codes_cm = pq_encode(x, cb).T.contiguous()
+    sync()
+    train_s = time.perf_counter() - t0
+    _, exact = tiled_topk(x, queries, K, metric="ip", tile=8192)
+    # the scan's own oracle: the exact top-k over the bf16 reconstructions
+    x_hat = pq_decode(codes_cm.T, cb.to(torch.bfloat16).float())
+    _, oracle = tiled_topk(x_hat, queries.to(torch.bfloat16).float(), K, metric="ip",
+                           tile=8192)
+    del x_hat
+    reset_launches()
+    _, found = pq.pq_topk(codes_cm, cb, queries, K, tile_n=2048)
+    launches = pq.pq_topk.launches
+    found = found.cpu().numpy()
+    recall = recall_at_k(found, exact.cpu().numpy())
+    recall_oracle = recall_at_k(found, oracle.cpu().numpy())
+    log(f"[k6] {card}: codebooks on {K6_TRAIN} rows + encode of {K6_ROWS} rows "
+        f"{train_s:.1f} s; pq_topk over {K6_ROWS} x {PQ_M} codes, B {queries.shape[0]}: "
+        f"recall@{K} {recall:.4f} vs the exact f32 scan of the rows, {recall_oracle:.4f} vs "
+        f"the exact scan of their reconstructions; K6 launches {launches}")
+    kw = dict(tile_n=2048)
+    mp = main_shape_check(
+        "K6", f"{K6_ROWS}x{PQ_M} codes B{queries.shape[0]} tile_n 2048",
+        lambda: pq.pq_topk(codes_cm, cb, queries, K, **kw),
+        lambda: pq.pq_topk_reference(codes_cm, cb, queries, K, **kw), reps=2, plain_reps=1)
+    mp.update(pq_bound(PQ_M, queries.shape[0] * K6_ROWS, K6_ROWS, 0, queries.to(torch.bfloat16),
+                       queries.shape[0] * 2048 * 8, PQ_M, 2 ** PQ_NBITS, D // PQ_M))
+    log(f"[kernel] K6: {2.0 * queries.shape[0] * K6_ROWS * D / mp['ms'] / 1e9:.2f} T f32 "
+        f"FMA-ops/s (decode form); bound {mp['bound_ms']:.3f} ms ({mp['bound_by']})")
+    return dict(launches={"K6": launches}, mp={"K6": mp})
 
 
 # -- the encoder path: training, encoding, search --------------------------------
@@ -1086,8 +1336,7 @@ def main() -> int:
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for name, (_, out) in built.items():
-        for row in ptxas_report(out):
-            log(f"[build] {name}: {row}")
+        log(f"[build] {name}: {ptxas_report(out)}")
 
     chunk_fn = make_corpus(dev, CHUNK)
     kmeans_determinism(chunk_fn)
@@ -1103,6 +1352,10 @@ def main() -> int:
     runs.append(run_whole_row(dev, chunk_fn, n_chunks, queries, gt, card))
     torch.cuda.empty_cache()
     runs.append(run_flat(dev, chunk_fn, queries, card))
+    torch.cuda.empty_cache()
+    runs.append(run_pq(dev, chunk_fn, queries, card))
+    torch.cuda.empty_cache()  # the 10M PQ index is gone before the encoder phases
+    runs.append(run_k6(dev, chunk_fn, queries, card))
     del queries, gt
     torch.cuda.empty_cache()
 

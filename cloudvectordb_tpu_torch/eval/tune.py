@@ -74,9 +74,13 @@ def _time_search(index, queries, k: int, kw: dict, iters: int = 3) -> dict:
 
 
 def _proxy_cost(cfg: dict) -> float:
-    """Per-query scan-work proxy: the tile coverage. It bounds how far past
-    the first finalist the walk goes; it does not pick the winner."""
-    return float(cfg["p_tiles"])
+    """Per-query scan-work proxy, the reference's: the coverage knob times
+    the refine-depth multipliers. It bounds how far past the first
+    finalist the walk goes; it does not pick the winner."""
+    c = float(cfg.get("p_tiles") or cfg.get("nprobe") or 1)
+    c *= 1 + cfg.get("refine_factor", 0) / 256.0
+    c *= 1 + cfg.get("host_factor", 0) / 512.0
+    return c
 
 
 def tune_index(

@@ -2,8 +2,9 @@
 cloudvectordb_tpu/index/ivf_band.py: the inner-product ``BandIVFIndex`` over
 residual-int8 arenas and over whole-row int8, bf16 and f32 arenas, its
 device planner ``_plan_tiles``, its one-dispatch searches
-``_tiles_resid_plan_search`` and ``_tiles_plan_search``, and the band
-strategy ``_search_band``).
+``_tiles_resid_plan_search``, ``_tiles_plan_search`` and, for the PQ family
+(index/ivf_band_pq.py), ``_pq_tiles_core``/``_pq_tiles_plan_search``, and
+the band strategy ``_search_band``).
 
 Layout: rows sorted by coarse list into one arena, padded to a multiple of
 ``tile_n``: int8 residuals (row − its list centroid) with
@@ -34,7 +35,8 @@ from cloudvectordb_tpu_torch.ops.assign import assign_clusters
 from cloudvectordb_tpu_torch.ops.band import (
     band_topk, order_centroids, tiles_topk, tiles_topk_resid)
 from cloudvectordb_tpu_torch.ops.flat_topk import quantize_queries
-from cloudvectordb_tpu_torch.ops.topk import f32_const, tiled_topk, topk_stable
+from cloudvectordb_tpu_torch.ops.pq import pq_tiles_topk
+from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const, tiled_topk, topk_stable
 from cloudvectordb_tpu_torch.utils.device import DEFAULT, as_device
 
 #: max list indices one arena tile may span: bounds the per-tile window W
@@ -52,9 +54,9 @@ def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
     Sorts queries by their top-1 coarse centroid (L2 ranking — the
     assignment metric; a stable sort, as ``jnp.argsort``), then scores arena
     tiles per query group: group-max over queries first, then the
-    tile-window gather. Returns (q_s, order, tile_table) with tile_table
-    (n_qt, p_tiles) int32. (The reference also returns the raw q·centroids
-    matrix, which only its PQ family reads.)
+    tile-window gather. Returns (q_s, order, dots, tile_table): dots the
+    raw (B, nlist) q·centroids matrix in caller query order (the PQ
+    family's refine reads it), tile_table (n_qt, p_tiles) int32.
 
     Every tile of a list spanning several tiles gets the same score, so the
     tile scores hold many exact ties; the table keeps the lower tile id on
@@ -73,7 +75,7 @@ def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
     g_max = coarse[order].reshape(n_qt, tile_q, -1).amax(dim=1)
     ts = g_max[:, tile_window.T].amax(dim=1)  # (n_qt, n_tiles)
     _, tile_table = topk_stable(ts, p_tiles)
-    return q_s, order, tile_table.to(torch.int32).contiguous()
+    return q_s, order, dots, tile_table.to(torch.int32).contiguous()
 
 
 def _unsort(order, v, gids):
@@ -92,7 +94,7 @@ def _tiles_resid_plan_search(
     (ops/band.py), the arena-row → global-id map and the unsort to caller
     query order. q (B, D) f32 with B % tile_q == 0; ids int32 on the
     device. Unfilled slots map through ids[clip(row)], as the reference's."""
-    q_s, order, tile_table = _plan_tiles(
+    q_s, order, _, tile_table = _plan_tiles(
         q, centroids, tile_window, tile_q, p_tiles)
     v, rows = tiles_topk_resid(
         payload, local_ids, centroid_tiles, resid_scale, q_s, tile_table, k,
@@ -107,7 +109,7 @@ def _tiles_plan_search(q, centroids, payload, ids, tile_window, db_scale, n_vali
     is the reference's score mode: True quantizes each query to int8
     (``round(q / (amax/127))``), 'hybrid' scores bf16 queries against the
     int8 rows, False scores queries cast to the arena dtype."""
-    q_s, order, tile_table = _plan_tiles(q, centroids, tile_window, tile_q, p_tiles)
+    q_s, order, _, tile_table = _plan_tiles(q, centroids, tile_window, tile_q, p_tiles)
     scale = f32_const(db_scale, q)
     if int8 == "hybrid":
         q_dev = q_s.to(torch.bfloat16)
@@ -120,6 +122,72 @@ def _tiles_plan_search(q, centroids, payload, ids, tile_window, db_scale, n_vali
                          tile_q=tile_q, int8=int8, n_valid=n_valid)
     v = v * scale
     return _unsort(order, v, ids[rows.long().clamp(0, ids.shape[0] - 1)])
+
+
+def _rescore_cap(k_cand: int, b: int) -> int:
+    """Query sub-batch of the refine rescore: the largest divisor of b not
+    above min(512, 2^20 / k_cand), so one gathered (sub, k_cand, D) block
+    stays near 1 GB of f32 at D 768 (the reference's cap,
+    ivf_band.py:173-181)."""
+    cap = max(1, min(512, (1 << 20) // max(k_cand, 1)))
+    return max(s for s in range(1, min(cap, b) + 1) if b % s == 0)
+
+
+def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
+                   centroid_tiles, n_valid, local_ids, *, k: int, k_cand: int,
+                   p_tiles: int, tile_n: int, tile_q: int, refine_scale: float,
+                   n_pools: int = 1, l_buckets: int = 0, refine_residual: bool = False,
+                   top2: bool = False):
+    """The PQ-tiles search without the arena-row → global-id map: device
+    planning, K5 (ops/pq.py) over the row-major (N_pad, m) codes for
+    ``k_cand`` candidates, the int8 refine rescore, and the unsort. Returns
+    (v, rows) in caller query order, rows as arena rows.
+
+    The rescore (``refine_scale > 0``) gathers each candidate's int8 refine
+    row. Residual rows (``refine_residual``): bf16(q)·bf16(r) as exact f32
+    products summed in f32, times the scale, plus the exact centroid term
+    ``dots[order]`` gathered by the row's list (its local byte through the
+    tile window). Whole rows: q·(r·scale) in f32. Unfilled kernel slots
+    (-inf) stay -inf. Then a stable top-k."""
+    q_s, order, dots, tile_table = _plan_tiles(q, centroids, tile_window, tile_q, p_tiles)
+    v, rows = pq_tiles_topk(
+        codes, codebooks, q_s, tile_table, k_cand, centroid_tiles=centroid_tiles,
+        tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets, n_valid=n_valid,
+        row_major=True, local_ids=local_ids, n_pools=n_pools, top2=top2)
+    if refine_scale > 0:
+        valid = v > NEG_INF
+        rows = rows.long().clamp(0, refine_rows.shape[0] - 1)
+        b, kc = rows.shape
+        scale = f32_const(refine_scale, q)
+        sub = _rescore_cap(kc, b)
+        parts = []
+        for s in range(0, b, sub):
+            cand = refine_rows[rows[s:s + sub]]  # (sub, k_cand, D) int8
+            if refine_residual:
+                qb = q_s[s:s + sub].to(torch.bfloat16).float()
+                ex = torch.bmm(cand.float(), qb[:, :, None])[:, :, 0] * scale
+            else:
+                ex = torch.bmm(cand.float() * scale, q_s[s:s + sub, :, None])[:, :, 0]
+            parts.append(ex)
+        ex = torch.cat(parts)
+        if refine_residual:
+            lists = tile_window[rows // tile_n, local_ids.reshape(-1)[rows].long()]
+            ex = ex + torch.gather(dots[order], 1, lists.long())
+        ex = torch.where(valid, ex, NEG_INF)
+        v, pos = topk_stable(ex, k)
+        rows = torch.gather(rows, 1, pos)
+    else:
+        v, rows = v[:, :k], rows[:, :k].long()
+    return _unsort(order, v, rows)
+
+
+def _pq_tiles_plan_search(q, centroids, codes, codebooks, refine_rows, ids, tile_window,
+                          centroid_tiles, n_valid, local_ids, **kw):
+    """One-dispatch PQ-tiles search (``_pq_tiles_core``) with the arena-row
+    → global-id map: (v (B, k) f32, ids (B, k) int32) in caller order."""
+    v, rows = _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
+                             centroid_tiles, n_valid, local_ids, **kw)
+    return v, ids[rows.clamp(0, ids.shape[0] - 1)]
 
 
 def _next_pow2(x: int) -> int:

@@ -1,9 +1,10 @@
 """Polymorphic load (counterpart of cloudvectordb_tpu/index/registry.py).
 
 Reads a directory in the shared on-disk format (index/base.py), saved by
-either package, onto an explicit device. This slice loads the ``flat`` and
-``band_ivf`` kinds (residual-int8 and whole-row arenas); every other kind
-raises and names the slice it waits for.
+either package, onto an explicit device. The port loads the ``flat``,
+``band_ivf`` (residual-int8 and whole-row arenas) and ``band_ivf_pq`` kinds
+(code-major or row-major codes); every other kind raises and names the
+slice it waits for.
 """
 
 from __future__ import annotations
@@ -15,13 +16,13 @@ import torch
 from cloudvectordb_tpu_torch.index.base import MANIFEST, Index
 from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
+from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
 from cloudvectordb_tpu_torch.utils.device import DEFAULT
 
-_KINDS = {"flat": FlatIndex, "band_ivf": BandIVFIndex}
+_KINDS = {"flat": FlatIndex, "band_ivf": BandIVFIndex, "band_ivf_pq": BandIVFPQIndex}
 _LATER = {
     "ivf_flat": "the probe-scan families slice",
     "ivf_pq": "the probe-scan families slice",
-    "band_ivf_pq": "the PQ-tiles slice (pq_tiles_topk kernel)",
 }
 
 

@@ -1,5 +1,5 @@
 """Build and bind the hand-written kernels in ``csrc/*.cu`` (the CUDA side of
-ops/band.py, ops/flat_topk.py and ops/attn.py; the JAX package has no
+ops/band.py, ops/flat_topk.py, ops/pq.py and ops/attn.py; the JAX package has no
 counterpart: Pallas compiled its kernels inside jit).
 
 nvcc compiles each source into a shared library of its own with a plain C
@@ -12,7 +12,7 @@ stream pass as ``c_void_p``. Each C function returns ``cudaGetLastError()``
 after its launch and the wrapper raises if it is not 0. Nothing here falls
 back to a plain version: a kernel that does not build or launch is an error.
 
-The kernel wrappers (ops/band.py, ops/flat_topk.py, ops/attn.py) import
+The kernel wrappers (ops/band.py, ops/flat_topk.py, ops/pq.py, ops/attn.py) import
 this module only for CUDA tensors.
 """
 
@@ -34,7 +34,7 @@ _BUILD = _PKG / "_build"  # gitignored
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
-_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _CI, _CF, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C functions of each library: name -> (argtypes, restype)
 _SIGNATURES = {
     "tiles_resid": {
@@ -44,6 +44,10 @@ _SIGNATURES = {
     },
     "tiles_scan": {
         "cvdb_tiles_scan": ([_CI] * 3 + [_VP] * 6 + [_CI] * 8 + [_VP], _CI),
+        "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
+    },
+    "pq_scan": {
+        "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 7 + [_CI] * 12 + [_VP], _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "mha_small_head": {
@@ -230,6 +234,53 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
         l_buckets, d, n_valid, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "tiles_scan")
+    return out_v, out_i
+
+
+def pq_scan_slots(source: int, codes, local, cb, ct, q, table, *, n_qt: int, tile_q: int,
+                  steps: int, tile_n: int, l_buckets: int, n_valid: int, n_pools: int,
+                  top2: bool):
+    """Launch the PQ scan (K5 with ``source`` TABLE, K6 with ALL, numbered
+    as ops/band.py's SCAN_*): (n_slots, Q, L) f32 slot values and int32
+    arena rows, on the tensors' device and PyTorch's current stream.
+    ``codes`` is the (N, m) uint8 code of each row under any strides (the
+    row-major arena, or a code-major matrix transposed); ``local`` (N,)
+    uint8 and ``ct`` (n_tiles, W, D) bf16 are both None without a residual
+    term. Shapes are checked by ops/pq.py; this checks what the kernel
+    reads raw."""
+    dev = codes.device
+    if codes.dtype != torch.uint8 or codes.device != dev:
+        raise ValueError(f"codes: need uint8 on {dev}, got {codes.dtype}")
+    _need(cb, "codebooks", torch.bfloat16, dev)
+    _need(q, "queries", torch.bfloat16, dev)
+    if (ct is None) != (local is None):
+        raise ValueError("the residual term needs both local ids and centroid tiles")
+    if ct is not None:
+        _need(ct, "centroid_tiles", torch.bfloat16, dev)
+        if local.dtype != torch.uint8 or local.device != dev or local.stride(0) != 1:
+            raise ValueError("local ids: need a contiguous uint8 vector on the device")
+    if table is not None:
+        _need(table, "table", torch.int32, dev)
+    n, m = codes.shape
+    nq, d = q.shape
+    _, ncode, dsub = cb.shape
+    if n >= 2**31:
+        raise ValueError(f"arena rows {n} exceed the kernel's int32 row ids")
+    if n_qt * -(-tile_q // 32) > 65535 or n_pools > 65535:
+        raise ValueError(f"{n_qt} query tiles of {tile_q}, {n_pools} pools exceed the grid")
+    lib = _load("pq_scan")
+    n_slots = n_pools * (2 if top2 else 1)
+    out_v = torch.empty((n_slots, nq, l_buckets), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_slots, nq, l_buckets), dtype=torch.int32, device=dev)
+    rc = lib.cvdb_pq_scan(
+        source, int(top2), codes.data_ptr(), codes.stride(0), codes.stride(1),
+        None if local is None else local.data_ptr(), cb.data_ptr(),
+        None if ct is None else ct.data_ptr(), q.data_ptr(),
+        None if table is None else table.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        n_qt, tile_q, steps, tile_n, l_buckets, m, ncode, dsub,
+        0 if ct is None else ct.shape[1], n_valid, n_pools, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "pq_scan")
     return out_v, out_i
 
 

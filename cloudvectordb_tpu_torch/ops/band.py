@@ -158,6 +158,42 @@ def _bucket_merge(scores, base, l_buckets: int, best_v, best_i):
     return torch.where(better, mx, best_v), torch.where(better, new_idx, best_i)
 
 
+def _bucket_merge_top2(scores, base, l_buckets: int, v1, i1, v2, i2):
+    """One step of the top-2 slot merge (the plain twin of
+    csrc/slot_merge.cuh's ``tile_take2``/``slot_merge2``; the reference's
+    ``pallas_pq.py:255-292``). Each bucket keeps its best two distinct
+    rows: slot 1 (``v1``, ``i1``) and slot 2 (``v2``, ``i2``), each
+    (n_qt, tile_q, L). Within the tile the runner-up is the best row other
+    than the winner, the smallest r on ties. Across steps the new slot 1 is
+    the better of (slot 1, tile best) by a strict ``>``; the loser of that
+    pair races ``max(slot 2, tile runner-up)`` for slot 2, except when the
+    tile best is the row already in slot 1 (a repeated table entry). A
+    bucket whose rows are all masked scores -inf and never wins. Returns
+    the updated (v1, i1, v2, i2)."""
+    n_qt, tile_q, tile_n = scores.shape
+    r_per = tile_n // l_buckets
+    dev = scores.device
+    s4 = scores.view(n_qt, tile_q, r_per, l_buckets)
+    r_iota = torch.arange(r_per, device=dev).view(1, 1, r_per, 1)
+    b_iota = torch.arange(l_buckets, device=dev, dtype=torch.int64)
+    mx = s4.amax(dim=2)
+    r_star = torch.where(s4 >= mx[:, :, None, :], r_iota, r_per).amin(dim=2)
+    s4b = torch.where(r_iota == r_star[:, :, None, :], NEG_INF, s4)
+    mx2 = s4b.amax(dim=2)
+    r2 = torch.where(s4b >= mx2[:, :, None, :], r_iota, r_per).amin(dim=2)
+    new_idx = base[:, None, None] + r_star * l_buckets + b_iota
+    new_idx2 = base[:, None, None] + r2 * l_buckets + b_iota
+    use_t = mx > v1
+    dup = ~use_t & (new_idx == i1)
+    lo = torch.where(dup, NEG_INF, torch.where(use_t, v1, mx))
+    lo_i = torch.where(use_t, i1, new_idx)
+    c2 = torch.maximum(v2, mx2)
+    c2_i = torch.where(mx2 > v2, new_idx2, i2)
+    win2 = lo > c2
+    return (torch.where(use_t, mx, v1), torch.where(use_t, new_idx, i1),
+            torch.where(win2, lo, c2), torch.where(win2, lo_i, c2_i))
+
+
 def _slots_reference(db_resid, local_ids, centroid_tiles, q_bf16, q8,
                      row_scale, tile_table, valid_end, tile_n, tile_q,
                      l_buckets):
