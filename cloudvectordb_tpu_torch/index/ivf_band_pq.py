@@ -118,18 +118,13 @@ class BandIVFPQIndex(BandIVFIndex):
 
     # -- quantizers ---------------------------------------------------------
     def _rotate(self, x: torch.Tensor) -> torch.Tensor:
-        """x' = x @ Rᵀ on the device in f32 (TF32 off, the reference's
-        Precision.HIGHEST); x itself without OPQ."""
+        """x' = x @ Rᵀ on the device in f32 (TF32 off by the package's
+        policy: the reference's Precision.HIGHEST); x itself without OPQ."""
         if self.opq_matrix is None:
             return x
         if self._opq_dev is None:
             self._opq_dev = torch.as_tensor(self.opq_matrix, device=self.device)
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return x @ self._opq_dev.T
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
+        return x @ self._opq_dev.T
 
     def _train_quantizers(self, tr: torch.Tensor, centroids, codebooks) -> torch.Tensor:
         """Coarse centroids (in band order) and PQ codebooks from the rotated

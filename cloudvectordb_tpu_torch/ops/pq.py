@@ -230,7 +230,7 @@ def pq_tiles_topk_reference(codes_cm, codebooks, queries_sorted, tile_table, k: 
                           local_ids, n_pools, n_live_tiles, row_mask, l2, top2, plain=True)
 
 
-def _pq_topk(codes_cm, codebooks, queries, k, tile_n, tile_q, l_buckets, plain):
+def _pq_topk(codes_cm, codebooks, queries, k, tile_n, l_buckets, plain):
     m, n = codes_cm.shape
     mc, ncode, dsub = codebooks.shape
     nq, d = queries.shape
@@ -239,12 +239,11 @@ def _pq_topk(codes_cm, codebooks, queries, k, tile_n, tile_q, l_buckets, plain):
                          f"codebooks {tuple(codebooks.shape)}")
     if d != m * dsub:
         raise ValueError(f"queries D={d} != m·dsub = {m * dsub}")
-    if tile_q < 1:
-        raise ValueError(f"tile_q={tile_q}")
     _check_devices(codes_cm, codebooks, queries)
     l_buckets = _resolve_buckets(tile_n, l_buckets)
     # every query is scored against every row independently of the others,
-    # so all queries form one query tile (the reference's tile_q only pads)
+    # so all queries form one query tile: the reference's tile_q, which only
+    # pads the batch, has no counterpart here
     out_v, out_i, launched = _pq_slots(
         SCAN_ALL, codes_cm.T, None, codebooks.to(torch.bfloat16).contiguous(), None,
         queries.to(torch.bfloat16).contiguous(), None, -(-n // tile_n), tile_n=tile_n,
@@ -259,20 +258,19 @@ def pq_topk(
     queries,    # (Q, D), D = m·dsub
     k: int,
     tile_n: int = 2048,
-    tile_q: int = 128,
     l_buckets: int = 0,
 ):
     """K6: top-k inner product over every PQ-coded row (non-residual):
     (Q, min(k, N)) f32 scores against the reconstructions and int32 rows.
     CUDA tensors launch the hand-written kernel; CPU tensors run the plain
     version."""
-    return _pq_topk(codes_cm, codebooks, queries, k, tile_n, tile_q, l_buckets, plain=False)
+    return _pq_topk(codes_cm, codebooks, queries, k, tile_n, l_buckets, plain=False)
 
 
 def pq_topk_reference(codes_cm, codebooks, queries, k: int, tile_n: int = 2048,
-                      tile_q: int = 128, l_buckets: int = 0):
+                      l_buckets: int = 0):
     """Plain PyTorch version of ``pq_topk`` on any device."""
-    return _pq_topk(codes_cm, codebooks, queries, k, tile_n, tile_q, l_buckets, plain=True)
+    return _pq_topk(codes_cm, codebooks, queries, k, tile_n, l_buckets, plain=True)
 
 
 #: kernel launches since the last reset (the card run resets and reads them)

@@ -107,9 +107,10 @@ def _assert_same_arena(t, j):
 
 
 def _assert_same_results(vt, it, vj, ij, gt):
-    """Slot by slot the scores agree, so an id that differs is a tie."""
+    """Ids equal on >= 0.999 of slots, and slot by slot the scores agree, so
+    an id that differs is a tie."""
     vt, it, vj, ij = (np.asarray(a) for a in (vt, it, vj, ij))
-    assert it.shape == ij.shape and (it == ij).mean() >= 0.99
+    assert it.shape == ij.shape and (it == ij).mean() >= 0.999, (it != ij).sum()
     np.testing.assert_allclose(vt, vj, rtol=1e-5, atol=1e-5)
     assert abs(recall_at_k(it, gt) - recall_at_k(ij, gt)) <= 0.005
 

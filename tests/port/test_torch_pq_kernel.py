@@ -113,9 +113,9 @@ def test_pq_topk_matches_the_reference(n, l_buckets):
     codes = rng.integers(0, 2 ** nbits, size=(m, n), dtype=np.uint8)
     cb = rng.normal(size=(m, 2 ** nbits, dsub)).astype(np.float32)
     q = rng.normal(size=(20, m * dsub)).astype(np.float32)
-    kw = dict(tile_n=256, tile_q=16, l_buckets=l_buckets)
+    kw = dict(tile_n=256, l_buckets=l_buckets)
     v_j, i_j = pq_topk_pallas(jnp.asarray(codes), jnp.asarray(cb), jnp.asarray(q), 10,
-                              interpret=True, **kw)
+                              tile_q=16, interpret=True, **kw)
     v_t, i_t = pq.pq_topk(torch.from_numpy(codes), torch.from_numpy(cb),
                           torch.from_numpy(q), 10, **kw)
     assert pq.pq_topk.launches == 0
