@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build of every hand-written kernel from csrc/*.cu (one nvcc per source,
-   all at once), timed, with ptxas' registers and spills per kernel;
+   all at once), timed, with ptxas' registers and spills per kernel; the
+   tensor-core instructions (HMMA, HGMMA) in each K4 kernel, counted in
+   ``cuobjdump --dump-sass``: every bf16 K4 kernel must have some;
 3. k-means determinism: two trainings on the same 262,144 rows (nlist
    4096, 10 iterations) must give bit-identical centroids;
 4. each kernel against its plain PyTorch version on the card, on small
@@ -58,8 +60,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exact scan, then K6 against its plain version, both timed;
 10. K4 (mha_small_head) against its plain version, forward outputs and dq,
    dk, dv: L 128, 256 and 512, (H, d) (12, 32) and (12, 64), f32 and bf16,
-   ragged key padding and a fully masked sequence; each check must count
-   one forward and one backward launch;
+   and (12, 16) bf16, ragged key padding and a fully masked sequence; each
+   check must count one forward and one backward launch, and each bf16
+   backward must give bit-identical gradients in two runs;
 11. training: ``Trainer.fit`` on minilm-l6-384 at full width (bf16, max_len
    128, no probs dropout, 'auto'), 20 steps of 512 learnable triplets made
    on the device; finite losses, K4 forward and backward launched once per
@@ -77,8 +80,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``FlatIndex.search`` (K2) must reach recall@10 0.99 against the exact
    scan;
 13. K4 at the main path's shapes (bf16, B 1536 forward and backward, B 1024
-   forward) against its plain version, timed beside torch's
-   scaled_dot_product_attention.
+   forward) against its plain version (with SDPA's own distance to it, and
+   the backward bit-identical in two runs, at B 1536), timed beside torch's
+   scaled_dot_product_attention (K4 and SDPA as the mean of 20 calls back to
+   back, each repetition).
 
 Then one JSON line with every kernel's record (times, bound, library
 time), the card's line and, as the last line,
@@ -206,6 +211,45 @@ def ptxas_report(out: str) -> str:
     return "; ".join(
         f"{k} x{len(v)}: {min(r for r, _ in v)}-{max(r for r, _ in v)} registers, "
         f"spill stores <= {max(s for _, s in v)} B" for k, v in kernels.items())
+
+
+def tensor_core_ops(lib: Path) -> dict[str, tuple[int, int]]:
+    """(tensor-core instructions (HMMA, or HGMMA for wgmma), all
+    instructions) in each kernel of a built library, by mangled symbol, from
+    ``cuobjdump --dump-sass``."""
+    from cloudvectordb_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-sass", str(lib)], check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    counts: dict[str, list[int]] = {}
+    sym = None
+    for line in out.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            sym = fn.group(1)
+            counts[sym] = [0, 0]
+        elif sym is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[sym][1] += 1
+            counts[sym][0] += bool(re.search(r"\bHG?MMA\b", line))
+    return {k: (v[0], v[1]) for k, v in counts.items()}
+
+
+def k4_tensor_core_check(lib: Path) -> None:
+    """Every bf16 K4 kernel (a symbol over __nv_bfloat16 rows: four kernels
+    at d 16, 32 and 64) must run tensor-core instructions; one line."""
+    counts = tensor_core_ops(lib)
+    by_name: dict[str, list[tuple[int, int]]] = {}
+    for sym, n in counts.items():
+        key = kernel_name(sym) + (" bf16" if "__nv_bfloat16" in sym else " f32")
+        by_name.setdefault(key, []).append(n)
+    log("[build] mha_small_head tensor-core instructions of all (cuobjdump --dump-sass): "
+        + "; ".join(f"{k} x{len(v)}: {min(h for h, _ in v)}-{max(h for h, _ in v)} of "
+                    f"{min(a for _, a in v)}-{max(a for _, a in v)}"
+                    for k, v in sorted(by_name.items())))
+    bf16 = [h for sym, (h, _) in counts.items() if "__nv_bfloat16" in sym]
+    if len(bf16) != 12 or min(bf16) == 0:
+        raise AssertionError(f"bf16 K4 kernels without tensor-core instructions: {by_name}")
 
 
 def reset_launches() -> None:
@@ -518,36 +562,60 @@ def attn_compare(name: str, q, k, v, mask, do, heads: int, d: int,
     return worst
 
 
+def bwd_bit_identical(name: str, q, k, v, mask, do, heads: int, d: int) -> None:
+    """Two runs of K4's backward on the same inputs must give the same bits
+    (no atomics: every sum runs in one fixed order)."""
+    runs = [attn_run(attn.mha_small_head, q, k, v, mask, do, heads, d)[1:] for _ in range(2)]
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{name}: two backward runs gave different gradients")
+
+
+#: (H, d) per row type: bf16 also at d 16, so every width the tensor-core
+#: kernels are compiled for is held
+ATTN_HEADS = {torch.float32: ((12, 32), (12, 64)),
+              torch.bfloat16: ((12, 16), (12, 32), (12, 64))}
+
+
 def attn_checks(dev) -> float:
     """K4 at every shape the slice uses: L 128, 256, 512; (H, d) (12, 32)
-    and (12, 64); f32 and bf16; ragged padding and a fully masked row."""
-    err, seed = {}, 300
+    and (12, 64), and (12, 16) for bf16; f32 and bf16; ragged padding and a
+    fully masked row; bf16 backward bit-identical across two runs."""
+    err, seed, n = {}, 300, 0
     for length in (128, 256, 512):
-        for heads, d in ((12, 32), (12, 64)):
-            for dtype in (torch.float32, torch.bfloat16):
+        for dtype, shapes in ATTN_HEADS.items():
+            for heads, d in shapes:
                 seed += 1
                 args = attn_inputs(seed, dev, 3, length, heads, d, dtype)
-                e = attn_compare(f"K4 L{length} H{heads} d{d} {str(dtype)[6:]}", *args,
-                                 heads, d, quiet=True)
+                name = f"K4 L{length} H{heads} d{d} {str(dtype)[6:]}"
+                e = attn_compare(name, *args, heads, d, quiet=True)
+                if dtype == torch.bfloat16:
+                    bwd_bit_identical(name, *args, heads, d)
                 err[dtype] = max(err.get(dtype, 0.0), e)
-    log(f"[kernel] K4 forward and backward against the plain version at 12 shapes (L 128, "
-        f"256, 512; d 32, 64; f32, bf16; ragged and fully masked rows): max |kernel - "
-        f"plain| f32 {err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
+                n += 1
+    log(f"[kernel] K4 forward and backward against the plain version at {n} shapes (L 128, "
+        f"256, 512; d 32, 64, and 16 for bf16; f32, bf16; ragged and fully masked rows): max "
+        f"|kernel - plain| f32 {err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}; "
+        f"bf16 backward bit-identical across two runs at each")
     return max(err.values())
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() over reps, after one warm-up call."""
+def time_ms(fn, reps: int, inner: int = 1) -> float:
+    """Median CUDA-event time of fn() over reps, after one warm-up call. With
+    ``inner`` > 1 each repetition times that many calls back to back and
+    counts their mean: for calls shorter than a millisecond, so that the
+    host's launch of one call overlaps the card's run of the one before."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -1288,28 +1356,50 @@ def sdpa(q, k, v, mask, heads: int, d: int):
                                           scale=d ** -0.5)
 
 
+def sdpa_rows(q, k, v, mask, heads: int, d: int, scale: float):
+    """sdpa() back in K4's (B, L, H·d) layout (``scale`` is d ** -0.5)."""
+    return sdpa(q, k, v, mask, heads, d).transpose(1, 2).reshape(q.shape)
+
+
+#: K4 and SDPA run under a millisecond at the main shapes: each timed
+#: repetition runs this many calls back to back (time_ms)
+K4_INNER = 20
+
+
 def k4_main_shapes(dev) -> dict:
     """K4 at the main path's shapes, bf16: forward and backward at B 1536
     (a training step's 3 x 512 sequences), forward at B 1024 (an encode
-    batch); each against its plain version, then timed beside SDPA."""
+    batch); each against its plain version (with SDPA's own distance to it
+    at B 1536, and the backward's bits across two runs), then timed beside
+    SDPA."""
     heads, d, scale = 12, 32, 32 ** -0.5
     out = {}
     for b, seed in ((1536, 900), (1024, 901)):
         q, k, v, mask, do = k4_inputs(dev, b, torch.bfloat16, seed)
-        err = attn_compare(f"K4 main path B{b} L{ENC_LEN} H{heads} d{d} bfloat16",
-                           q, k, v, mask, do, heads, d)
+        name = f"K4 main path B{b} L{ENC_LEN} H{heads} d{d} bfloat16"
+        err = attn_compare(name, q, k, v, mask, do, heads, d)
+        if b == 1536:
+            bwd_bit_identical(name, q, k, v, mask, do, heads, d)
+            ref = attn_run(attn.mha_small_head_reference, q, k, v, mask, do, heads, d)
+            lib = attn_run(sdpa_rows, q, k, v, mask, do, heads, d)
+            log("[kernel] SDPA at the same inputs: max |SDPA - plain| " + ", ".join(
+                f"{label} {float((a.float() - r.float()).abs().max()):.3g}"
+                for label, a, r in zip(("o", "dq", "dk", "dv"), lib, ref))
+                + "; K4's backward bit-identical across two runs")
+            del ref, lib
         with torch.no_grad():
-            fwd = time_ms(lambda: attn.mha_small_head(q, k, v, mask, heads, d, scale), 10)
+            fwd = time_ms(lambda: attn.mha_small_head(q, k, v, mask, heads, d, scale), 10,
+                          K4_INNER)
             fwd_plain = time_ms(
                 lambda: attn.mha_small_head_reference(q, k, v, mask, heads, d, scale), 3)
-            fwd_lib = time_ms(lambda: sdpa(q, k, v, mask, heads, d), 10)
+            fwd_lib = time_ms(lambda: sdpa(q, k, v, mask, heads, d), 10, K4_INNER)
         rec = {"err": err, "fwd": {"ms": fwd, "plain_ms": fwd_plain, "library_ms": fwd_lib,
                                    **k4_bound(q, mask, heads, d, False)}}
         log(f"[kernel] K4 forward B{b}: kernel {fwd:.3f} ms, plain version {fwd_plain:.3f} ms, "
             f"SDPA {fwd_lib:.3f} ms, bound {rec['fwd']['bound_ms']:.3f} ms "
             f"({rec['fwd']['bound_by']})")
         if b == 1536:
-            times = {}
+            times, alone = {}, {}
             for name, fn in (("kernel", attn.mha_small_head),
                              ("plain", attn.mha_small_head_reference),
                              ("library", lambda *a: sdpa(*a[:6]))):
@@ -1317,9 +1407,14 @@ def k4_main_shapes(dev) -> dict:
                 o = fn(*ts, mask, heads, d, scale)
                 do_ = do if name != "library" else do.view(o.shape[0], ENC_LEN, heads, d
                                                            ).transpose(1, 2)
-                times[name] = time_ms(
-                    lambda: torch.autograd.grad(o, ts, do_, retain_graph=True),
-                    10 if name != "plain" else 3)
+                def grad(o=o, ts=ts, do_=do_):
+                    return torch.autograd.grad(o, ts, do_, retain_graph=True)
+                times[name] = time_ms(grad, *((10, K4_INNER) if name != "plain" else (3,)))
+                if name != "plain":
+                    def fwd_of(fn=fn):
+                        with torch.no_grad():
+                            return fn(q, k, v, mask, heads, d, scale)
+                    alone[name] = (time_ms(fwd_of, 10), time_ms(grad, 10))
             both = {}
             for name, fn, grad_out in (("kernel", attn.mha_small_head, do),
                                        ("library", lambda *a: sdpa(*a[:6]),
@@ -1327,9 +1422,12 @@ def k4_main_shapes(dev) -> dict:
                 def step(fn=fn, grad_out=grad_out):
                     ts = [t.detach().requires_grad_(True) for t in (q, k, v)]
                     return torch.autograd.grad(fn(*ts, mask, heads, d, scale), ts, grad_out)
-                both[name] = time_ms(step, 10)
+                both[name] = time_ms(step, 10, K4_INNER)
             log(f"[kernel] K4 forward+backward B{b}: kernel {both['kernel']:.3f} ms, "
                 f"SDPA {both['library']:.3f} ms")
+            log(f"[kernel] K4 B{b} forward / backward as one call alone, its host launch "
+                f"included: kernel {alone['kernel'][0]:.3f} / {alone['kernel'][1]:.3f} ms, SDPA "
+                f"{alone['library'][0]:.3f} / {alone['library'][1]:.3f} ms")
             rec["bwd"] = {"ms": times["kernel"], "plain_ms": times["plain"],
                           "library_ms": times["library"],
                           **k4_bound(q, mask, heads, d, True)}
@@ -1358,6 +1456,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for name, (_, out) in built.items():
         log(f"[build] {name}: {ptxas_report(out)}")
+    k4_tensor_core_check(built["mha_small_head"][0])
 
     chunk_fn = make_corpus(dev, CHUNK)
     kmeans_determinism(chunk_fn)

@@ -320,8 +320,9 @@ def mha_fwd(q, k, v, mask, heads: int, d: int, scale: float):
 
 
 def mha_bwd(q, k, v, mask, dout, row_max, row_sum, heads: int, d: int, scale: float):
-    """Launch K4's backward (two kernels, dq then dk/dv) from the forward's
-    row statistics: (dq, dk, dv), each (B, L, H*d) in q's type."""
+    """Launch K4's backward from the forward's row statistics (bf16 rows at
+    L 128: one kernel; otherwise two, dq then dk/dv, through the delta
+    scratch): (dq, dk, dv), each (B, L, H*d) in q's type."""
     b, length = _attn_shapes(q, k, v, mask, d)
     dev = q.device
     _need(dout, "dout", q.dtype, dev)

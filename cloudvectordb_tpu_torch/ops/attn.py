@@ -9,8 +9,9 @@ reference's does), ``p = softmax(s)``, ``o_h = p·v_h``, returned in q's
 type. No probs dropout.
 
 ``mha_small_head`` is a ``torch.autograd.Function``. CUDA tensors launch
-the hand-written kernels of ``csrc/mha_small_head.cu`` (forward; backward
-as two kernels from the forward's row max and row sum), or raise; CPU
+the hand-written kernels of ``csrc/mha_small_head.cu`` (bf16 rows on the
+tensor cores, f32 rows on the CUDA cores; the backward recomputes p from
+the forward's row max and row sum), or raise; CPU
 tensors run the plain PyTorch version: ``_fwd_plain``, and ``_bwd_plain``,
 which mirrors the reference's ``_bwd_kernel`` step by step (recompute p,
 ``dv = pᵀ·do``, ``dp = do·vᵀ``, ``ds = p ⊙ (dp − rowsum(dp ⊙ p))``,
@@ -20,8 +21,9 @@ the forward, so the plain backward is itself held to the reference.
 kernels' yardstick on the card). The mask gets no gradient.
 
 Launch counts (the card run resets and reads them): ``mha_small_head.launches``
-for the forward, ``mha_small_head.bwd_launches`` for the backward (its two
-kernels count as one launch of K4's backward).
+for the forward, ``mha_small_head.bwd_launches`` for the backward (one
+kernel for bf16 rows at L 128, else two: either counts as one launch of
+K4's backward).
 """
 
 from __future__ import annotations

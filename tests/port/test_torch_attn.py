@@ -7,7 +7,12 @@ Tolerances: f32 2e-5 on outputs and gradients (the reference's own
 interpret-mode test uses 2e-5 and 5e-5; both sides compute the same f32
 formulas, summed in different orders). bf16 inputs: the outputs are bf16
 on both sides and may differ where the f32 result sits near a rounding
-boundary, so by at most one bf16 step of the largest value (2^-7 x max)."""
+boundary, so by at most one bf16 step of the largest value (2^-7 x max).
+
+The card's bf16 kernels round more than the plain version: P and dS go to
+bf16 before their second products (the tensor cores take bf16). The
+rounding test holds those formulas, computed here in f32, to the reference
+at the same bf16 bound, before any card run."""
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +23,7 @@ import torch
 from cloudvectordb_tpu.ops.pallas_attn import mha_small_head as jax_mha
 from cloudvectordb_tpu_torch.ops import attn
 
-CASES = [(2, 128, 4, 16), (2, 256, 2, 32)]  # (B, L, H, d)
+CASES = [(2, 128, 4, 16), (2, 256, 2, 32), (2, 128, 12, 32)]  # (B, L, H, d)
 
 
 def _inputs(b, length, h, d, seed):
@@ -69,6 +74,45 @@ def test_plain_forward_and_backward_match_the_reference_bf16(b, length, h, d):
     got = _torch(q, k, v, mask, do, h, d, torch.bfloat16)
     for name, a, r in zip(("out", "dq", "dk", "dv"), got, ref):
         assert np.abs(a - r).max() <= 2.0 ** -7 * np.abs(r).max(), name
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_rounding(q, k, v, mask, do, h, d):
+    """The bf16 kernels' formulas in f32 on bf16 rows: the forward rounds
+    the unnormalised exp(s - m) to bf16 before its product with v and
+    divides by the f32 row sum after; the backward rounds P to bf16 before
+    Pᵀ·dO and dS before dS·K and dSᵀ·Q. (o, dq, dk, dv), rounded to bf16."""
+    b, length, _ = q.shape
+    qh, kh, vh, doh = (_bf16(torch.tensor(a)).reshape(b, length, h, d) for a in (q, k, v, do))
+    scale = d ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    s = torch.where(torch.tensor(mask > 0)[:, None, None, :], s, torch.tensor(-1e30))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    row_sum = e.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", _bf16(e), vh) / row_sum.permute(0, 2, 1, 3)
+    p = e / row_sum
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), doh)
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), kh)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), qh)
+    return [_bf16(x).reshape(b, length, h * d).numpy() for x in (o, dq, dk, dv)]
+
+
+@pytest.mark.parametrize("b,length,h,d", [(2, 128, 12, 32), (2, 256, 2, 64)])
+def test_tensor_core_rounding_holds_to_the_reference_bf16(b, length, h, d):
+    """P and dS rounded to bf16 before their second products, as the card's
+    bf16 kernels round them, stay within the bf16 bound of the reference's
+    kernel (ragged padding and a fully masked row)."""
+    q, k, v, mask, do = _inputs(b, length, h, d, seed=11 + d)
+    ref = _jax(q, k, v, mask, do, h, d, jnp.bfloat16)
+    got = _tensor_core_rounding(q, k, v, mask, do, h, d)
+    for name, a, r in zip(("out", "dq", "dk", "dv"), got, ref):
+        err, bound = np.abs(a - r).max(), 2.0 ** -7 * np.abs(r).max()
+        assert err <= bound, f"{name}: {err} > {bound}"
 
 
 def test_plain_backward_is_not_autograd_of_the_forward():
