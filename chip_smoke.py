@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build of every hand-written kernel from csrc/*.cu (one nvcc per source,
    all at once), timed, with ptxas' registers and spills per kernel; the
-   tensor-core instructions (HMMA, HGMMA) in each K4 kernel, counted in
-   ``cuobjdump --dump-sass``: every bf16 K4 kernel must have some;
+   tensor-core instructions (HMMA, HGMMA) in each K4 kernel and each K5/K6
+   kernel (pq_scan.cu), counted in ``cuobjdump --dump-sass``: every bf16 K4
+   kernel and every pq_scan instantiation must have some;
 3. k-means determinism: two trainings on the same 262,144 rows (nlist
    4096, 10 iterations) must give bit-identical centroids;
 4. each kernel against its plain PyTorch version on the card, on small
@@ -21,8 +22,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    N), K3 (tiles_topk: int8, hybrid, bf16, f32 scoring, repeated table
    entries, n_valid holes), K7 (band_topk: clamped bands), K5
    (pq_tiles_topk: residual or not, pools 1-3, top-2 on and off, R 1 and 4,
-   repeated entries, n_valid cutting a tile, D 768 at m 64 and D 64) and K6
-   (pq_topk: ragged N); one line per kernel;
+   repeated entries, n_valid cutting a tile, D 768 at m 64, D 64, and D 30
+   at dsub 5) and K6 (pq_topk: ragged N, D 768 and D 30); one line per
+   kernel;
 5. the residual serving path: a 12.5M x 768 corpus generated on the device
    (the process of bench.py: latent 32, 256 centres, noise 0.3/sqrt(32),
    L2-normalised), ``BandIVFIndex.build_device_streaming`` with nlist 4096
@@ -53,11 +55,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with refine_factor 16, 64 and 64 with top-2 (K5 must launch; recall@10
    >= 0.70, 0.85 and 0.85), device QPS of each; then on that plan K1 over
    the refine arena and K5 at each of the three candidate budgets against
-   their plain versions, each timed, with its bound; the index is freed
-   before the next phase;
+   their plain versions, each timed, with its bound (K5's ids held to the
+   plain version's through their exact f64 scores, as EXACT_TIE says, and
+   each score to its id's exact score); the index is freed before the next
+   phase;
 9. K6 (``pq_topk``, ``run_k6``): codebooks trained (m 64) on 65,536
    corpus rows, 1M rows encoded, the 4096 queries, k 10: recall against the
-   exact scan, then K6 against its plain version, both timed;
+   exact scan, then K6 against its plain version as K5, both timed;
 10. K4 (mha_small_head) against its plain version, forward outputs and dq,
    dk, dv: L 128, 256 and 512, (H, d) (12, 32) and (12, 64), f32 and bf16,
    and (12, 16) bf16, ragged key padding and a fully masked sequence; each
@@ -136,9 +140,21 @@ PQ_REFINE_FLOOR = 0.90
 #: the PQ route's plans (refine_factor, top2) and their recall@10 floors
 PQ_PLANS = {"rf16": (16, False), "rf64": (64, False), "rf64+top2": (64, True)}
 PQ_ROUTE_FLOORS = {"rf16": 0.70, "rf64": 0.85, "rf64+top2": 0.85}
-K6_TRAIN, K6_ROWS = 65_536, 1_000_000
+K6_TRAIN, K6_ROWS, K6_TILE_N = 65_536, 1_000_000, 2048
 ID_MATCH_FLOOR = 0.999
 SCORE_TOL = 1e-4
+#: K5/K6 at full shape, against exact scores (f64 on the bf16 inputs both
+#: versions take). There two rows of one slot can lie closer than the
+#: versions' f32 rounding (on config #3's corpus up to 1.6e-6 for the plain
+#: version, 4.2e-7 for the kernel, on an H100: PERF.md), which then orders
+#: them. So the kernel's id at a slot agrees with the plain version's when
+#: its exact score is at most EXACT_TIE below (twice the two errors
+#: together, the most such a swap can cost); the exact scores of all the
+#: kernel's ids sum to at least the plain version's less EXACT_TIE; and at
+#: least EXACT_ID_FLOOR of the ids are equal by position (the runs read
+#: 0.975-0.999).
+EXACT_TIE = 4e-6
+EXACT_ID_FLOOR = 0.97
 _SCAN = "cloudvectordb_tpu_torch/csrc/tiles_scan.cu"
 KERNELS = {
     "K1": {"name": "tiles_topk_resid", "route": "cuda",
@@ -252,6 +268,25 @@ def k4_tensor_core_check(lib: Path) -> None:
         raise AssertionError(f"bf16 K4 kernels without tensor-core instructions: {by_name}")
 
 
+#: pq_scan.cu's instantiations: (source, residual, top2) for TABLE x 4, ALL x 1
+PQ_INSTANCES = 5
+
+
+def pq_tensor_core_check(lib: Path) -> None:
+    """Every K5/K6 kernel instantiation (pq_scan.cu) must run tensor-core
+    instructions; one line with the counts."""
+    counts = {sym: n for sym, n in tensor_core_ops(lib).items()
+              if kernel_name(sym) == "pq_scan_kernel"}
+    def label(sym: str) -> str:
+        src, resid, top2 = re.search(r"ILi(\d)ELb(\d)ELb(\d)E", sym).groups()
+        return f"{'TABLE' if src == '1' else 'ALL'} resid={resid} top2={top2}"
+
+    log("[build] pq_scan tensor-core instructions of all (cuobjdump --dump-sass): "
+        + "; ".join(f"{label(sym)}: {h} of {n}" for sym, (h, n) in sorted(counts.items())))
+    if len(counts) != PQ_INSTANCES or min(h for h, _ in counts.values()) == 0:
+        raise AssertionError(f"pq_scan kernels without tensor-core instructions: {counts}")
+
+
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -290,11 +325,15 @@ def sync() -> None:
 CHECKS: dict[str, list] = {}
 
 
-def compare(name: str, kernel, plain, quiet: bool = False) -> float:
+def compare(name: str, kernel, plain, quiet: bool = False, exact=None) -> float:
     """kernel() against plain(), both returning (values, ids), on the same
     inputs; returns max |Δscore| over the filled slots. The wrapper named
     by the first word of ``name`` must count a launch in kernel() and none
-    in plain(). ``quiet`` folds the result into CHECKS instead of a line."""
+    in plain(). ``quiet`` folds the result into CHECKS instead of a line.
+    With ``exact`` (query indices, ids) -> f64 scores, the kernel's ids are
+    held to the plain version's as EXACT_TIE says, and the kernel's score
+    of each id (first 512 queries) must be its exact score within
+    SCORE_TOL. Every failed criterion is named in the error."""
     wrapper = WRAPPERS[name.split()[0]]
     before = wrapper.launches
     v_ref, i_ref = plain()
@@ -310,17 +349,45 @@ def compare(name: str, kernel, plain, quiet: bool = False) -> float:
         raise AssertionError(f"{name}: unfilled slots differ")
     err = float(np.abs(v - v_ref)[live].max(initial=0.0))
     same = i == i_ref
+    positional, ties, faults = float(same.mean()), "", []
+    if exact is not None:
+        qi, pos = np.nonzero(~same & live)
+        # the kernel's id's exact score less the plain version's, per slot
+        gap = (exact(qi, i[qi, pos]) - exact(qi, i_ref[qi, pos])).cpu().numpy()
+        tie = gap >= -EXACT_TIE
+        same[qi[tie], pos[tie]] = True
+        total = float(gap.sum())  # equal ids add nothing
+        qs_, ps_ = np.nonzero(live[:512])
+        own = [float((torch.as_tensor(vals[qs_, ps_]).double()
+                      - exact(qs_, ids[qs_, ps_]).cpu()).abs().max())
+               for vals, ids in ((v, i), (v_ref, i_ref))]
+        ties = (f" ({positional:.5f} by position; {int(tie.sum())} of {gap.size} differing "
+                f"ids within {EXACT_TIE} below exactly, lowest {gap.min(initial=0.0):.3g}; "
+                f"exact sum of the kernel's ids less the plain's {total:.3g}; max |f32 - exact| "
+                f"on 512 queries: kernel {own[0]:.3g}, plain {own[1]:.3g})")
+        if own[0] > SCORE_TOL:
+            faults.append(f"the kernel's scores are not its ids' exact scores (max |f32 - "
+                          f"exact| {own[0]:.3g})")
+        if positional < EXACT_ID_FLOOR:
+            faults.append(f"ids {positional:.5f} equal by position < {EXACT_ID_FLOOR}")
+        if total < -EXACT_TIE:
+            faults.append(f"the exact scores of its ids sum {total:.3g} below the plain's")
     match = float(same.mean())
     near_tie = np.all(np.abs(v - v_ref)[~same & live] <= SCORE_TOL)
-    if match < ID_MATCH_FLOOR or err > SCORE_TOL or not near_tie:
-        raise AssertionError(f"{name}: kernel disagrees with its plain version: ids "
-                             f"{match:.5f} equal, max |dscore| {err:.3g}, "
-                             f"mismatches near-ties: {bool(near_tie)}")
+    if match < ID_MATCH_FLOOR:
+        faults.append(f"ids {match:.5f} equal < {ID_MATCH_FLOOR}")
+    if err > SCORE_TOL:
+        faults.append(f"max |dscore| {err:.3g} > {SCORE_TOL}")
+    if not near_tie:
+        faults.append("a differing id is not a near-tie")
+    if faults:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version: "
+                             + "; ".join(faults) + ties)
     if quiet:
         c = CHECKS.setdefault(name.split()[0], [0, 1.0, 0.0])
         c[0], c[1], c[2] = c[0] + 1, min(c[1], match), max(c[2], err)
     else:
-        log(f"[kernel] {name}: ids {match:.5f} equal, max |dscore| {err:.3g}, "
+        log(f"[kernel] {name}: ids {match:.5f} equal{ties}, max |dscore| {err:.3g}, "
             f"mismatches near-ties: {bool(near_tie)}")
     return err
 
@@ -467,29 +534,35 @@ def random_pq_inputs(seed, dev, *, m=64, nbits=8, dsub=12, tile_n=1024, n_tiles=
 def pq_checks(dev) -> tuple[float, float]:
     """K5 (residual and not; pools 1, 2, 3; top-2 on and off; R 1 and > 1;
     repeated table entries; n_valid cutting a tile; D 768 at m 64 and a
-    narrow D) and K6 (ragged N, R 1 and 4)."""
+    narrow D; dsub 5, D 30: one codebook value at a time, zeros past D,
+    centroid rows of a width not a multiple of 4) and K6 (ragged N, R 1 and
+    4; D 768 and D 30)."""
     err5 = 0.0
     cases = [(resid, pools, top2, lb) for resid in (True, False) for pools in (1, 2, 3)
              for top2 in (False, True) for lb in (0, 256)]
+    cases += [(True, 2, True, 256), (True, 1, False, 0)]
+    odd = dict(m=6, dsub=5, tile_n=512, tile_q=48, nq=96)
     for seed, (resid, pools, top2, lb) in enumerate(cases):
-        shape = dict() if seed % 3 else dict(m=8, dsub=8, nbits=6, tile_n=512, tile_q=48,
-                                             nq=96)
+        shape = (odd if seed >= 24 else dict() if seed % 3 else
+                 dict(m=8, dsub=8, nbits=6, tile_n=512, tile_q=48, nq=96))
         a = random_pq_inputs(500 + seed, dev, residual=resid, **shape)
         kw = dict(k=4 * K, l_buckets=lb, n_pools=pools, top2=top2)
         err5 = max(err5, compare(
-            f"K5 resid={resid} pools={pools} top2={top2} L{lb}",
+            f"K5 resid={resid} pools={pools} top2={top2} L{lb} D{a['queries_sorted'].shape[1]}",
             lambda: pq.pq_tiles_topk(**a, **kw),
             lambda: pq.pq_tiles_topk_reference(**a, **kw), quiet=True))
     err6 = 0.0
-    for seed, (n, lb) in enumerate(((5000, 0), (7777, 512))):
+    for seed, (n, lb, m, dsub) in enumerate(((5000, 0, PQ_M, 12), (7777, 512, PQ_M, 12),
+                                             (3001, 256, 6, 5))):
         rng = np.random.default_rng(600 + seed)
-        codes = torch.as_tensor(rng.integers(0, 256, size=(PQ_M, n), dtype=np.uint8), device=dev)
-        cb = torch.as_tensor(rng.normal(size=(PQ_M, 256, 12)).astype(np.float32) / np.sqrt(D),
+        d = m * dsub
+        codes = torch.as_tensor(rng.integers(0, 256, size=(m, n), dtype=np.uint8), device=dev)
+        cb = torch.as_tensor(rng.normal(size=(m, 256, dsub)).astype(np.float32) / np.sqrt(d),
                              device=dev)
-        q = torch.as_tensor(rng.normal(size=(100, D)).astype(np.float32) / np.sqrt(D),
+        q = torch.as_tensor(rng.normal(size=(100, d)).astype(np.float32) / np.sqrt(d),
                             device=dev)
         err6 = max(err6, compare(
-            f"K6 N{n} L{lb}", lambda: pq.pq_topk(codes, cb, q, K, l_buckets=lb),
+            f"K6 N{n} L{lb} D{d}", lambda: pq.pq_topk(codes, cb, q, K, l_buckets=lb),
             lambda: pq.pq_topk_reference(codes, cb, q, K, l_buckets=lb), quiet=True))
     return err5, err6
 
@@ -620,11 +693,11 @@ def time_ms(fn, reps: int, inner: int = 1) -> float:
 
 
 def main_shape_check(key: str, label: str, kernel, plain, reps: int,
-                     plain_reps: int) -> dict:
-    """A kernel against its plain version at a main path's shape, and both
-    times (each the median of CUDA-event repetitions, one process, one
-    card)."""
-    err = compare(f"{key} {label}", kernel, plain)
+                     plain_reps: int, exact=None) -> dict:
+    """A kernel against its plain version at a main path's shape (``exact``
+    as compare takes it), and both times (each the median of CUDA-event
+    repetitions, one process, one card)."""
+    err = compare(f"{key} {label}", kernel, plain, exact=exact)
     plain_ms = time_ms(plain, plain_reps)
     ms = time_ms(kernel, reps)
     log(f"[kernel] {key} {label}: kernel {ms:.3f} ms, plain version {plain_ms:.3f} ms")
@@ -677,13 +750,18 @@ def exact_gt(chunk_fn, n_chunks: int, chunk: int, q: torch.Tensor, metric="ip"):
     return best_i.cpu().numpy()
 
 
-def queries_and_gt(chunk_fn, n_chunks: int, chunk: int, dev, batch: int):
+def make_queries(chunk_fn, dev, batch: int) -> torch.Tensor:
+    """Noisy copies of rows of the first chunk, L2-normalised."""
     g = torch.Generator(device=dev)
     g.manual_seed(7777)
     base = chunk_fn(0)
     sel = torch.randint(0, base.shape[0], (batch,), generator=g, device=dev)
     q = base[sel] + (0.15 / D ** 0.5) * torch.randn((batch, D), generator=g, device=dev)
-    q = q / q.norm(dim=1, keepdim=True)
+    return q / q.norm(dim=1, keepdim=True)
+
+
+def queries_and_gt(chunk_fn, n_chunks: int, chunk: int, dev, batch: int):
+    q = make_queries(chunk_fn, dev, batch)
     return q, exact_gt(chunk_fn, n_chunks, chunk, q[:min(NQ_GT, batch)])
 
 
@@ -925,6 +1003,73 @@ def pq_bound(codes_bytes_per_row: int, rows_scored: int, distinct_rows: int, ct_
     return bound(n_bytes, ops, "f32")
 
 
+def pq_exact(codes, local, cb, ct, tile_n: int, q):
+    """(query indices, arena rows) -> f64 scores of the function K5/K6
+    compute, on the bf16 codebooks, centroid tiles and queries they take:
+    q . (cb[j][code(g, j)] + ct[g // tile_n, local[g]]) without rounding
+    (ct None: no centroid term)."""
+    cbd = cb.to(torch.bfloat16).double()
+    ctd = None if ct is None else ct.to(torch.bfloat16).double()
+    qd = q.to(torch.bfloat16).double()
+    sub = torch.arange(cbd.shape[0], device=cbd.device)
+
+    def score(qi, rows):
+        qi, rows = (torch.as_tensor(a, device=cbd.device).long() for a in (qi, rows))
+        out = []
+        for s in range(0, rows.numel(), 1 << 16):
+            g = rows[s:s + (1 << 16)]
+            x = cbd[sub, codes[g].long()].reshape(g.numel(), -1)
+            if ctd is not None:
+                x = x + ctd[g // tile_n, local[g].long()]
+            out.append((x * qd[qi[s:s + (1 << 16)]]).sum(dim=1))
+        return torch.cat(out) if out else torch.zeros(0, dtype=torch.float64)
+
+    return score
+
+
+def split_form_flops(table: torch.Tensor, tile_q: int, tile_n: int, w: int) -> float:
+    """bf16 flops of K5's split form over a tile table, as the kernel runs
+    it: every (query, row) of every entry against its D dims, plus the
+    centroid term C = q . ct once per (query, entry), W rows."""
+    steps = table.numel()
+    return 2.0 * steps * tile_q * (tile_n + w) * D
+
+
+def build_pq(dev, chunk_fn):
+    """Config #3's index over the first 10M rows of the corpus; (index,
+    seconds of the build)."""
+    t0 = time.perf_counter()
+    idx = BandIVFPQIndex.build_device_streaming(
+        chunk_fn, PQ_ROWS // CHUNK, nlist=NLIST, m=PQ_M, nbits=PQ_NBITS, opq=True,
+        refine="int8", kmeans_iters=10, pq_train_iters=8, device=dev)
+    sync()
+    return idx, time.perf_counter() - t0
+
+
+def pq_holds(idx, queries, p_tiles: int, tq: int):
+    """What K5 is held at on config #3's index at the plan (p_tiles, tq):
+    (the index's scan state, the sorted rotated queries, the tile table,
+    ``pq_exact`` on them, {PQ-route plan: K5's arguments})."""
+    st = idx._refine_scan_state()
+    q_s, _, _, table = _plan_tiles(idx._rotate(queries), st["centroids"], st["tile_window"],
+                                   tq, p_tiles)
+    exact = pq_exact(st["codes"], st["local"].reshape(-1), st["codebooks"],
+                     st["centroid_tiles"], idx.tile_n, q_s)
+    plans = {}
+    for name, (rf, top2) in PQ_PLANS.items():
+        _, k_cand, n_pools, l_buckets, _ = idx._pq_stage_plan(K, rf, 0, tq, p_tiles, top2)
+        plans[name] = dict(codes_cm=st["codes"], codebooks=st["codebooks"], queries_sorted=q_s,
+                           tile_table=table, k=k_cand, centroid_tiles=st["centroid_tiles"],
+                           tile_n=idx.tile_n, tile_q=tq, l_buckets=l_buckets, n_valid=idx._n,
+                           row_major=True, local_ids=st["local"], n_pools=n_pools, top2=top2)
+    return st, q_s, table, exact, plans
+
+
+def pq_plan_label(name: str, args: dict, batch: int, p_tiles: int) -> str:
+    return (f"{name} B{batch} p{p_tiles} tq{args['tile_q']} k_cand {args['k']} "
+            f"L{args['l_buckets']} pools {args['n_pools']}")
+
+
 def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
     """BASELINE config #3 (10M x 768, OPQ + IVF-PQ, m 64, nbits 8, residual
     int8 refine): ``build_device_streaming`` on the first 10M rows of the
@@ -943,12 +1088,7 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    idx = BandIVFPQIndex.build_device_streaming(
-        chunk_fn, n_chunks, nlist=NLIST, m=PQ_M, nbits=PQ_NBITS, opq=True, refine="int8",
-        kmeans_iters=10, pq_train_iters=8, device=dev)
-    sync()
-    build_s = time.perf_counter() - t0
+    idx, build_s = build_pq(dev, chunk_fn)
     log(f"[pq] built {idx.ntotal} x {D} OPQ+IVF-PQ (nlist {NLIST}, m {PQ_M}, nbits "
         f"{PQ_NBITS}, residual int8 refine): {build_s:.1f} s, tile_n {idx.tile_n} after the "
         f"skew fit, W={idx._tile_window.shape[1]}, {idx._tune_n_tiles()} tiles, refine "
@@ -976,9 +1116,7 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
                              f"below its floor {PQ_ROUTE_FLOORS}: {low}")
 
     # K1 and K5 against their plain versions on the plan both routes serve
-    st = idx._refine_scan_state()
-    q_s, _, _, table = _plan_tiles(idx._rotate(queries), st["centroids"], st["tile_window"],
-                                   tq, p_tiles)
+    st, q_s, table, exact, plans = pq_holds(idx, queries, p_tiles, tq)
     k1_args = dict(db_resid=st["refine"], local_ids=st["local"],
                    centroid_tiles=st["centroid_tiles"], resid_scale=idx._scale,
                    queries_sorted=q_s, tile_table=table, valid_end=st["refine_valid_end"],
@@ -987,27 +1125,36 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
                                 k1_args, reps=5, plain_reps=1)}
     used, rows_scored = table_work(table, tq, idx.tile_n, 1)
     w = st["centroid_tiles"].shape[1]
-    for name, (rf, top2) in PQ_PLANS.items():
-        _, k_cand, n_pools, l_buckets, _ = idx._pq_stage_plan(K, rf, 0, tq, p_tiles, top2)
-        args = dict(codes_cm=st["codes"], codebooks=st["codebooks"], queries_sorted=q_s,
-                    tile_table=table, k=k_cand, centroid_tiles=st["centroid_tiles"],
-                    tile_n=idx.tile_n, tile_q=tq, l_buckets=l_buckets, n_valid=idx._n,
-                    row_major=True, local_ids=st["local"], n_pools=n_pools, top2=top2)
+    for name, args in plans.items():
+        l_buckets, n_pools, top2 = args["l_buckets"], args["n_pools"], args["top2"]
         r = main_shape_check(
-            "K5", f"{name} B{queries.shape[0]} p{p_tiles} tq{tq} k_cand {k_cand} "
-                  f"L{l_buckets} pools {n_pools}",
+            "K5", pq_plan_label(name, args, queries.shape[0], p_tiles),
             lambda: pq.pq_tiles_topk(**args), lambda: pq.pq_tiles_topk_reference(**args),
-            reps=5 if name == "rf64" else 2, plain_reps=1)
+            reps=5 if name == "rf64" else 2, plain_reps=1, exact=exact)
         n_slots = (2 if top2 else 1) * n_pools
         r.update(pq_bound(PQ_M + 1, rows_scored, used * idx.tile_n, used * w * D * 2, q_s,
                           queries.shape[0] * n_slots * l_buckets * 8, PQ_M, 2 ** PQ_NBITS,
                           D // PQ_M))
-        log(f"[kernel] K5 {name}: {2.0 * rows_scored * D / r['ms'] / 1e9:.2f} T f32 FMA-ops/s "
-            f"(decode form); bound {r['bound_ms']:.3f} ms ({r['bound_by']}): {used} of "
-            f"{idx._tune_n_tiles()} tiles read, {rows_scored:.4g} (query, row) pairs scored")
+        log(f"[kernel] K5 {name}: {2.0 * rows_scored * D / r['ms'] / 1e9:.2f} T flop/s in the "
+            f"decode form, {split_form_flops(table, tq, idx.tile_n, w) / r['ms'] / 1e9:.2f} T "
+            f"bf16 flop/s in the split form; bound {r['bound_ms']:.3f} ms ({r['bound_by']}): "
+            f"{used} of {idx._tune_n_tiles()} tiles read, {rows_scored:.4g} (query, row) pairs "
+            f"scored")
         mp["K5" if name == "rf64" else f"K5 {name}"] = r
-    del idx, st, args, k1_args
+    del idx, st, args, plans, k1_args, exact
     return dict(launches={"K5": launches["K5"]}, mp=mp)
+
+
+def k6_inputs(chunk_fn):
+    """K6's corpus: the first 1M rows, codebooks trained non-residually (m
+    64) on 65,536 of them, the rows encoded code-major; (rows, codebooks,
+    (m, N) codes, seconds of training and encoding)."""
+    x = torch.cat([chunk_fn(0), chunk_fn(1)])[:K6_ROWS]
+    t0 = time.perf_counter()
+    cb = train_pq(x[:K6_TRAIN], PQ_M, PQ_NBITS, iters=8, seed=0)
+    codes_cm = pq_encode(x, cb).T.contiguous()
+    sync()
+    return x, cb, codes_cm, time.perf_counter() - t0
 
 
 def run_k6(dev, chunk_fn, queries, card) -> dict:
@@ -1016,12 +1163,7 @@ def run_k6(dev, chunk_fn, queries, card) -> dict:
     encoded, the 4096 queries, k 10, tile_n 2048; its launch count is reset
     just before the scan and read after. Recall against the exact f32 scan
     of those rows, then K6 against its plain version, both timed."""
-    x = torch.cat([chunk_fn(0), chunk_fn(1)])[:K6_ROWS]
-    t0 = time.perf_counter()
-    cb = train_pq(x[:K6_TRAIN], PQ_M, PQ_NBITS, iters=8, seed=0)
-    codes_cm = pq_encode(x, cb).T.contiguous()
-    sync()
-    train_s = time.perf_counter() - t0
+    x, cb, codes_cm, train_s = k6_inputs(chunk_fn)
     _, exact = tiled_topk(x, queries, K, metric="ip", tile=8192)
     # the scan's own oracle: the exact top-k over the bf16 reconstructions
     x_hat = pq_decode(codes_cm.T, cb.to(torch.bfloat16).float())
@@ -1029,7 +1171,7 @@ def run_k6(dev, chunk_fn, queries, card) -> dict:
                            tile=8192)
     del x_hat
     reset_launches()
-    _, found = pq.pq_topk(codes_cm, cb, queries, K, tile_n=2048)
+    _, found = pq.pq_topk(codes_cm, cb, queries, K, tile_n=K6_TILE_N)
     launches = pq.pq_topk.launches
     found = found.cpu().numpy()
     recall = recall_at_k(found, exact.cpu().numpy())
@@ -1038,15 +1180,17 @@ def run_k6(dev, chunk_fn, queries, card) -> dict:
         f"{train_s:.1f} s; pq_topk over {K6_ROWS} x {PQ_M} codes, B {queries.shape[0]}: "
         f"recall@{K} {recall:.4f} vs the exact f32 scan of the rows, {recall_oracle:.4f} vs "
         f"the exact scan of their reconstructions; K6 launches {launches}")
-    kw = dict(tile_n=2048)
+    kw = dict(tile_n=K6_TILE_N)
     mp = main_shape_check(
-        "K6", f"{K6_ROWS}x{PQ_M} codes B{queries.shape[0]} tile_n 2048",
+        "K6", f"{K6_ROWS}x{PQ_M} codes B{queries.shape[0]} tile_n {K6_TILE_N}",
         lambda: pq.pq_topk(codes_cm, cb, queries, K, **kw),
-        lambda: pq.pq_topk_reference(codes_cm, cb, queries, K, **kw), reps=2, plain_reps=1)
+        lambda: pq.pq_topk_reference(codes_cm, cb, queries, K, **kw), reps=2, plain_reps=1,
+        exact=pq_exact(codes_cm.T, None, cb, None, K6_TILE_N, queries))
     mp.update(pq_bound(PQ_M, queries.shape[0] * K6_ROWS, K6_ROWS, 0, queries.to(torch.bfloat16),
-                       queries.shape[0] * 2048 * 8, PQ_M, 2 ** PQ_NBITS, D // PQ_M))
-    log(f"[kernel] K6: {2.0 * queries.shape[0] * K6_ROWS * D / mp['ms'] / 1e9:.2f} T f32 "
-        f"FMA-ops/s (decode form); bound {mp['bound_ms']:.3f} ms ({mp['bound_by']})")
+                       queries.shape[0] * K6_TILE_N * 8, PQ_M, 2 ** PQ_NBITS, D // PQ_M))
+    log(f"[kernel] K6: {2.0 * queries.shape[0] * K6_ROWS * D / mp['ms'] / 1e9:.2f} T bf16 "
+        f"flop/s (the split form has no centroid term here); bound {mp['bound_ms']:.3f} ms "
+        f"({mp['bound_by']})")
     return dict(launches={"K6": launches}, mp={"K6": mp})
 
 
@@ -1457,6 +1601,7 @@ def main() -> int:
     for name, (_, out) in built.items():
         log(f"[build] {name}: {ptxas_report(out)}")
     k4_tensor_core_check(built["mha_small_head"][0])
+    pq_tensor_core_check(built["pq_scan"][0])
 
     chunk_fn = make_corpus(dev, CHUNK)
     kmeans_determinism(chunk_fn)

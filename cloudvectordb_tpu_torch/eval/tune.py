@@ -83,6 +83,22 @@ def _proxy_cost(cfg: dict) -> float:
     return c
 
 
+def _reference_ids(index, queries, k: int, candidates: list[dict], verbose: bool):
+    """Ids of the index's own max-effort config, the ground truth when the
+    caller gives none. That config is the deepest of all, so where it runs
+    out of device memory the walk goes down the ladder, most expensive
+    first, as the reference's does; any other error raises."""
+    last = None
+    for kw in [index._tune_reference_kw(queries.shape[0])] + candidates[::-1]:
+        try:
+            return index.search(queries, k, **kw)[1]
+        except torch.cuda.OutOfMemoryError as e:
+            last = e
+            if verbose:
+                print(f"[tune] reference {kw}: out of device memory", flush=True)
+    raise RuntimeError(f"every reference config ran out of device memory; last error: {last}")
+
+
 def tune_index(
     index,
     queries,
@@ -105,8 +121,8 @@ def tune_index(
     candidates = index._tune_candidates(nq)
     if not candidates:
         raise ValueError("index supplied an empty tune ladder")
-    if gt is None:  # the index's own max-effort config is the reference
-        _, gt = index.search(queries, k, **index._tune_reference_kw(nq))
+    if gt is None:
+        gt = _reference_ids(index, queries, k, candidates, verbose)
     tried = []
     best = None  # (recall, cfg) fallback when nothing meets target
     finalists: dict = {}  # tile_q branch -> (recall, cfg), first pass each

@@ -48,6 +48,7 @@ _SIGNATURES = {
     },
     "pq_scan": {
         "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 7 + [_CI] * 12 + [_VP], _CI),
+        "cvdb_pq_scan_smem_bytes": ([_CI] * 4, _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "mha_small_head": {
@@ -268,7 +269,12 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, *, n_qt: int, til
         raise ValueError(f"arena rows {n} exceed the kernel's int32 row ids")
     if n_qt * -(-tile_q // 32) > 65535 or n_pools > 65535:
         raise ValueError(f"{n_qt} query tiles of {tile_q}, {n_pools} pools exceed the grid")
+    w = 0 if ct is None else ct.shape[1]
     lib = _load("pq_scan")
+    smem = lib.cvdb_pq_scan_smem_bytes(m, dsub, w, int(top2))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"m={m}, dsub={dsub}, W={w} need {smem} B of shared memory "
+                         f"> {_SMEM_MAX}")
     n_slots = n_pools * (2 if top2 else 1)
     out_v = torch.empty((n_slots, nq, l_buckets), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_slots, nq, l_buckets), dtype=torch.int32, device=dev)
@@ -277,8 +283,8 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, *, n_qt: int, til
         None if local is None else local.data_ptr(), cb.data_ptr(),
         None if ct is None else ct.data_ptr(), q.data_ptr(),
         None if table is None else table.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        n_qt, tile_q, steps, tile_n, l_buckets, m, ncode, dsub,
-        0 if ct is None else ct.shape[1], n_valid, n_pools, _device_index(dev),
+        n_qt, tile_q, steps, tile_n, l_buckets, m, ncode, dsub, w, n_valid, n_pools,
+        _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "pq_scan")
     return out_v, out_i

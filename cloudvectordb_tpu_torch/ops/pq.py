@@ -17,7 +17,11 @@ truncated x̂ to bf16; the port follows interpret mode.) Scores go into the
 bucketed slots of ops/band.py: table entry j merges into pool j % n_pools;
 with ``top2`` each pool keeps two slots per bucket (``_bucket_merge_top2``),
 slot 2·pid and 2·pid + 1. The pools lie side by side before the final
-top-k, ties to the lower candidate.
+top-k, ties to the lower candidate. The kernel takes the same score in split
+form on the tensor cores, q·(codewords) + q·ct[tile, local[g]] with the
+second term formed once per table entry: the same bf16 products, summed in
+another f32 order (held to these plain versions within 1e-4 on the card,
+and by ``tests/port/test_torch_pq_kernel.py`` on the CPU).
 
 K5 walks each query tile's table of arena tiles; K6 walks every tile of a
 code-major (m, N) matrix with no residual term. Not ported (each raises

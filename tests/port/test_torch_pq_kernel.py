@@ -16,6 +16,7 @@ import torch
 
 from cloudvectordb_tpu.ops.pallas_pq import pq_tiles_topk_pallas, pq_topk_pallas
 from cloudvectordb_tpu_torch.ops import pq
+from cloudvectordb_tpu_torch.ops.band import _bucket_merge, _bucket_merge_top2
 
 RTOL = 1e-5
 
@@ -136,3 +137,78 @@ def test_unported_options_raise():
         pq.pq_tiles_topk((args[0], args[0]), *args[1:], **kw)
     with pytest.raises(ValueError):  # residual row-major codes need local ids
         pq.pq_tiles_topk(*args, centroid_tiles=torch.from_numpy(a["centroid_tiles"]), **kw)
+
+
+def _split_form_topk(a, residual: bool, n_pools: int, top2: bool, l_buckets: int, k: int):
+    """The card kernel's arithmetic (csrc/pq_scan.cu), written in torch: the
+    bf16 query times the bf16 concatenation of a row's codewords in f32,
+    plus, in residual mode, C[q, w] = q · ct[tile, w] (f32) added after by
+    the row's local byte; then the bucketed merge and the final top-k of
+    ops/band.py and ops/pq.py."""
+    codes = torch.from_numpy(a["codes"]).long()
+    local = torch.from_numpy(a["local"]).long()
+    cb = torch.from_numpy(a["codebooks"]).to(torch.bfloat16).float()
+    q = torch.from_numpy(a["queries"]).to(torch.bfloat16).float()
+    ct = torch.from_numpy(a["centroid_tiles"]).to(torch.bfloat16).float()
+    table = torch.from_numpy(a["table"]).long()
+    tile_n, tile_q, n_valid = a["tile_n"], a["tile_q"], a["n_valid"]
+    n, m = codes.shape
+    d = q.shape[1]
+    n_qt, steps = table.shape
+    lb = l_buckets or tile_n
+    rows = cb[torch.arange(m), codes].reshape(n, d)  # every row's codewords, bf16 values
+    qt = q.view(n_qt, tile_q, d)
+    n_slots = n_pools * (2 if top2 else 1)
+    best_v = torch.full((n_slots, n_qt, tile_q, lb), float("-inf"))
+    best_i = torch.zeros((n_slots, n_qt, tile_q, lb), dtype=torch.int64)
+    for j in range(steps):
+        t = table[:, j]
+        g = t[:, None] * tile_n + torch.arange(tile_n)
+        scores = torch.bmm(qt, rows[g].transpose(1, 2))
+        if residual:
+            c = torch.bmm(qt, ct[t].transpose(1, 2))  # (n_qt, tile_q, W)
+            scores = scores + torch.gather(c, 2, local[g][:, None, :].expand(-1, tile_q, -1))
+        scores = torch.where((g < n_valid)[:, None, :], scores, float("-inf"))
+        pid, base = j % n_pools, t * tile_n
+        if top2:
+            s1, s2 = 2 * pid, 2 * pid + 1
+            best_v[s1], best_i[s1], best_v[s2], best_i[s2] = _bucket_merge_top2(
+                scores, base, lb, best_v[s1], best_i[s1], best_v[s2], best_i[s2])
+        else:
+            best_v[pid], best_i[pid] = _bucket_merge(scores, base, lb, best_v[pid], best_i[pid])
+    nq = n_qt * tile_q
+    return pq._slots_topk(best_v.view(n_slots, nq, lb), best_i.view(n_slots, nq, lb).int(), k)
+
+
+@pytest.mark.parametrize("top2", [False, True])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("m,dsub,nbits", [(64, 12, 8), (8, 8, 6), (6, 5, 8)])
+def test_tensor_core_split_form_holds_to_the_reference(m, dsub, nbits, residual, top2):
+    """The kernel's split form (codeword term on bf16 tensor cores, centroid
+    term once per table entry and added by local byte) against the Pallas
+    kernel in interpret mode, as the card run holds the kernel: ids >= 0.999
+    equal, |dscore| <= 1e-4, mismatches only at near-ties. Inputs scaled
+    so that scores are of order one, as in the card checks. dsub 5 (D 30)
+    is the shape at which the kernel reads one codebook value at a time and
+    pads the depth past D."""
+    a = _tiles_inputs(seed=m + dsub + 2 * residual + top2, m=m, nbits=nbits, dsub=dsub)
+    d = m * dsub
+    for key in ("codebooks", "centroid_tiles", "queries"):
+        a[key] = a[key] / np.float32(np.sqrt(d))
+    n_pools, l_buckets, k = 2, 32, 40
+    v_ref, i_ref = pq_tiles_topk_pallas(
+        jnp.asarray(a["codes"]), jnp.asarray(a["codebooks"]), jnp.asarray(a["queries"]),
+        jnp.asarray(a["table"]), k,
+        centroid_tiles=jnp.asarray(a["centroid_tiles"], jnp.bfloat16) if residual else None,
+        local_ids=jnp.asarray(a["local"][None, :]) if residual else None,
+        tile_n=a["tile_n"], tile_q=a["tile_q"], l_buckets=l_buckets, n_valid=a["n_valid"],
+        row_major=True, n_pools=n_pools, top2=top2, interpret=True)
+    v, i = _split_form_topk(a, residual, n_pools, top2, l_buckets, k)
+    v, i, v_ref, i_ref = v.numpy(), i.numpy(), np.asarray(v_ref), np.asarray(i_ref)
+    live = np.isfinite(v_ref)
+    np.testing.assert_array_equal(live, np.isfinite(v))
+    diff = np.abs(v - v_ref)
+    assert diff[live].max(initial=0.0) <= 1e-4
+    same = i == i_ref
+    assert same.mean() >= 0.999
+    assert np.all(diff[~same & live] <= 1e-4)  # a differing id is a near-tie
