@@ -44,6 +44,8 @@ _SIGNATURES = {
     },
     "tiles_scan": {
         "cvdb_tiles_scan": ([_CI] * 3 + [_VP] * 6 + [_CI] * 8 + [_VP], _CI),
+        "cvdb_tiles_scan_smem_bytes": ([_CI] * 6, _CI),
+        "cvdb_tiles_scan_block_queries": ([_CI] * 6, _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "pq_scan": {
@@ -222,9 +224,13 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
     nq = q.shape[0]
     if n >= 2**31:
         raise ValueError(f"arena rows {n} exceed the kernel's int32 row ids")
-    if n_qt * -(-tile_q // 32) > 65535:
-        raise ValueError(f"{n_qt} query tiles of {tile_q} exceed the launch grid")
     lib = _load("tiles_scan")
+    # the body the call takes: the tensor-core one (dynamic shared memory)
+    # puts query blocks on grid x, the CUDA-core one on grid y
+    body = (source, _ELEM[q.dtype], _ELEM[db.dtype], tile_q, d, int(sqnorm is not None))
+    q_blocks = n_qt * -(-tile_q // lib.cvdb_tiles_scan_block_queries(*body))
+    if q_blocks > (65535 if lib.cvdb_tiles_scan_smem_bytes(*body) == 0 else 2**31 - 1):
+        raise ValueError(f"{n_qt} query tiles of {tile_q} exceed the launch grid")
     out_v = torch.empty((nq, l_buckets), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, l_buckets), dtype=torch.int32, device=dev)
     rc = lib.cvdb_tiles_scan(

@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""A/B of K5/K6 builds (csrc/pq_scan.cu and variants of it) on one GPU, in
-turns.
+"""A/B of scan kernel builds (csrc/pq_scan.cu or csrc/tiles_scan.cu, and
+variants of it) on one GPU, in turns.
 
 Run from the repository root::
 
-    python3 scripts/torch_pq_scan_ab.py [SOURCE.cu ...]
+    python3 scripts/torch_pq_scan_ab.py [--source tiles_scan] [SOURCE.cu ...]
 
-The package's csrc/pq_scan.cu comes first, then each SOURCE.cu given (a
-whole variant of it, with the same C interface). Each is built by nvcc (all
-at once), bound in place of the package's pq_scan library, held against the
-plain version and timed (CUDA events, median) at four shapes: K5 at BASELINE
-config #3's PQ-route plans (B 4096, 224 table entries of tile_q 32 over a
-10M x 64-code arena of 1024-row tiles with W 24 centroid rows; L 1024, L
-256, and L 512 with top-2; random codes and tables made on the device) and
-K6 over 1M x 64 codes at B 4096. The builds run in turns (forward, then
-backward) at each shape; the line per (shape, build) is the mean of its two
-medians, beside the card's name and power limit.
+The package's csrc/<source>.cu (default pq_scan) comes first, then each
+SOURCE.cu given (a whole variant of it, with the same C interface). Each is
+built by nvcc (all at once), bound in place of the package's library, held
+against the plain version (a build that fails the hold is logged and still
+timed) and timed (CUDA events, median) at the source's shapes, random data
+made on the device:
+
+- pq_scan: K5 at BASELINE config #3's PQ-route plans (B 4096, 224 table
+  entries of tile_q 32 over a 10M x 64-code arena of 1024-row tiles with W
+  24 centroid rows; L 1024, L 256, and L 512 with top-2) and K6 over 1M x
+  64 codes at B 4096;
+- tiles_scan: K3 at the whole-row path's plan (B 4096, 96 table entries of
+  tile_q 32 over a 12.5M x 768 int8 arena of 2048-row tiles; hybrid and
+  int8 queries) and K7 at its band plan (int8, tile_q 256, a band of every
+  tile).
+
+The builds run in turns (forward, then backward) at each shape; the line
+per (shape, build) is the mean of its two medians, beside the card's name
+and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -30,35 +40,36 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as c  # noqa: E402
-from cloudvectordb_tpu_torch.ops import _cuda, pq  # noqa: E402
+from cloudvectordb_tpu_torch.ops import _cuda, band, pq  # noqa: E402
+from cloudvectordb_tpu_torch.ops import flat_topk as flat  # noqa: E402
 
 
-def build(sources: list[Path], out: Path) -> dict[str, ctypes.CDLL]:
-    """Each source built and bound as ops/_cuda.py binds pq_scan, by label
-    (its position and file name)."""
+def build(name: str, sources: list[Path], out: Path) -> dict[str, ctypes.CDLL]:
+    """Each source built and bound as ops/_cuda.py binds library ``name``,
+    by label (its position and file name)."""
     procs = {}
     for src in sources:
-        lib = out / f"libpq_scan_{len(procs)}.so"
+        lib = out / f"lib{name}_{len(procs)}.so"
         cmd = [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(_cuda._CSRC),
                "-o", str(lib), str(src)]
         procs[f"{len(procs)}:{src.name}"] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.PIPE, text=True))
     libs = {}
-    for name, (lib, proc) in procs.items():
+    for label, (lib, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{err}")
+            raise RuntimeError(f"{label}: nvcc failed\n{err}")
         dll = ctypes.CDLL(str(lib))
-        for fn, (argtypes, restype) in _cuda._SIGNATURES["pq_scan"].items():
+        for fn, (argtypes, restype) in _cuda._SIGNATURES[name].items():
             getattr(dll, fn).argtypes = argtypes
             getattr(dll, fn).restype = restype
-        print(f"[build] {name}: {c.ptxas_report(err)}", flush=True)
-        libs[name] = dll
+        print(f"[build] {label}: {c.ptxas_report(err)}", flush=True)
+        libs[label] = dll
     return libs
 
 
-def shapes(dev):
+def pq_shapes(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     n_tiles, tile_n, w, d, m = 9766, 1024, 24, c.D, c.PQ_M
@@ -85,24 +96,60 @@ def shapes(dev):
            lambda: pq.pq_topk_reference(cm, cb, q, c.K, tile_n=2048))
 
 
+def scan_shapes(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    n_tiles, tile_n = 6104, 2048
+    db = torch.randint(-127, 128, (n_tiles * tile_n, c.D), generator=g, device=dev,
+                       dtype=torch.int8)
+    q = torch.randn((c.B, c.D), generator=g, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    q_bf = q.to(torch.bfloat16)
+    q8, _ = flat.quantize_queries(q)
+    table = torch.randint(0, n_tiles, (c.B // 32, 96), generator=g, device=dev,
+                          dtype=torch.int32)
+    n_valid = n_tiles * tile_n - 1000
+    for label, qk, int8 in (("hybrid", q_bf, "hybrid"), ("int8", q8, True)):
+        kw = dict(tile_n=tile_n, tile_q=32, int8=int8, n_valid=n_valid)
+        yield (f"K3 {label} B{c.B} p96 tq32", lambda a=(qk, kw): band.tiles_topk(
+            db, a[0], table, c.K, **a[1]), lambda a=(qk, kw): band.tiles_topk_reference(
+            db, a[0], table, c.K, **a[1]))
+    starts = torch.zeros(c.B // 256, dtype=torch.int32, device=dev)
+    kw = dict(tile_n=tile_n, tile_q=256, int8=True, n_valid=n_valid)
+    yield (f"K7 int8 B{c.B} tq256 band {n_tiles}",
+           lambda: band.band_topk(db, q8, starts, c.K, n_tiles, **kw),
+           lambda: band.band_topk_reference(db, q8, starts, c.K, n_tiles, **kw))
+
+
+SHAPES = {"pq_scan": pq_shapes, "tiles_scan": scan_shapes}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--source", default="pq_scan", choices=sorted(SHAPES))
+    ap.add_argument("variants", nargs="*", type=Path)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_pq_scan_ab: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    sources = [_cuda._CSRC / "pq_scan.cu", *map(Path, sys.argv[1:])]
+    sources = [_cuda._CSRC / f"{args.source}.cu", *args.variants]
     card = c.card_line()
     print(f"[env] card: {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(sources, Path(tmp))
+        libs = build(args.source, sources, Path(tmp))
         variants = list(libs)
-        for name, kernel, plain in shapes(dev):
+        for name, kernel, plain in SHAPES[args.source](dev):
             ms = {v: [] for v in variants}
+            ref = plain()  # the plain version once a shape
             for order in (variants, variants[::-1]):
                 for v in order:
-                    _cuda._libs["pq_scan"] = libs[v]
+                    _cuda._libs[args.source] = libs[v]
                     if not ms[v]:
-                        c.compare(f"{name} {v}", kernel, plain)
+                        try:
+                            c.compare(f"{name} {v}", kernel, lambda: ref)
+                        except AssertionError as e:
+                            print(f"[ab] {name} {v}: FAILED the hold: {e}", flush=True)
                     ms[v].append(c.time_ms(kernel, 3))
             for v in variants:
                 print(f"[ab] {name} {v}: {sum(ms[v]) / 2:.3f} ms (medians "

@@ -1,15 +1,20 @@
 """K3 (tile-table scan over whole rows) and K7 (band scan): the port's plain
 versions (the wrappers' CPU path) against the reference's
 ``tiles_topk_pallas`` / ``band_topk_pallas`` in interpret mode, on the same
-numpy inputs, in every score mode; and the shared bucketed-slot merge.
-(The CUDA kernel is held to the plain versions on the card by
-chip_smoke.py.)
+numpy inputs, in every score mode, at the shapes the card's tensor-core
+kernel must take (D 48 and 100: a multiple of 16 and not; tile_q 16 and
+48: whole and partial 32-query blocks); the shared bucketed-slot merge;
+and chip_smoke.py's count of tensor-core instructions in SASS text. (The
+CUDA kernel is held to the plain versions on the card by chip_smoke.py.)
 
 Tolerances: int8 x int8 scores are exact integers, so values and ids are
 equal outright. bf16 x int8 ('hybrid'), bf16 and f32 scores within 1e-5
 absolute (f32 sums of the same products in another order; data scaled to
 unit-order scores); ids equal except at near-ties (scores within 1e-5).
 """
+
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -24,14 +29,18 @@ TOL = 1e-5
 #: the reference's int8 flag -> (query dtype, row dtype)
 MODES = {"int8": (True, "int8", "int8"), "hybrid": ("hybrid", "bfloat16", "int8"),
          "bf16": (False, "bfloat16", "bfloat16"), "f32": (False, "float32", "float32")}
+#: (D, tile_q): row depths a multiple of 16 and not, whole and partial query blocks
+SHAPES = pytest.mark.parametrize("d,tile_q", [(48, 16), (48, 48), (100, 16), (100, 48)],
+                                 ids=["d48-tq16", "d48-tq48", "d100-tq16", "d100-tq48"])
 
 
-def _inputs(seed, mode, *, d=48, tile_n=256, tile_q=16, n_tiles=6, nq=32, p=5):
-    """Rows and queries of the mode's types, a table whose last entry
-    repeats its first, and n_valid inside the last tile."""
+def _inputs(seed, mode, *, d=48, tile_n=256, tile_q=16, n_tiles=6, p=5):
+    """Rows and queries (two query tiles) of the mode's types, a table whose
+    last entry repeats its first, and n_valid inside the last tile."""
     int8, qt, rt = MODES[mode]
     rng = np.random.default_rng(seed)
     n = n_tiles * tile_n
+    nq = 2 * tile_q
 
     def make(m, dt, scale):
         if dt == "int8":
@@ -66,10 +75,11 @@ def _assert_agree(mode, v_ref, i_ref, v, i):
     assert same.mean() >= 0.99, same.mean()
 
 
+@SHAPES
 @pytest.mark.parametrize("l_buckets", [0, 64], ids=["R1", "R4"])
 @pytest.mark.parametrize("mode", list(MODES))
-def test_tiles_reference_matches_pallas_interpret(mode, l_buckets):
-    x = _inputs(1, mode)
+def test_tiles_reference_matches_pallas_interpret(mode, l_buckets, d, tile_q):
+    x = _inputs(1, mode, d=d, tile_q=tile_q)
     kw = dict(tile_n=x["tile_n"], tile_q=x["tile_q"], l_buckets=l_buckets,
               int8=x["int8"], n_valid=x["n_valid"])
     v_j, i_j = tiles_topk_pallas(jnp.asarray(x["db"]), jnp.asarray(x["q"]),
@@ -80,11 +90,12 @@ def test_tiles_reference_matches_pallas_interpret(mode, l_buckets):
     assert np.isfinite(v.numpy()).all()
 
 
+@SHAPES
 @pytest.mark.parametrize("mode", list(MODES))
-def test_band_reference_matches_pallas_interpret_clamped(mode):
+def test_band_reference_matches_pallas_interpret_clamped(mode, d, tile_q):
     """The second band starts at n_tiles - band_tiles: the clamp the index
     applies, so the band ends at the arena's last (partly valid) tile."""
-    x = _inputs(2, mode)
+    x = _inputs(2, mode, d=d, tile_q=tile_q)
     starts = np.array([1, 6 - 3], np.int32)
     kw = dict(tile_n=x["tile_n"], tile_q=x["tile_q"], int8=x["int8"],
               n_valid=x["n_valid"])
@@ -141,3 +152,27 @@ def test_bucket_merge_tie_order():
     s2 = torch.tensor([[[0.5, 2.0, 1.0, 2.0]]])
     best_v, best_i = band._bucket_merge(s2, torch.tensor([20]), 2, best_v, best_i)
     assert best_v.tolist() == [[[1.0, 2.0]]] and best_i.tolist() == [[[8, 21]]]
+
+
+def test_sass_tensor_core_counts_on_canned_lines():
+    """chip_smoke.py counts HMMA and IMMA (mma.sync) and HGMMA and IGMMA
+    (wgmma) per kernel in ``cuobjdump --dump-sass`` text; FFMA, IMAD and a
+    name that merely contains MMA do not count."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    sass = """
+        Function : _Z3onev
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   IMMA.16832.S8.S8 R16, R20, R24, R16 ;
+        /*0020*/                   FFMA R1, R2, R3, R1 ;
+        /*0030*/                   IMMA.16832.S8.S8 R16, R20, R26, R16 ;
+        Function : _Z3twov
+        /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0010*/                   IGMMA.64x64x32.S8.S8 R0, gdesc[UR8], R0 ;
+        /*0020*/                   IMAD R5, R6, R7, R5 ;
+        /*0030*/                   CALL.REL.NOINC `(MMA_HELPER) ;
+    """
+    counts = chip_smoke.sass_tensor_core_counts(sass)
+    assert counts == {"_Z3onev": ({"HMMA": 1, "IMMA": 2}, 4),
+                      "_Z3twov": ({"HGMMA": 1, "IGMMA": 1}, 4)}
