@@ -11,24 +11,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build of every hand-written kernel from csrc/*.cu (one nvcc per source,
    all at once), timed, with ptxas' registers and spills per kernel; the
    tensor-core instructions (HMMA, IMMA; HGMMA, IGMMA for wgmma) in each K4
-   kernel, each K5/K6 kernel (pq_scan.cu) and each K3/K7 tensor-core kernel
-   (tiles_scan.cu), counted in ``cuobjdump --dump-sass``: every bf16 K4
-   kernel, every pq_scan instantiation and every tiles_scan tensor-core
-   instantiation must have some (IMMA or IGMMA for int8 rows and queries,
-   HMMA or HGMMA for the bf16 ones);
+   kernel, each K5/K6 kernel (pq_scan.cu), each K2/K3/K7 kernel
+   (tiles_scan.cu) and K1's two (tiles_resid.cu), counted in ``cuobjdump
+   --dump-sass``: every bf16 K4 kernel, every pq_scan instantiation and
+   every tiles_scan tensor-core instantiation must have some (IMMA or IGMMA
+   for int8 rows and queries, HMMA or HGMMA for the bf16 ones), K1's scan
+   IMMA and its centroid-term prologue HMMA, and tiles_scan's f32 body none
+   of any kind (its contract is f32 FMA);
 3. k-means determinism: two trainings on the same 262,144 rows (nlist
    4096, 10 iterations) must give bit-identical centroids;
 4. each kernel against its plain PyTorch version on the card, on small
    random shapes: K1 (tiles_topk_resid: one slot per bucket and four,
    windows of 1 to 129 lists, valid_end holes, a short final tile, partial
-   query blocks), K2 (flat_topk: ip/l2 x f32/bf16/int8, R 1 and 4, ragged
-   N), K3 (tiles_topk: int8, hybrid, bf16, f32 scoring, repeated table
-   entries, n_valid holes; R 1, 4 and 8; D 768, 100, 99 and 1000; tile_q
-   64, 48 and 160), K7 (band_topk: clamped bands, the same shapes), K5
-   (pq_tiles_topk: residual or not, pools 1-3, top-2 on and off, R 1 and 4,
-   repeated entries, n_valid cutting a tile, D 768 at m 64, D 64, and D 30
-   at dsub 5) and K6 (pq_topk: ragged N, D 768 and D 30); one line per
-   kernel;
+   query blocks; ids held through their exact f64 scores), K2 (flat_topk:
+   ip/l2 x f32/bf16/int8, R 1 and 4, ragged N), K3 (tiles_topk: int8,
+   hybrid, bf16, f32 scoring, repeated table entries, n_valid holes; R 1, 4
+   and 8; D 768, 100, 99 and 1000; tile_q 64, 48 and 160), K7 (band_topk:
+   clamped bands, the same shapes), K5 (pq_tiles_topk: residual or not,
+   pools 1-3, top-2 on and off, R 1 and 4, repeated entries, n_valid
+   cutting a tile, D 768 at m 64, D 64, and D 30 at dsub 5) and K6
+   (pq_topk: ragged N, D 768 and D 30); one line per kernel;
 5. the residual serving path: a 12.5M x 768 corpus generated on the device
    (the process of bench.py: latent 32, 256 centres, noise 0.3/sqrt(32),
    L2-normalised), ``BandIVFIndex.build_device_streaming`` with nlist 4096
@@ -36,7 +38,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4096 through ``search_device``; K1's launch count over that run must be
    > 0 and recall@10 against the exact f32 ground truth on 512 queries must
    reach 0.90; device QPS is the median of CUDA-event-timed repetitions;
-   then K1 against its plain version at the main path's shape, both timed;
+   then K1 against its plain version at the main path's shape (its ids held
+   through their exact f64 scores, as EXACT_TIE says), both timed;
 6. the whole-row path on the same corpus, queries and ground truth (the
    residual index freed first): ``build_device_streaming(residual=False)``
    (int8), ``tune``, ``search_device`` with the default hybrid scoring (QPS
@@ -52,7 +55,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device; 10,000 queries; l2; k 10) must reach recall@10 0.99 against the
    exact f32 scan, and at bench.py's int8 flat shape (1M x 768 of the
    corpus, the 4096 queries, ip) its recall is logged; K2 must launch;
-   then K2 against its plain version at both shapes, both timed;
+   then K2 against its plain version at both shapes, values and ids equal
+   outright (int8 is exact; the f32 l2 rows and queries are integers whose
+   every partial sum is exact in f32), both timed;
 8. the PQ-tiles path at BASELINE config #3 (``run_pq``): the first 10M
    rows of the corpus, ``BandIVFPQIndex.build_device_streaming`` (nlist
    4096, m 64, nbits 8, OPQ, residual int8 refine, k-means 10 and PQ 8
@@ -89,7 +94,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokenizer) must give the bulk embeddings; 10,000 short queries (first
    <= 32 tokens, 15% resampled) through 'auto' (packed_batch) and
    ``FlatIndex.search`` (K2) must reach recall@10 0.99 against the exact
-   scan;
+   scan; then K2 (f32 ip, 1M x 384, 10,000 queries) against its plain
+   version, both timed, with its bound;
 13. K4 at the main path's shapes (bf16, B 1536 forward and backward, B 1024
    forward) against its plain version (with SDPA's own distance to it, and
    the backward bit-identical in two runs, at B 1536), timed beside torch's
@@ -150,10 +156,11 @@ PQ_ROUTE_FLOORS = {"rf16": 0.70, "rf64": 0.85, "rf64+top2": 0.85}
 K6_TRAIN, K6_ROWS, K6_TILE_N = 65_536, 1_000_000, 2048
 ID_MATCH_FLOOR = 0.999
 SCORE_TOL = 1e-4
-#: K5/K6 at full shape, against exact scores (f64 on the bf16 inputs both
-#: versions take). There two rows of one slot can lie closer than the
-#: versions' f32 rounding (on config #3's corpus up to 1.6e-6 for the plain
-#: version, 4.2e-7 for the kernel, on an H100: PERF.md), which then orders
+#: K1 and K5/K6 at full shape, against exact scores (f64 on the bf16 and
+#: int8 inputs both versions take). There two rows of one slot can lie
+#: closer than the versions' f32 rounding (K5 on config #3's corpus: up to
+#: 1.6e-6 for the plain version, 4.2e-7 for the kernel, on an H100:
+#: PERF.md), which then orders
 #: them. So the kernel's id at a slot agrees with the plain version's when
 #: its exact score is at most EXACT_TIE below (twice the two errors
 #: together, the most such a swap can cost); the exact scores of all the
@@ -185,6 +192,11 @@ KERNELS["K6"] = {"name": "pq_topk", "route": "cuda", "source": _PQ,
                  "replaces": "cloudvectordb_tpu/ops/pallas_pq.py:510"}
 KERNELS["K4"] = {"name": "mha_small_head", **_ATTN}
 KERNELS["K4 bwd"] = {"name": "mha_small_head_bwd", **_ATTN}
+#: a kernel's other main-path shapes, each a record of its own in the
+#: kernels line: K1 over config #3's refine arena (cell 7), K2 over int8
+#: rows (cell 4) and over the encoded passages (cell 6)
+SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2"}
+KERNELS.update({key: dict(KERNELS[base]) for key, base in SHAPE_RECORDS.items()})
 WRAPPERS = {"K1": band.tiles_topk_resid, "K2": flat.flat_topk,
             "K3": band.tiles_topk, "K7": band.band_topk, "K5": pq.pq_tiles_topk,
             "K6": pq.pq_topk}
@@ -218,10 +230,10 @@ def kernel_name(sym: str) -> str:
     return sym
 
 
-def ptxas_report(out: str) -> str:
-    """One line for a library from ``nvcc -Xptxas -v``: per kernel name,
-    its instances (template arguments), their range of registers, and the
-    largest spill (bytes of spill stores)."""
+def ptxas_report(out: str) -> list[str]:
+    """A library's kernels from ``nvcc -Xptxas -v``, one string each: its
+    name, its instances (template arguments), their range of registers,
+    and the largest spill (bytes of spill stores)."""
     kernels: dict[str, list[tuple[int, int]]] = {}
     name, spill = "?", 0
     for line in out.splitlines():
@@ -233,9 +245,8 @@ def ptxas_report(out: str) -> str:
         elif "Used" in line and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             kernels.setdefault(name, []).append((regs, spill))
-    return "; ".join(
-        f"{k} x{len(v)}: {min(r for r, _ in v)}-{max(r for r, _ in v)} registers, "
-        f"spill stores <= {max(s for _, s in v)} B" for k, v in kernels.items())
+    return [f"{k} x{len(v)}: {min(r for r, _ in v)}-{max(r for r, _ in v)} registers, "
+            f"spill stores <= {max(s for _, s in v)} B" for k, v in kernels.items()]
 
 
 #: tensor-core instructions in SASS: HMMA and IMMA (mma.sync), HGMMA and
@@ -315,35 +326,70 @@ def pq_tensor_core_check(lib: Path) -> None:
         raise AssertionError(f"pq_scan kernels without tensor-core instructions: {counts}")
 
 
-#: tiles_scan.cu's tensor-core instantiations: (TABLE, BAND) x (int8, hybrid,
-#: bf16) in the narrow block, and (TABLE, BAND) x int8 in the wide one
-SCAN_TC_INSTANCES = 8
-#: the tensor-core instruction each pair must run (tiles_scan.cu's Pair)
+#: tiles_scan.cu's tensor-core instantiations: (ALL, TABLE, BAND) x (int8,
+#: hybrid, bf16) in the narrow block, and (ALL, TABLE, BAND) x int8 in the
+#: wide one
+SCAN_TC_INSTANCES = 12
+#: tiles_scan.cu's f32-body instantiations: (ALL, TABLE, BAND) x (f32, bf16
+#: rows)
+SCAN_F32_INSTANCES = 6
+#: the tensor-core instruction each pair must run (tc_scan.cuh's Pair)
 SCAN_TC_PAIRS = {"0": ("int8", ("IMMA", "IGMMA")), "1": ("hybrid", ("HMMA", "HGMMA")),
                  "2": ("bf16", ("HMMA", "HGMMA"))}
+SCAN_SOURCES = {"0": "ALL", "1": "TABLE", "2": "BAND"}
 
 
-def scan_tensor_core_check(lib: Path) -> None:
-    """Every tensor-core instantiation of K3/K7 (tiles_scan.cu's
-    tiles_tc_kernel) must run tensor-core instructions of its pair's kind
-    (IMMA or IGMMA for int8, HMMA or HGMMA for bf16); one line with the
-    counts. Nothing is asked of the CUDA-core body (K2, f32 pairs)."""
-    counts = {sym: n for sym, n in sass_counts(lib).items()
-              if kernel_name(sym) == "tiles_tc_kernel"}
-    lines, bad = [], []
+def scan_tensor_core_check(counts: dict[str, tuple[dict[str, int], int]]) -> None:
+    """``sass_tensor_core_counts`` of tiles_scan.cu's library: every
+    instantiation of the tensor-core body (tiles_tc_kernel) must run
+    tensor-core instructions of its pair's kind (IMMA or IGMMA for int8, HMMA
+    or HGMMA for bf16), and the f32 body (tiles_f32_kernel) none of any kind
+    (its contract is f32 FMA: TF32 would break it); one line with the
+    counts. Nothing is asked of the CUDA-core body."""
+    lines, bad, n_tc, n_f32 = [], [], 0, 0
     for sym, (ops, n) in sorted(counts.items()):
-        src, pair, wm = re.search(r"ILi(\d)ELi(\d)E.*?TcCfgILi(\d)E", sym).groups()
-        kind, want = SCAN_TC_PAIRS[pair]
-        label = f"{'TABLE' if src == '1' else 'BAND'} {kind} {'narrow' if wm == '8' else 'wide'}"
-        lines.append(f"{label}: " + (", ".join(f"{k} {v}" for k, v in sorted(ops.items()))
-                                     or "none") + f" of {n}")
-        if not any(ops.get(k, 0) for k in want):
-            bad.append(label)
-    log("[build] tiles_scan tensor-core instructions of all (cuobjdump --dump-sass): "
-        + "; ".join(lines))
-    if len(counts) != SCAN_TC_INSTANCES or bad:
-        raise AssertionError(f"tiles_scan tensor-core kernels without their instructions: "
-                             f"{bad or counts}")
+        name = kernel_name(sym)
+        found = ", ".join(f"{k} {v}" for k, v in sorted(ops.items())) or "none"
+        if name == "tiles_tc_kernel":
+            n_tc += 1
+            src, pair, wm = re.search(r"ILi(\d)ELi(\d)E.*?TcCfgILi(\d)E", sym).groups()
+            kind, want = SCAN_TC_PAIRS[pair]
+            label = f"{SCAN_SOURCES[src]} {kind} {'narrow' if wm == '8' else 'wide'}"
+            if not any(ops.get(k, 0) for k in want):
+                bad.append(label)
+        elif name == "tiles_f32_kernel":
+            n_f32 += 1
+            src = re.search(r"ILi(\d)E", sym).group(1)
+            label = f"{SCAN_SOURCES[src]} f32 x {'bf16' if 'bfloat16' in sym else 'f32'}"
+            if ops:
+                bad.append(f"{label} (tensor-core instructions in the f32 body)")
+        else:
+            continue
+        lines.append(f"{label}: {found} of {n}")
+    log("[build] tiles_scan tensor-core instructions (cuobjdump --dump-sass): " + "; ".join(lines))
+    if n_tc != SCAN_TC_INSTANCES or n_f32 != SCAN_F32_INSTANCES or bad:
+        raise AssertionError(f"tiles_scan kernels: {n_tc} tensor-core and {n_f32} f32 "
+                             f"instantiations; without their instructions or with forbidden "
+                             f"ones: {bad}")
+
+
+#: tiles_resid.cu's kernels and the tensor-core instruction each must run:
+#: the scan int8 x int8 (IMMA), the centroid-term prologue bf16 (HMMA)
+RESID_TC = {"resid_scan_kernel": ("IMMA", "IGMMA"), "resid_centroid_kernel": ("HMMA", "HGMMA")}
+
+
+def resid_tensor_core_check(counts: dict[str, tuple[dict[str, int], int]]) -> None:
+    """``sass_tensor_core_counts`` of tiles_resid.cu's library (K1): its
+    scan and its prologue must each run their kind of tensor-core
+    instructions; one line with the counts."""
+    found = {kernel_name(sym): v for sym, v in counts.items()}
+    log("[build] tiles_resid tensor-core instructions (cuobjdump --dump-sass): " + "; ".join(
+        f"{k}: " + (", ".join(f"{o} {c}" for o, c in sorted(ops.items())) or "none") + f" of {n}"
+        for k, (ops, n) in sorted(found.items())))
+    bad = [k for k, want in RESID_TC.items()
+           if not any(found.get(k, ({}, 0))[0].get(o, 0) for o in want)]
+    if bad:
+        raise AssertionError(f"K1 kernels without their tensor-core instructions: {bad}")
 
 
 def reset_launches() -> None:
@@ -515,7 +561,8 @@ def resid_checks(dev) -> float:
         a = random_resid_inputs(seed, dev, **shape)
         err = max(err, compare(
             f"K1 {name}", lambda: band.tiles_topk_resid(**a, k=K, l_buckets=lb),
-            lambda: band.tiles_topk_resid_reference(**a, k=K, l_buckets=lb), quiet=True))
+            lambda: band.tiles_topk_resid_reference(**a, k=K, l_buckets=lb), quiet=True,
+            exact=resid_exact(a)))
     return err
 
 
@@ -790,7 +837,7 @@ def main_shape_check(key: str, label: str, kernel, plain, reps: int,
     plain_ms = time_ms(plain, plain_reps)
     ms = time_ms(kernel, reps)
     log(f"[kernel] {key} {label}: kernel {ms:.3f} ms, plain version {plain_ms:.3f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, shape=label)
 
 
 # -- k-means ----------------------------------------------------------------
@@ -927,22 +974,56 @@ def run_residual(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> d
 
     op = idx._op_point or {}
     p_tiles, tq = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
+    mp = k1_check(f"main path B{queries.shape[0]} p{p_tiles} tq{tq}", idx,
+                  k1_plan(idx, queries, p_tiles, tq), reps=10, plain_reps=3)
+    return dict(launches={"K1": launches}, mp={"K1": mp})
+
+
+def k1_plan(idx, queries, p_tiles: int, tq: int) -> dict:
+    """tiles_topk_resid's arguments (but k) for the residual index's tiles
+    search at (p_tiles, tile_q)."""
     st = idx._device_state()
     q_s, _, _, table = _plan_tiles(queries, st["centroids"], st["tile_window"], tq, p_tiles)
-    mp = k1_check(f"main path B{queries.shape[0]} p{p_tiles} tq{tq}", idx, dict(
-        db_resid=st["payload"], local_ids=st["local"], centroid_tiles=st["centroid_tiles"],
-        resid_scale=idx._scale, queries_sorted=q_s, tile_table=table,
-        valid_end=st["valid_end"], tile_n=idx.tile_n, tile_q=tq), reps=10, plain_reps=3)
-    return dict(launches={"K1": launches}, mp={"K1": mp})
+    return dict(db_resid=st["payload"], local_ids=st["local"],
+                centroid_tiles=st["centroid_tiles"], resid_scale=idx._scale, queries_sorted=q_s,
+                tile_table=table, valid_end=st["valid_end"], tile_n=idx.tile_n, tile_q=tq)
+
+
+def resid_exact(args: dict):
+    """(query indices, arena rows) -> f64 scores of the function K1 computes
+    on ``args`` (tiles_topk_resid's arguments), on the bf16 queries,
+    centroid tiles, int8 queries and row scales it takes, without rounding:
+    f64(bf16 q) . f64(bf16 ct[g // tile_n, local[g]]) + f64(row_scale) .
+    (q8 . r8[g]); -inf where g >= valid_end[g // tile_n, local[g]]."""
+    q_bf, q8, rs = band._quantize_queries(args["queries_sorted"], args["resid_scale"])
+    qd, q8d, rsd = q_bf.double(), q8.double(), rs.double()
+    ct = args["centroid_tiles"].to(torch.bfloat16)
+    payload, tile_n, valid_end = args["db_resid"], args["tile_n"], args["valid_end"]
+    local = args["local_ids"].reshape(-1)
+
+    def score(qi, rows):
+        qi, rows = (torch.as_tensor(a, device=payload.device).long() for a in (qi, rows))
+        out = []
+        for s in range(0, rows.numel(), 1 << 16):
+            g, q = rows[s:s + (1 << 16)], qi[s:s + (1 << 16)]
+            t, li = g // tile_n, local[g].long()
+            c = (ct[t, li].double() * qd[q]).sum(dim=1)
+            r = (payload[g].double() * q8d[q]).sum(dim=1) * rsd[q]
+            live = g < valid_end[t, li].long()
+            out.append(torch.where(live, c + r, float("-inf")))
+        return torch.cat(out) if out else torch.zeros(0, dtype=torch.float64)
+
+    return score
 
 
 def k1_check(label: str, idx, args: dict, reps: int, plain_reps: int) -> dict:
     """K1 against its plain version on ``args`` (a residual-int8 arena of
-    ``idx`` and a tile plan), both timed, with its bound."""
+    ``idx`` and a tile plan), its ids held through their exact f64 scores
+    (``resid_exact``, as EXACT_TIE says), both timed, with its bound."""
     q_s, table, tq = args["queries_sorted"], args["tile_table"], args["tile_q"]
     mp = main_shape_check("K1", label, lambda: band.tiles_topk_resid(**args, k=K),
                           lambda: band.tiles_topk_resid_reference(**args, k=K), reps=reps,
-                          plain_reps=plain_reps)
+                          plain_reps=plain_reps, exact=resid_exact(args))
     used, macs = table_work(table, tq, idx.tile_n, D)
     w = args["centroid_tiles"].shape[1]  # per tile: rows, local ids, centroids, valid_end
     mp.update(bound(used * (idx.tile_n * (D + 1) + w * (2 * D + 4))
@@ -1115,13 +1196,14 @@ def run_flat(dev, chunk_fn, queries, card) -> dict:
     sift_s = time.perf_counter() - t0
     check_result(v, ids, SIFT_Q, sift.ntotal, "flat sift")
     recall_sift = recall_at_k(ids, gt_sift)
+    launches = {"K2": flat.flat_topk.launches}
     flat8 = FlatIndex.build(x8, metric="ip", dtype="int8", device=dev)
     t0 = time.perf_counter()
     v8, ids8 = flat8.search(queries.cpu().numpy(), K)
     flat8_s = time.perf_counter() - t0
     check_result(v8, ids8, queries.shape[0], flat8.ntotal, "flat int8")
     recall8 = recall_at_k(ids8[:NQ_GT], gt8)
-    launches = {"K2": flat.flat_topk.launches}
+    launches["K2 int8"] = flat.flat_topk.launches - launches["K2"]
     log(f"[flat] {card}: SIFT-like {SIFT_ROWS} x {SIFT_D} f32 l2, {SIFT_Q} queries: "
         f"recall@{K} {recall_sift:.4f} vs exact f32 (ground truth {gt_s:.1f} s), search "
         f"{sift_s:.3f} s host clock; int8 {x8.shape[0]} x {D} ip, B {queries.shape[0]}: "
@@ -1130,19 +1212,23 @@ def run_flat(dev, chunk_fn, queries, card) -> dict:
     if recall_sift < FLAT_RECALL_FLOOR:
         raise AssertionError(f"flat recall {recall_sift:.4f} < {FLAT_RECALL_FLOOR}")
 
+    # the rows and queries are integers in [0, 255] at D 128: every partial
+    # sum of 2 q.x - |x|^2 is an integer below 2^24, exact in f32 in any order,
+    # so the kernel must equal its plain version outright
     mp = {"K2": main_shape_check(
         "K2", f"f32 l2 {SIFT_ROWS}x{SIFT_D} Q{SIFT_Q}",
         lambda: flat.flat_topk(sift._vecs, qs, K, metric="l2", db_sqnorms=sift._sqnorms),
         lambda: flat.flat_topk_reference(sift._vecs, qs, K, metric="l2",
                                          db_sqnorms=sift._sqnorms),
-        reps=5, plain_reps=3)}
+        reps=5, plain_reps=3, equal=True)}
     mp["K2"].update(bound(nbytes(sift._vecs, sift._sqnorms, qs) + SIFT_Q * K * 8,
                           2.0 * SIFT_Q * SIFT_ROWS * SIFT_D, "f32"))
     q8, _ = flat.quantize_queries(queries)
     mp["K2 int8"] = main_shape_check(
         "K2", f"int8 ip {x8.shape[0]}x{D} Q{queries.shape[0]}",
         lambda: flat.flat_topk(flat8._vecs, q8, K),
-        lambda: flat.flat_topk_reference(flat8._vecs, q8, K), reps=3, plain_reps=2)
+        lambda: flat.flat_topk_reference(flat8._vecs, q8, K), reps=3, plain_reps=2,
+        equal=True)
     mp["K2 int8"].update(bound(nbytes(flat8._vecs, q8) + q8.shape[0] * K * 8,
                                2.0 * q8.shape[0] * x8.shape[0] * D, "int8"))
     log(f"[kernel] K2 bounds: f32 l2 {mp['K2']['bound_ms']:.3f} ms ({mp['K2']['bound_by']}), "
@@ -1302,7 +1388,7 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
             f"scored")
         mp["K5" if name == "rf64" else f"K5 {name}"] = r
     del idx, st, args, plans, k1_args, exact
-    return dict(launches={"K5": launches["K5"]}, mp=mp)
+    return dict(launches={"K5": launches["K5"], "K1 refine": launches["K1"]}, mp=mp)
 
 
 def k6_inputs(chunk_fn):
@@ -1624,9 +1710,19 @@ def run_encode_search(dev, model: Encoder, card) -> dict:
         f"{N_PASSAGES:,} x {model.embed_dim}: recall@{K} {recall:.4f} vs the exact scan, "
         f"search {search_s:.3f} s host clock, K2 launches {flat.flat_topk.launches}; "
         f"source passage in the top {K}: {own:.4f}")
-    if recall < QUERY_RECALL_FLOOR or flat.flat_topk.launches <= 0:
+    k2_launches = flat.flat_topk.launches
+    if recall < QUERY_RECALL_FLOOR or k2_launches <= 0:
         raise AssertionError(f"query recall {recall:.4f} < {QUERY_RECALL_FLOOR}")
-    return dict(launches=launches, rates=rates, recall=recall)
+    del ids, mask, q_ids, q_mask, packed, streamed
+    k2 = main_shape_check(
+        "K2", f"f32 ip {N_PASSAGES}x{model.embed_dim} Q{N_QUERIES}",
+        lambda: flat.flat_topk(index._vecs, queries, K),
+        lambda: flat.flat_topk_reference(index._vecs, queries, K), reps=3, plain_reps=2)
+    k2.update(bound(nbytes(index._vecs, queries) + N_QUERIES * K * 8,
+                    2.0 * N_QUERIES * N_PASSAGES * model.embed_dim, "f32"))
+    log(f"[kernel] K2 f32 ip: {2.0 * N_QUERIES * N_PASSAGES * model.embed_dim / k2['ms'] / 1e9:.1f}"
+        f" T f32 flop/s; bound {k2['bound_ms']:.3f} ms ({k2['bound_by']})")
+    return dict(launches=launches, rates=rates, recall=recall, k2_launches=k2_launches, k2=k2)
 
 
 def k4_inputs(dev, b: int, dtype, seed: int):
@@ -1759,10 +1855,12 @@ def main() -> int:
     log(f"[build] {', '.join(p.name for p, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for name, (_, out) in built.items():
-        log(f"[build] {name}: {ptxas_report(out)}")
+        for line in ptxas_report(out):
+            log(f"[build] {name} {line}")
     k4_tensor_core_check(built["mha_small_head"][0])
     pq_tensor_core_check(built["pq_scan"][0])
-    scan_tensor_core_check(built["tiles_scan"][0])
+    scan_tensor_core_check(sass_counts(built["tiles_scan"][0]))
+    resid_tensor_core_check(sass_counts(built["tiles_resid"][0]))
 
     chunk_fn = make_corpus(dev, CHUNK)
     kmeans_determinism(chunk_fn)
@@ -1794,9 +1892,9 @@ def main() -> int:
     k4_err = max(r["err"] for r in k4.values())
     runs.append(dict(
         launches={"K4": train["launches"][0] + enc["launches"],
-                  "K4 bwd": train["launches"][1]},
+                  "K4 bwd": train["launches"][1], "K2 ip": enc["k2_launches"]},
         mp={"K4": {**k4[1536]["fwd"], "err": k4_err},
-            "K4 bwd": {**k4[1536]["bwd"], "err": k4_err}}))
+            "K4 bwd": {**k4[1536]["bwd"], "err": k4_err}, "K2 ip": enc["k2"]}))
     log(f"[encoder] {card}: training {train['ms']['auto']:.3f} ms/step through K4 "
         f"({TRIPLETS / train['ms']['auto'] * 1e3:,.1f} triplets/s; naive "
         f"{train['ms']['naive']:.3f}, fused {train['ms']['fused']:.3f} ms/step); encode "
@@ -1811,10 +1909,11 @@ def main() -> int:
             raise AssertionError(f"{key} ({KERNELS[key]['name']}) never launched on its path")
     records = []
     for key, meta in KERNELS.items():
-        errs = [err[key]] + [m["err"] for k, m in mp.items() if k.split()[0] == key.split()[0]]
+        errs = ([mp[key]["err"]] if key in SHAPE_RECORDS else [err[key]] + [
+            m["err"] for k, m in mp.items() if k.split()[0] == key.split()[0]])
         records.append({**meta, "launches": launches[key], "max_abs_err": max(errs),
                         **{f: mp[key].get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                       "library_ms")}})
+                                                       "library_ms", "shape")}})
     print(json.dumps({"kernels": records}))
     log(f"[kernel] {card}")
     print(json.dumps({"ok": True, "device": {

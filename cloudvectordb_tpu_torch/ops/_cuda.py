@@ -38,8 +38,9 @@ _VP, _CI, _CF, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lo
 #: C functions of each library: name -> (argtypes, restype)
 _SIGNATURES = {
     "tiles_resid": {
-        "cvdb_tiles_resid": ([_VP] * 10 + [_CI] * 8 + [_VP], _CI),
+        "cvdb_tiles_resid": ([_VP] * 11 + [_CI] * 8 + [_VP], _CI),
         "cvdb_tiles_resid_smem_bytes": ([_CI, _CI], _CI),
+        "cvdb_tiles_resid_scratch_bytes": ([_CI] * 4, _CLL),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "tiles_scan": {
@@ -166,8 +167,10 @@ def _check(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
 def tiles_resid_slots(db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale,
                       tile_table, valid_end, *, tile_n: int, tile_q: int,
                       l_buckets: int):
-    """Launch K1: (Q_pad, L) f32 slot values and (Q_pad, L) int32 arena
-    rows, on the tensors' device and PyTorch's current stream. Shapes are
+    """Launch K1 (its centroid-term prologue, then the scan): (Q_pad, L)
+    f32 slot values and (Q_pad, L) int32 arena rows, on the tensors' device
+    and PyTorch's current stream; the prologue's (n_qt, P, tile_q, W) f32
+    centroid term goes to a scratch tensor allocated here. Shapes are
     checked by ops/band.py; this checks what the kernel reads raw."""
     dev = db_resid.device
     local_ids = local_ids.reshape(-1)
@@ -190,12 +193,14 @@ def tiles_resid_slots(db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale
     smem = lib.cvdb_tiles_resid_smem_bytes(d, w)
     if smem > _SMEM_MAX:
         raise ValueError(f"D={d}, W={w} need {smem} B of shared memory > {_SMEM_MAX}")
+    cterm = torch.empty(lib.cvdb_tiles_resid_scratch_bytes(n_qt, tile_q, p, w),
+                        dtype=torch.uint8, device=dev)
     out_v = torch.empty((nq, l_buckets), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, l_buckets), dtype=torch.int32, device=dev)
     rc = lib.cvdb_tiles_resid(
         db_resid.data_ptr(), local_ids.data_ptr(), centroid_tiles.data_ptr(),
         q_bf16.data_ptr(), q8.data_ptr(), row_scale.data_ptr(),
-        tile_table.data_ptr(), valid_end.data_ptr(), out_v.data_ptr(),
+        tile_table.data_ptr(), valid_end.data_ptr(), cterm.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), n_qt, tile_q, p, tile_n, l_buckets, d, w,
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "tiles_resid")
@@ -225,8 +230,8 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
     if n >= 2**31:
         raise ValueError(f"arena rows {n} exceed the kernel's int32 row ids")
     lib = _load("tiles_scan")
-    # the body the call takes: the tensor-core one (dynamic shared memory)
-    # puts query blocks on grid x, the CUDA-core one on grid y
+    # the body the call takes: the tensor-core and f32 ones (dynamic shared
+    # memory) put query blocks on grid x, the CUDA-core one on grid y
     body = (source, _ELEM[q.dtype], _ELEM[db.dtype], tile_q, d, int(sqnorm is not None))
     q_blocks = n_qt * -(-tile_q // lib.cvdb_tiles_scan_block_queries(*body))
     if q_blocks > (65535 if lib.cvdb_tiles_scan_smem_bytes(*body) == 0 else 2**31 - 1):

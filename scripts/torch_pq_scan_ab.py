@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""A/B of scan kernel builds (csrc/pq_scan.cu or csrc/tiles_scan.cu, and
-variants of it) on one GPU, in turns.
+"""A/B of scan kernel builds (csrc/pq_scan.cu, csrc/tiles_scan.cu or
+csrc/tiles_resid.cu, and variants of it) on one GPU, in turns.
 
 Run from the repository root::
 
-    python3 scripts/torch_pq_scan_ab.py [--source tiles_scan] [SOURCE.cu ...]
+    python3 scripts/torch_pq_scan_ab.py [--source tiles_scan] [--only K2] [SOURCE.cu ...]
 
 The package's csrc/<source>.cu (default pq_scan) comes first, then each
-SOURCE.cu given (a whole variant of it, with the same C interface). Each is
-built by nvcc (all at once), bound in place of the package's library, held
-against the plain version (a build that fails the hold is logged and still
-timed) and timed (CUDA events, median) at the source's shapes, random data
-made on the device:
+SOURCE.cu given (a whole variant of it, with the same C interface; a
+tiles_resid.cu without the centroid-term scratch, as it was before the
+prologue, is bound through its own argument list). Each is built by nvcc
+(all at once), bound in place of the package's library, held against the
+plain version (a build that fails the hold is logged and still timed) and
+timed (CUDA events, median) at the source's shapes whose name starts with
+``--only`` (default: all), random data made on the device:
 
 - pq_scan: K5 at BASELINE config #3's PQ-route plans (B 4096, 224 table
   entries of tile_q 32 over a 10M x 64-code arena of 1024-row tiles with W
@@ -19,8 +21,14 @@ made on the device:
   64 codes at B 4096;
 - tiles_scan: K3 at the whole-row path's plan (B 4096, 96 table entries of
   tile_q 32 over a 12.5M x 768 int8 arena of 2048-row tiles; hybrid and
-  int8 queries) and K7 at its band plan (int8, tile_q 256, a band of every
-  tile).
+  int8 queries), K7 at its band plan (int8, tile_q 256, a band of every
+  tile), and K2 at the flat cells' shapes: f32 l2 over 1M x 128 integer
+  rows in [0, 255] against 10,000 such queries, int8 over 1M x 768 against
+  4096 queries, f32 ip over 1M x 384 unit rows against 10,000 queries;
+- tiles_resid: K1 at the residual path's plan (B 4096, tile_q 32, 96 table
+  entries over a 12.5M x 768 int8 arena of 2048-row tiles with W 16
+  centroid rows a tile and valid_end holes) and at config #3's refine plan
+  (224 entries of a 10M-row arena).
 
 The builds run in turns (forward, then backward) at each shape; the line
 per (shape, build) is the mean of its two medians, beside the card's name
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import subprocess
 import sys
 import tempfile
@@ -42,6 +51,31 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as c  # noqa: E402
 from cloudvectordb_tpu_torch.ops import _cuda, band, pq  # noqa: E402
 from cloudvectordb_tpu_torch.ops import flat_topk as flat  # noqa: E402
+
+
+class ResidBeforePrologue:
+    """A tiles_resid.cu library of the interface before the centroid-term
+    prologue (no scratch argument), bound so that ops/_cuda.py calls it as
+    the package's."""
+
+    def __init__(self, dll: ctypes.CDLL):
+        self.dll = dll
+        dll.cvdb_tiles_resid.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                                         + [ctypes.c_void_p])
+        dll.cvdb_tiles_resid.restype = ctypes.c_int
+        for fn in ("cvdb_tiles_resid_smem_bytes", "cvdb_cuda_error_string"):
+            argtypes, restype = _cuda._SIGNATURES["tiles_resid"][fn]
+            getattr(dll, fn).argtypes = argtypes
+            getattr(dll, fn).restype = restype
+        self.cvdb_tiles_resid_smem_bytes = dll.cvdb_tiles_resid_smem_bytes
+        self.cvdb_cuda_error_string = dll.cvdb_cuda_error_string
+
+    @staticmethod
+    def cvdb_tiles_resid_scratch_bytes(*_):
+        return 16
+
+    def cvdb_tiles_resid(self, *args):
+        return self.dll.cvdb_tiles_resid(*args[:8], *args[9:])  # no scratch
 
 
 def build(name: str, sources: list[Path], out: Path) -> dict[str, ctypes.CDLL]:
@@ -61,10 +95,13 @@ def build(name: str, sources: list[Path], out: Path) -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise RuntimeError(f"{label}: nvcc failed\n{err}")
         dll = ctypes.CDLL(str(lib))
+        print(f"[build] {label}: {'; '.join(c.ptxas_report(err))}", flush=True)
+        if name == "tiles_resid" and not hasattr(dll, "cvdb_tiles_resid_scratch_bytes"):
+            libs[label] = ResidBeforePrologue(dll)
+            continue
         for fn, (argtypes, restype) in _cuda._SIGNATURES[name].items():
             getattr(dll, fn).argtypes = argtypes
             getattr(dll, fn).restype = restype
-        print(f"[build] {label}: {c.ptxas_report(err)}", flush=True)
         libs[label] = dll
     return libs
 
@@ -121,12 +158,71 @@ def scan_shapes(dev):
            lambda: band.band_topk_reference(db, q8, starts, c.K, n_tiles, **kw))
 
 
-SHAPES = {"pq_scan": pq_shapes, "tiles_scan": scan_shapes}
+def flat_shapes(dev):
+    """K2 at the flat cells' shapes: f32 l2 over SIFT-like integer rows (cell
+    3), int8 (cell 4), f32 ip over unit rows at the encoder's width (cell
+    6)."""
+    x = c.sift_like(dev, c.SIFT_ROWS, c.SIFT_D, seed=1)
+    qs = c.sift_like(dev, c.SIFT_Q, c.SIFT_D, seed=2)
+    sq = (x * x).sum(dim=1)
+    yield (f"K2 f32 l2 {c.SIFT_ROWS}x{c.SIFT_D} Q{c.SIFT_Q}",
+           lambda: flat.flat_topk(x, qs, c.K, metric="l2", db_sqnorms=sq),
+           lambda: flat.flat_topk_reference(x, qs, c.K, metric="l2", db_sqnorms=sq))
+    del x, qs, sq
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x8 = torch.randint(-127, 128, (1_000_000, c.D), generator=g, device=dev, dtype=torch.int8)
+    q8 = torch.randint(-127, 128, (c.B, c.D), generator=g, device=dev, dtype=torch.int8)
+    yield (f"K2 int8 1000000x{c.D} Q{c.B}", lambda: flat.flat_topk(x8, q8, c.K),
+           lambda: flat.flat_topk_reference(x8, q8, c.K))
+    del x8, q8
+    x = torch.randn((c.N_PASSAGES, 384), generator=g, device=dev)
+    x = x / x.norm(dim=1, keepdim=True)
+    q = torch.randn((c.N_QUERIES, 384), generator=g, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    yield (f"K2 f32 ip {c.N_PASSAGES}x384 Q{c.N_QUERIES}", lambda: flat.flat_topk(x, q, c.K),
+           lambda: flat.flat_topk_reference(x, q, c.K))
+
+
+def resid_shapes(dev):
+    """K1 at the residual path's plan and at config #3's refine plan, on a
+    random arena: local ids rising through each tile's W = 16 lists, each
+    list's last eighth of rows past its valid_end."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    n_tiles, tile_n, w = 6104, 2048, 16
+    db = torch.randint(-127, 128, (n_tiles * tile_n, c.D), generator=g, device=dev,
+                       dtype=torch.int8)
+    local = torch.sort(torch.randint(0, w, (n_tiles, tile_n), generator=g, device=dev),
+                       dim=1)[0]
+    tile_row = torch.arange(n_tiles, device=dev)[:, None] * tile_n
+    first = torch.full((n_tiles, w), tile_n, device=dev).scatter_reduce(
+        1, local, torch.arange(tile_n, device=dev).expand(n_tiles, -1), "amin")
+    count = torch.zeros((n_tiles, w), dtype=torch.long, device=dev).scatter_add(
+        1, local, torch.ones_like(local))
+    valid_end = (tile_row + first + count - count // 8).to(torch.int32)
+    ct = (torch.randn((n_tiles, w, c.D), generator=g, device=dev) / c.D ** 0.5).to(torch.bfloat16)
+    q = torch.randn((c.B, c.D), generator=g, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+    for p in (96, 224):
+        table = torch.randint(0, n_tiles, (c.B // 32, p), generator=g, device=dev,
+                              dtype=torch.int32)
+        args = dict(db_resid=db, local_ids=local.to(torch.uint8).reshape(-1),
+                    centroid_tiles=ct, resid_scale=0.00114, queries_sorted=q, tile_table=table,
+                    valid_end=valid_end, tile_n=tile_n, tile_q=32)
+        yield (f"K1 B{c.B} p{p} tq32", lambda a=args: band.tiles_topk_resid(**a, k=c.K),
+               lambda a=args: band.tiles_topk_resid_reference(**a, k=c.K))
+
+
+SHAPES = {"pq_scan": pq_shapes,
+          "tiles_scan": lambda dev: itertools.chain(scan_shapes(dev), flat_shapes(dev)),
+          "tiles_resid": resid_shapes}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", default="pq_scan", choices=sorted(SHAPES))
+    ap.add_argument("--only", default="", help="time only the shapes whose name starts so")
     ap.add_argument("variants", nargs="*", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -140,6 +236,8 @@ def main() -> int:
         libs = build(args.source, sources, Path(tmp))
         variants = list(libs)
         for name, kernel, plain in SHAPES[args.source](dev):
+            if not name.startswith(args.only):
+                continue
             ms = {v: [] for v in variants}
             ref = plain()  # the plain version once a shape
             for order in (variants, variants[::-1]):

@@ -1,33 +1,44 @@
 #!/usr/bin/env python3
-"""Planted faults against chip_smoke.py's full-shape holds of K3 and K7, on
-one GPU: each hold must pass the package's kernel and fail a kernel that
-skips rows or depth.
+"""Planted faults against chip_smoke.py's holds of K1, K2, K3 and K7 (at
+full shape; K1 also at small shapes), on one GPU: each hold must pass the
+package's kernel and fail a kernel with a fault planted in it.
 
 Run from the repository root::
 
     python3 scripts/torch_scan_hold_faults.py
 
-It builds csrc/tiles_scan.cu and copies of it with one fault planted in the
-tensor-core body each, written to a temporary directory (the package's
-source is not touched):
+It builds csrc/tiles_scan.cu (K2, K3, K7) and csrc/tiles_resid.cu (K1), and
+copies of them with one fault planted each, written with the headers they
+include to a temporary directory (the package's sources are not touched):
 
-- ``entry``: one step of every block is skipped, so its rows are never
-  scored: the first table entry (TABLE: the query tile's best tile), or the
-  band step in the middle of the query tile's share of the band (BAND);
-- ``r``: rows of r == 1 (the second row block of a tile at a slot) are never
-  scored; only a plan with R > 1 has such rows;
-- ``chunk``: the second 128-byte chunk of every row's depth is dropped from
-  every score.
+- ``entry`` (the tensor-core body, tc_scan.cuh): one step of every block is
+  skipped, so its rows are never scored: the step in the middle of the
+  block's share of the steps (for a band, the tiles nearest its queries);
+- ``r`` (tc_scan.cuh): rows of r == 1 (the second row block of a tile at a
+  slot) are never scored; only a plan with R > 1 has such rows;
+- ``chunk`` (tc_scan.cuh): the second 128-byte chunk of every row's depth is
+  dropped from every score;
+- ``local`` (K1's epilogue): a row takes the centroid term of the next local
+  list, not its own;
+- ``valid_end`` (K1's epilogue): rows past their list's valid_end are scored;
+- ``sqnorm`` (the f32 body): the l2 bias drops |x|^2 (scores 2 q.x);
+- ``last_tile`` (the rows of a flat scan): the ragged last tile is never
+  scored.
 
-Then, as chip_smoke.py's run_whole_row does, it builds the whole-row int8
-index (12.5M x 768, nlist 4096) on the same corpus and queries, and holds
-each build against the plain version: K3 at (p_tiles, tile_q) = (96, 32)
-with hybrid queries (exact f64 scores) and int8 queries (values and ids
-equal outright), and K7 at the band plan (equal outright), each at R 1 (L =
-tile_n, the main path) and R 4 (l_buckets 512). One line per (shape,
-build): passed, or the criteria it failed. Exits 1 unless the package's
-kernel passes every hold and each faulted build fails every hold it applies
-to.
+Then it holds K1 against its exact f64 scores at two of chip_smoke.py's
+small shapes (R 1 and R 4, D 768, valid_end cutting every list) and, as
+chip_smoke.py does, over the residual index (12.5M x 768, nlist 4096) at
+(p_tiles, tile_q) = (96, 32), every fault but valid_end there (the arena has
+too few rows past a valid_end for the top-10 to see it); then the whole-row
+int8 index on the same corpus and queries, holding K3 at (96, 32) with
+hybrid queries (exact f64 scores) and int8 queries (values and ids equal
+outright) and K7 at the band plan (equal outright); each at R 1 (L =
+tile_n, the main path) and R 4 (l_buckets 512).
+Then K2 at the flat cells' shapes, equal outright: f32 l2 over 1M x 128
+SIFT-like integer rows against 10,000 such queries, int8 over 1M x 768 of
+the corpus against the 4096 queries. One line per (shape, build): passed,
+or the criteria it failed. Exits 1 unless the package's kernels pass every
+hold and each faulted build fails every hold it applies to.
 """
 
 from __future__ import annotations
@@ -42,62 +53,87 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke as c  # noqa: E402
+from cloudvectordb_tpu_torch.index.flat import FlatIndex  # noqa: E402
 from cloudvectordb_tpu_torch.ops import _cuda, band  # noqa: E402
 from cloudvectordb_tpu_torch.ops import flat_topk as flat  # noqa: E402
 
-ROW_BLOCK = "x.n_rows = x.row0 < 0 ? 0 : (int)max(0LL, hi);"
-#: fault -> (text of csrc/tiles_scan.cu, its replacement), each found once
+ROWS = "  auto rows = [&](int j, int r) { return epi.rows(qt, b0, j, r); };"
+#: fault -> {source file: [(its text, the replacement)]}, each text found once
 FAULTS = {
-    "entry": [(ROW_BLOCK, """const int n_qt = gridDim.x / ((a.tile_q + C::QB - 1) / C::QB);
-  const int skip = SRC == BAND ? (2 * qt + 1) * a.steps / (2 * n_qt) : 0;
-  x.n_rows = (x.row0 < 0 || (j == skip && a.steps > 1)) ? 0 : (int)max(0LL, hi);""")],
-    "r": [(ROW_BLOCK, "x.n_rows = (x.row0 < 0 || r == 1) ? 0 : (int)max(0LL, hi);")],
-    "chunk": [("const int nsub = min(DEPTH, lay.row_pad - kc * DEPTH) / 32;",
-               "const int nsub = kc == 1 ? 0 : min(DEPTH, lay.row_pad - kc * DEPTH) / 32;")],
+    "entry": {"tc_scan.cuh": [(ROWS, """  const int skip_ = (int)((2LL * blockIdx.x + 1) * a.steps / (2 * gridDim.x));
+  auto rows = [&](int j, int r) {
+    RowBlock x = epi.rows(qt, b0, j, r);
+    if (j == skip_ && a.steps > 1) x.n_rows = 0;
+    return x;
+  };""")]},
+    "r": {"tc_scan.cuh": [(ROWS, """  auto rows = [&](int j, int r) {
+    RowBlock x = epi.rows(qt, b0, j, r);
+    if (r == 1) x.n_rows = 0;
+    return x;
+  };""")]},
+    "chunk": {"tc_scan.cuh": [("const int nsub = min(DEPTH, lay.row_pad - kc * DEPTH) / 32;",
+                               "const int nsub = kc == 1 ? 0 : min(DEPTH, lay.row_pad - kc * DEPTH) "
+                               "/ 32;")]},
+    "local": {"tiles_resid.cu": [("(side + at.c)[qi * wp + li]",
+                                  "(side + at.c)[qi * wp + (li + 1) % w]")]},
+    "valid_end": {"tiles_resid.cu": [(
+        "if (x.row0 + slot >= reinterpret_cast<const int32_t*>(side + at.ve)[li]) "
+        "return -INFINITY;", "")]},
+    "sqnorm": {"tiles_scan.cu": [("__fsub_rn(2.f * acc[i][jj], bias)", "2.f * acc[i][jj]")]},
+    "last_tile": {"tiles_scan.cu": [(
+        "x.n_rows = x.row0 < 0 ? 0 : (int)max(0LL, hi);",
+        "x.n_rows = (x.row0 < 0 || (SRC == ALL && j == steps - 1)) ? 0 : (int)max(0LL, hi);")]},
 }
+LIBS = ("tiles_scan", "tiles_resid")
 
 
-def build(out: Path) -> dict[str, ctypes.CDLL]:
-    """The package's kernel ("kernel") and one build per fault, bound as
-    ops/_cuda.py binds tiles_scan."""
-    text = (_cuda._CSRC / "tiles_scan.cu").read_text()
-    sources = {"kernel": _cuda._CSRC / "tiles_scan.cu"}
+def build(out: Path) -> dict[str, dict[str, ctypes.CDLL]]:
+    """{library: {"kernel": the package's build, fault: a faulted build}},
+    a fault built into every library whose sources it edits, each bound as
+    ops/_cuda.py binds the library."""
+    csrc = _cuda._CSRC
+    sources = {lib: {"kernel": csrc / f"{lib}.cu"} for lib in LIBS}
     for name, edits in FAULTS.items():
-        planted = text
-        for old, new in edits:
-            if planted.count(old) != 1:
-                raise RuntimeError(f"fault {name}: {old!r} is not in tiles_scan.cu once")
-            planted = planted.replace(old, new)
-        sources[name] = out / f"tiles_scan_{name}.cu"
-        sources[name].write_text(planted)
+        tree = out / name
+        tree.mkdir()
+        for path in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
+            text = path.read_text()
+            for old, new in edits.get(path.name, []):
+                if text.count(old) != 1:
+                    raise RuntimeError(f"fault {name}: {old!r} is not in {path.name} once")
+                text = text.replace(old, new)
+            (tree / path.name).write_text(text)
+        for lib in LIBS:
+            if any(f.name in edits for f in _cuda._sources(csrc / f"{lib}.cu")):
+                sources[lib][name] = tree / f"{lib}.cu"
     procs = {}
-    for name, src in sources.items():
-        lib = out / f"libtiles_scan_{name}.so"
-        cmd = [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-I", str(_cuda._CSRC), "-o", str(lib),
-               str(src)]
-        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
+    for lib, builds in sources.items():
+        for name, src in builds.items():
+            so = out / f"lib{lib}_{name}.so"
+            cmd = [_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(src)]
+            procs[lib, name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True))
+    libs: dict[str, dict[str, ctypes.CDLL]] = {lib: {} for lib in LIBS}
+    for (lib, name), (so, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{err}")
-        dll = ctypes.CDLL(str(lib))
-        for fn, (argtypes, restype) in _cuda._SIGNATURES["tiles_scan"].items():
+            raise RuntimeError(f"{lib} {name}: nvcc failed\n{err}")
+        dll = ctypes.CDLL(str(so))
+        for fn, (argtypes, restype) in _cuda._SIGNATURES[lib].items():
             getattr(dll, fn).argtypes = argtypes
             getattr(dll, fn).restype = restype
-        libs[name] = dll
+        libs[lib][name] = dll
     return libs
 
 
-def hold(libs, label: str, kernel, plain, faults: list[str], **how) -> list[str]:
-    """Each build through one hold (the plain version run once); returns
-    what went wrong."""
+def hold(libs, lib: str, label: str, kernel, plain, faults: list[str], **how) -> list[str]:
+    """Each build of ``lib`` through one hold (the plain version run once);
+    returns what went wrong."""
     wrong = []
     ref = plain()
     for name in ["kernel", *faults]:
-        _cuda._libs["tiles_scan"] = libs[name]
+        _cuda._libs[lib] = libs[lib][name]
         try:
             c.compare(f"{label} [{name}]", kernel, lambda: ref, **how)
             if name != "kernel":
@@ -106,7 +142,87 @@ def hold(libs, label: str, kernel, plain, faults: list[str], **how) -> list[str]
             c.log(f"[fault] {label} [{name}]: failed: {e}")
             if name == "kernel":
                 wrong.append(f"{label}: the package's kernel failed the hold")
-    _cuda._libs["tiles_scan"] = libs["kernel"]
+    _cuda._libs[lib] = libs[lib]["kernel"]
+    return wrong
+
+
+def holds_k1(libs, dev, chunk_fn, queries) -> list[str]:
+    """K1 at the residual index's plan, and at chip_smoke.py's small shapes
+    with valid_end cutting every list: the index's arena holds 12,500,992
+    rows for 12.5M vectors, so at most 992 rows lie past a valid_end there,
+    too few for a dropped mask to change a top-10."""
+    wrong = []
+    for seed, lb in ((0, 0), (1, 512)):
+        a = c.random_resid_inputs(seed, dev)
+        r_blocks = a["tile_n"] // (lb or a["tile_n"])
+        faults = ["entry", "chunk", "local", "valid_end"] + (["r"] if r_blocks > 1 else [])
+        wrong += hold(libs, "tiles_resid", f"K1 small shape R{r_blocks} W3 D768",
+                      lambda: band.tiles_topk_resid(**a, k=c.K, l_buckets=lb),
+                      lambda: band.tiles_topk_resid_reference(**a, k=c.K, l_buckets=lb),
+                      faults, exact=c.resid_exact(a))
+    idx, _ = c.build_index(dev, chunk_fn, c.N_ROWS // c.CHUNK, True)
+    p_tiles, tq = c.MAIN_OP
+    args = c.k1_plan(idx, queries, p_tiles, tq)
+    exact = c.resid_exact(args)
+    for lb in (0, 512):
+        r_blocks = idx.tile_n // (lb or idx.tile_n)
+        faults = ["entry", "chunk", "local"] + (["r"] if r_blocks > 1 else [])
+        wrong += hold(libs, "tiles_resid", f"K1 B{c.B} p{p_tiles} tq{tq} R{r_blocks}",
+                      lambda: band.tiles_topk_resid(**args, k=c.K, l_buckets=lb),
+                      lambda: band.tiles_topk_resid_reference(**args, k=c.K, l_buckets=lb),
+                      faults, exact=exact)
+    return wrong
+
+
+def holds_k3_k7(libs, dev, chunk_fn, queries) -> list[str]:
+    idx, _ = c.build_index(dev, chunk_fn, c.N_ROWS // c.CHUNK, False)
+    st = idx._device_state()
+    p_tiles, tq = c.MAIN_OP
+    q_s, table = c.k3_plan(idx, queries, p_tiles, tq)
+    q_bf = q_s.to(torch.bfloat16)
+    q8, _ = flat.quantize_queries(q_s)
+    q8b, starts, band_tiles = c.k7_plan(idx, queries)
+    exact = c.wholerow_exact(st["payload"], q_bf)
+    wrong = []
+    for lb in (0, 512):
+        r_blocks = idx.tile_n // (lb or idx.tile_n)
+        faults = ["entry", "r", "chunk"] if r_blocks > 1 else ["entry", "chunk"]
+        for label, qk, int8, how in (("hybrid", q_bf, "hybrid", dict(exact=exact, tie=None)),
+                                     ("int8", q8, True, dict(equal=True))):
+            kw = dict(tile_n=idx.tile_n, tile_q=tq, int8=int8, n_valid=idx._n, l_buckets=lb)
+            wrong += hold(
+                libs, "tiles_scan", f"K3 {label} B{c.B} p{p_tiles} tq{tq} R{r_blocks}",
+                lambda a=(qk, kw): band.tiles_topk(st["payload"], a[0], table, c.K, **a[1]),
+                lambda a=(qk, kw): band.tiles_topk_reference(st["payload"], a[0], table, c.K,
+                                                             **a[1]), faults, **how)
+        kw7 = dict(tile_n=idx.tile_n, tile_q=idx.tile_q, int8=True, n_valid=idx._n,
+                   l_buckets=lb)
+        wrong += hold(
+            libs, "tiles_scan", f"K7 int8 band plan B{c.B} band_tiles {band_tiles} R{r_blocks}",
+            lambda: band.band_topk(st["payload"], q8b, starts, c.K, band_tiles, **kw7),
+            lambda: band.band_topk_reference(st["payload"], q8b, starts, c.K, band_tiles, **kw7),
+            faults, equal=True)
+    return wrong
+
+
+def holds_k2(libs, dev, chunk_fn, queries) -> list[str]:
+    x = c.sift_like(dev, c.SIFT_ROWS, c.SIFT_D, seed=1)
+    qs = c.sift_like(dev, c.SIFT_Q, c.SIFT_D, seed=2)
+    sift = FlatIndex.build(x, metric="l2", dtype="float32", device=dev)
+    wrong = hold(libs, "tiles_scan", f"K2 f32 l2 {c.SIFT_ROWS}x{c.SIFT_D} Q{c.SIFT_Q}",
+                 lambda: flat.flat_topk(sift._vecs, qs, c.K, metric="l2",
+                                        db_sqnorms=sift._sqnorms),
+                 lambda: flat.flat_topk_reference(sift._vecs, qs, c.K, metric="l2",
+                                                  db_sqnorms=sift._sqnorms),
+                 ["sqnorm", "last_tile"], equal=True)
+    del x, qs, sift
+    flat8 = FlatIndex.build(torch.cat([chunk_fn(0), chunk_fn(1)]), metric="ip", dtype="int8",
+                            device=dev)
+    q8, _ = flat.quantize_queries(queries)
+    wrong += hold(libs, "tiles_scan", f"K2 int8 ip {flat8.ntotal}x{c.D} Q{c.B}",
+                  lambda: flat.flat_topk(flat8._vecs, q8, c.K),
+                  lambda: flat.flat_topk_reference(flat8._vecs, q8, c.K), ["last_tile"],
+                  equal=True)
     return wrong
 
 
@@ -122,32 +238,9 @@ def main() -> int:
         libs = build(Path(tmp))
         chunk_fn = c.make_corpus(dev, c.CHUNK)
         queries = c.make_queries(chunk_fn, dev, c.B)
-        idx, _ = c.build_index(dev, chunk_fn, c.N_ROWS // c.CHUNK, False)
-        st = idx._device_state()
-        p_tiles, tq = c.MAIN_OP
-        q_s, table = c.k3_plan(idx, queries, p_tiles, tq)
-        q_bf = q_s.to(torch.bfloat16)
-        q8, _ = flat.quantize_queries(q_s)
-        q8b, starts, band_tiles = c.k7_plan(idx, queries)
-        exact = c.wholerow_exact(st["payload"], q_bf)
-        for lb in (0, 512):
-            r_blocks = idx.tile_n // (lb or idx.tile_n)
-            faults = ["entry", "r", "chunk"] if r_blocks > 1 else ["entry", "chunk"]
-            for label, qk, int8, how in (("hybrid", q_bf, "hybrid", dict(exact=exact, tie=None)),
-                                         ("int8", q8, True, dict(equal=True))):
-                kw = dict(tile_n=idx.tile_n, tile_q=tq, int8=int8, n_valid=idx._n, l_buckets=lb)
-                wrong += hold(
-                    libs, f"K3 {label} B{c.B} p{p_tiles} tq{tq} R{r_blocks}",
-                    lambda a=(qk, kw): band.tiles_topk(st["payload"], a[0], table, c.K, **a[1]),
-                    lambda a=(qk, kw): band.tiles_topk_reference(st["payload"], a[0], table, c.K,
-                                                                 **a[1]), faults, **how)
-            kw7 = dict(tile_n=idx.tile_n, tile_q=idx.tile_q, int8=True, n_valid=idx._n,
-                       l_buckets=lb)
-            wrong += hold(
-                libs, f"K7 int8 band plan B{c.B} band_tiles {band_tiles} R{r_blocks}",
-                lambda: band.band_topk(st["payload"], q8b, starts, c.K, band_tiles, **kw7),
-                lambda: band.band_topk_reference(st["payload"], q8b, starts, c.K, band_tiles,
-                                                 **kw7), faults, equal=True)
+        for holds in (holds_k1, holds_k3_k7, holds_k2):
+            wrong += holds(libs, dev, chunk_fn, queries)
+            torch.cuda.empty_cache()
     for line in wrong:
         c.log(f"[fault] WRONG: {line}")
     c.log(f"[fault] {card}: " + (f"{len(wrong)} wrong" if wrong else

@@ -11,6 +11,9 @@ each implementation, so scores differ in their last bits and exact ties can
 fall either way.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -129,3 +132,57 @@ def test_query_quantization_is_the_reference_byte_for_byte():
     _, q8, row_scale = band._quantize_queries(torch.from_numpy(q), 0.02)
     np.testing.assert_array_equal(q8.numpy(), np.asarray(q8_j))
     np.testing.assert_array_equal(row_scale.numpy(), np.asarray(rs_j).reshape(-1))
+
+
+def _chip_smoke():
+    """chip_smoke.py, the card run, whose holds these tests check on the CPU."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _exact_args(x):
+    t = torch.as_tensor
+    return dict(db_resid=t(x["payload"]), local_ids=t(x["local"]), centroid_tiles=t(x["ct"]),
+                resid_scale=x["scale"], queries_sorted=t(x["queries"]),
+                valid_end=t(x["valid_end"]), tile_n=x["tile_n"])
+
+
+def _exact_gap(exact, v, i):
+    """max |value - exact f64 score of its id| over the filled slots."""
+    qi, pos = np.nonzero(np.isfinite(v))
+    return float((torch.as_tensor(v[qi, pos]).double() - exact(qi, i[qi, pos])).abs().max())
+
+
+@pytest.mark.parametrize("l_buckets", [0, 64], ids=["R1", "R4"])
+@pytest.mark.parametrize("seed", [20, 21])
+def test_exact_scorer_holds_the_reference_and_the_pallas_kernel(seed, l_buckets):
+    """chip_smoke.py's exact f64 scorer of K1 (``resid_exact``) gives every
+    id that the plain version and the reference's Pallas kernel (interpret
+    mode) return its score within the card's hold tolerance, SCORE_TOL."""
+    c = _chip_smoke()
+    x = _inputs(seed)
+    exact = c.resid_exact(_exact_args(x))
+    for v, i in (_run_torch(band.tiles_topk_resid_reference, x, 10, l_buckets),
+                 _run_jax(x, 10, l_buckets)):
+        assert np.isfinite(v).any()
+        assert _exact_gap(exact, v, i) <= c.SCORE_TOL
+
+
+@pytest.mark.parametrize("fault", ["other list", "hole"])
+def test_exact_scorer_fails_a_planted_wrong_local_id(fault):
+    """Scoring a returned row under another local list (the centroid term of
+    the wrong list), or as a hole past its list's valid_end, puts its exact
+    score off the plain version's by more than SCORE_TOL."""
+    c = _chip_smoke()
+    x = _inputs(22)
+    v, i = _run_torch(band.tiles_topk_resid_reference, x, 10, 0)
+    row = int(i[0, 0])
+    if fault == "other list":
+        x["local"][0, row] = (x["local"][0, row] + 1) % x["ct"].shape[1]
+        x["valid_end"][row // x["tile_n"]] = (row // x["tile_n"] + 1) * x["tile_n"]
+    else:
+        x["valid_end"][row // x["tile_n"], x["local"][0, row]] = row
+    exact = c.resid_exact(_exact_args(x))
+    assert _exact_gap(exact, v[:1, :1], i[:1, :1]) > c.SCORE_TOL

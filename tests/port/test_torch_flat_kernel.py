@@ -124,3 +124,32 @@ def test_unsupported_type_pair_raises():
     db, q = _arrays(13, 3000, 16, 4, PAIRS["int8"])
     with pytest.raises(TypeError):
         flat.flat_topk(_torch(db), _torch(q).float(), 5)
+
+
+@pytest.mark.parametrize("l_buckets", [0, 512], ids=["R1", "R4"])
+def test_f32_l2_of_integer_rows_is_exact(l_buckets):
+    """Rows and queries that are integers in [0, 255] at D 128 (the SIFT-like
+    cell's data): every partial sum of 2 q.x - |x|^2 is an integer below 2^24
+    (at most 2 x 128 x 255^2 = 16,646,400), so the f32 scan is exact in any
+    summation order: its slot values and its final values (less |q|^2)
+    equal an f64 computation outright. This is why the card run holds K2
+    f32 l2 equal to its plain version there."""
+    from cloudvectordb_tpu_torch.ops.band import SCAN_ALL, _scan_slots
+
+    rng = np.random.default_rng(14)
+    d, n = 128, 3 * 2048 + 333
+    db = rng.integers(0, 256, size=(n, d)).astype(np.float32)
+    q = rng.integers(0, 256, size=(40, d)).astype(np.float32)
+    db[:5], q[:3] = 255.0, 255.0  # the largest sums
+    sq = (db.astype(np.float64) ** 2).sum(1)
+    v, i, _ = _scan_slots(SCAN_ALL, torch.from_numpy(db), torch.from_numpy(q), None,
+                          -(-n // 2048), torch.from_numpy(sq.astype(np.float32)),
+                          tile_n=2048, tile_q=len(q), l_buckets=l_buckets or 2048,
+                          n_valid=n, plain=True)
+    rows = i.numpy().astype(np.int64)
+    want = 2.0 * (q.astype(np.float64)[:, None, :] * db[rows].astype(np.float64)).sum(-1)
+    np.testing.assert_array_equal(v.numpy().astype(np.float64), want - sq[rows])
+    v, i = flat.flat_topk(torch.from_numpy(db), torch.from_numpy(q), 10, metric="l2",
+                          l_buckets=l_buckets)
+    dist = ((q.astype(np.float64)[:, None, :] - db[i.numpy()].astype(np.float64)) ** 2).sum(-1)
+    np.testing.assert_array_equal(v.numpy().astype(np.float64), -dist)

@@ -176,3 +176,74 @@ def test_sass_tensor_core_counts_on_canned_lines():
     counts = chip_smoke.sass_tensor_core_counts(sass)
     assert counts == {"_Z3onev": ({"HMMA": 1, "IMMA": 2}, 4),
                       "_Z3twov": ({"HGMMA": 1, "IGMMA": 1}, 4)}
+
+
+def _sass(functions: dict[str, list[str]]) -> str:
+    """cuobjdump-style text: each mangled symbol with its instructions."""
+    lines = []
+    for sym, ops in functions.items():
+        lines.append(f"        Function : {sym}")
+        lines += [f"        /*{16 * n:04x}*/                   {op} ;" for n, op in enumerate(ops)]
+    return "\n".join(lines)
+
+
+_NARROW, _WIDE = "6TcCfgILi8ELi1ELi1ELi3ELi128EE", "6TcCfgILi2ELi4ELi2ELi4ELi256EE"
+
+
+def _scan_functions(f32_op: str = "FFMA R1, R2, R3, R1") -> dict[str, list[str]]:
+    """tiles_scan.cu's kernels as its SASS names them: 12 tensor-core
+    instantiations (three sources x three pairs narrow, three int8 wide),
+    6 of the f32 body (three sources x f32 and bf16 rows)."""
+    op = {0: "IMMA.16832.S8.S8 R16, R20, R24, R16", 1: "HMMA.16816.F32.BF16 R4, R8, R12, R4",
+          2: "HMMA.16816.F32.BF16 R4, R8, R12, R4"}
+    fns = {}
+    for src in range(3):
+        for pair in range(3):
+            fns[f"_ZN12_GLOBAL__N_115tiles_tc_kernelILi{src}ELi{pair}E{_NARROW}EEvNS_6TcArgsE"] = [
+                "LDSM.16.M88.4 R8, [R2]", op[pair]]
+        fns[f"_ZN12_GLOBAL__N_115tiles_tc_kernelILi{src}ELi0E{_WIDE}EEvNS_6TcArgsE"] = [op[0]]
+        for rt in ("f", "13__nv_bfloat16"):
+            fns[f"_ZN12_GLOBAL__N_116tiles_f32_kernelILi{src}E{rt}EEvNS_7F32ArgsE"] = [
+                "LDS.128 R4, [R2]", f32_op]
+    fns["_ZN12_GLOBAL__N_117tiles_scan_kernelILi0EaaEEvPKT1_PKT0_PKiPKfPfPiiiiiii"] = [
+        "IDP.4A.S8.S8 R1, R2, R3, R1"]
+    return fns
+
+
+def test_sass_checks_of_the_scan_refuse_tensor_cores_in_the_f32_body():
+    """chip_smoke.py's scan_tensor_core_check passes tiles_scan.cu's kernels
+    when every tensor-core instantiation runs its pair's instruction and the
+    f32 body none; an HMMA (TF32 or bf16) in the f32 body fails it, as does a
+    tensor-core instantiation without its instruction."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    chip_smoke.scan_tensor_core_check(chip_smoke.sass_tensor_core_counts(_sass(_scan_functions())))
+    bad = _sass(_scan_functions(f32_op="HMMA.1684.F32.TF32 R4, R8, R12, R4"))
+    with pytest.raises(AssertionError, match="f32 body"):
+        chip_smoke.scan_tensor_core_check(chip_smoke.sass_tensor_core_counts(bad))
+    fns = _scan_functions()
+    fns[next(iter(fns))] = ["LDSM.16.M88.4 R8, [R2]", "IDP.4A.S8.S8 R1, R2, R3, R1"]
+    with pytest.raises(AssertionError, match="ALL int8 narrow"):
+        chip_smoke.scan_tensor_core_check(chip_smoke.sass_tensor_core_counts(_sass(fns)))
+
+
+def test_sass_checks_count_k1s_kernels():
+    """K1's scan and its centroid-term prologue are found by their names in
+    tiles_resid.cu's SASS and counted: IMMA in the scan, HMMA in the
+    prologue; either missing fails resid_tensor_core_check."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    scan = "_ZN12_GLOBAL__N_117resid_scan_kernelE6TcScanNS_5ResidE"
+    prologue = "_ZN12_GLOBAL__N_121resid_centroid_kernelEPK13__nv_bfloat16S2_PKiPfxiiiii"
+    sass = _sass({scan: ["IMMA.16832.S8.S8 R16, R20, R24, R16", "IMMA.16832.S8.S8 R8, R20, R26, R8",
+                         "FADD R1, R2, R3"],
+                  prologue: ["HMMA.16816.F32.BF16 R4, R8, R12, R4", "FADD R1, R2, R3"]})
+    counts = chip_smoke.sass_tensor_core_counts(sass)
+    assert {chip_smoke.kernel_name(k): v for k, v in counts.items()} == {
+        "resid_scan_kernel": ({"IMMA": 2}, 3), "resid_centroid_kernel": ({"HMMA": 1}, 2)}
+    chip_smoke.resid_tensor_core_check(counts)
+    with pytest.raises(AssertionError, match="resid_centroid_kernel"):
+        chip_smoke.resid_tensor_core_check(chip_smoke.sass_tensor_core_counts(
+            _sass({scan: ["IMMA.16832.S8.S8 R16, R20, R24, R16"], prologue: ["FFMA R1, R2, R3, R1"]})))
