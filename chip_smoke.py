@@ -15,18 +15,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (tiles_scan.cu) and K1's two (tiles_resid.cu), counted in ``cuobjdump
    --dump-sass``: every bf16 K4 kernel, every pq_scan instantiation and
    every tiles_scan tensor-core instantiation must have some (IMMA or IGMMA
-   for int8 rows and queries, HMMA or HGMMA for the bf16 ones), K1's scan
-   IMMA and its centroid-term prologue HMMA, and tiles_scan's f32 body none
-   of any kind (its contract is f32 FMA);
+   for int8 rows and queries, HMMA or HGMMA for the bf16 ones; K3's three
+   top-2 instantiations too), each of K1's 16 scan instantiations (int8 or
+   'precise' queries x mask x l2 x top-2: IMMA for int8, HMMA for
+   'precise') and its centroid-term prologue HMMA, and tiles_scan's f32 body
+   none of any kind (its contract is f32 FMA); ptxas' registers and spills
+   of each K1 scan and K3 top-2 instantiation;
 3. k-means determinism: two trainings on the same 262,144 rows (nlist
    4096, 10 iterations) must give bit-identical centroids;
 4. each kernel against its plain PyTorch version on the card, on small
    random shapes: K1 (tiles_topk_resid: one slot per bucket and four,
    windows of 1 to 129 lists, valid_end holes, a short final tile, partial
-   query blocks; ids held through their exact f64 scores), K2 (flat_topk:
+   query blocks; ids held through their exact f64 scores; each contract
+   variant, 'precise', a 50% row mask, l2, top-2 and all four at once, at R
+   1, 4 and 8 with repeated table entries), K1's l2 bias kernel
+   (resid_row_bias, against its plain version and the exact f64 bias), K2 (flat_topk:
    ip/l2 x f32/bf16/int8, R 1 and 4, ragged N), K3 (tiles_topk: int8,
    hybrid, bf16, f32 scoring, repeated table entries, n_valid holes; R 1, 4
-   and 8; D 768, 100, 99 and 1000; tile_q 64, 48 and 160), K7 (band_topk:
+   and 8; D 768, 100, 99 and 1000; tile_q 64, 48 and 160; top-2 on the
+   int8, hybrid and bf16 pairs), K7 (band_topk:
    clamped bands, the same shapes), K5 (pq_tiles_topk: residual or not,
    pools 1-3, top-2 on and off, R 1 and 4, repeated entries, n_valid
    cutting a tile, D 768 at m 64, D 64, and D 30 at dsub 5) and K6
@@ -39,17 +46,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    > 0 and recall@10 against the exact f32 ground truth on 512 queries must
    reach 0.90; device QPS is the median of CUDA-event-timed repetitions;
    then K1 against its plain version at the main path's shape (its ids held
-   through their exact f64 scores, as EXACT_TIE says), both timed;
+   through their exact f64 scores, as EXACT_TIE says), both timed; then on
+   the same index (``run_resid_variants``, each path's launch counts reset
+   just before and read just after): filtered batches (``where=``) under a
+   random 10% filter, a random 0.1% one and a correlated one (every row of
+   32 lists adjacent in the locality order), each with no disallowed id
+   and (-inf, -1) unfilled slots, its mask gather's time and cache hit and
+   its QPS, recall@10 against the exact filtered f32 ground truth (>= 0.90
+   for the correlated filter at the op point and for the 10% filter at
+   full coverage); one batch with scoring='precise' and one with top-2
+   (recall@10 >= 0.90 each); an l2 view of the same arena (recall@10 >=
+   0.90 against the exact l2 ground truth; the largest distance of its
+   scores from -|q - x|^2); then the l2 bias kernel over the arena and K1's
+   'precise', masked (10%), l2 and top-2 plans against their plain
+   versions (held through exact f64 scores), each timed, with its bound;
 6. the whole-row path on the same corpus, queries and ground truth (the
    residual index freed first): ``build_device_streaming(residual=False)``
    (int8), ``tune``, ``search_device`` with the default hybrid scoring (QPS
    as above), one batch with scoring='int8' and one through
-   ``search(strategy='band')``; K3 and K7 must launch and hybrid recall@10
-   must reach 0.80; then against their plain versions, each timed, with
+   ``search(strategy='band')``, and one hybrid top-2 batch; K3 and K7 must
+   launch and hybrid recall@10 (top-2 too) must reach 0.80; then against
+   their plain versions, each timed, with
    its bound: K3 at the tuned op point, hybrid (its ids held to the plain
    version's through their exact f64 scores, as EXACT_TIE says) and int8
-   (values and ids equal outright), again at (96, 32) if the tuner picked
-   another point; K7 at the band plan (values and ids equal outright);
+   (values and ids equal outright), and hybrid top-2 (held as hybrid) at
+   the tuned op point, again at (96, 32) if the tuner picked another point;
+   K7 at the band plan (values and ids equal outright);
 7. the flat path: ``FlatIndex`` at BASELINE config #1's shape (1M x 128
    SIFT-like f32 rows: clustered, non-negative, integer-valued, made on the
    device; 10,000 queries; l2; k 10) must reach recall@10 0.99 against the
@@ -109,6 +131,7 @@ time), the card's line and, as the last line,
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
@@ -171,7 +194,15 @@ SCORE_TOL = 1e-4
 #: (``compare``'s tie=None): their raw scores reach the hundreds.
 EXACT_TIE = 4e-6
 EXACT_ID_FLOOR = 0.97
+#: K1's l2 bias kernel and its plain version, each against the exact f64
+#: bias: within BIAS_TOL x max(1, |exact|) (f32 sums of up to 1024 terms in
+#: different orders; the bias reaches ~1e3 on the small checks' random rows)
+BIAS_TOL = 1e-5
 _SCAN = "cloudvectordb_tpu_torch/csrc/tiles_scan.cu"
+#: K1's contract variants, as tiles_topk_resid's options (the row mask's
+#: bits are the run's own)
+VARIANTS = {"precise": dict(int8_q=False), "masked": {}, "l2": dict(l2=True),
+            "top2": dict(top2=True)}
 KERNELS = {
     "K1": {"name": "tiles_topk_resid", "route": "cuda",
            "source": "cloudvectordb_tpu_torch/csrc/tiles_resid.cu",
@@ -192,14 +223,25 @@ KERNELS["K6"] = {"name": "pq_topk", "route": "cuda", "source": _PQ,
                  "replaces": "cloudvectordb_tpu/ops/pallas_pq.py:510"}
 KERNELS["K4"] = {"name": "mha_small_head", **_ATTN}
 KERNELS["K4 bwd"] = {"name": "mha_small_head_bwd", **_ATTN}
-#: a kernel's other main-path shapes, each a record of its own in the
-#: kernels line: K1 over config #3's refine arena (cell 7), K2 over int8
-#: rows (cell 4) and over the encoded passages (cell 6)
-SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2"}
-KERNELS.update({key: dict(KERNELS[base]) for key, base in SHAPE_RECORDS.items()})
+#: K1's l2 bias (a kernel of its own in tiles_resid.cu: the l2 part of the
+#: reference's K1 body)
+KERNELS["K1b"] = {"name": "resid_row_bias", "route": "cuda",
+                  "source": "cloudvectordb_tpu_torch/csrc/tiles_resid.cu",
+                  "replaces": "cloudvectordb_tpu/ops/pallas_band.py:518"}
+#: a kernel's other main-path shapes and contract variants, each a record of
+#: its own in the kernels line: K1 over config #3's refine arena (cell 7),
+#: K2 over int8 rows (cell 4) and over the encoded passages (cell 6); K1's
+#: 'precise', filtered (row_mask), l2 and top-2 searches and K3's top-2
+#: (cells 1 and 2)
+SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2", "K1 precise": "K1",
+                 "K1 masked": "K1", "K1 l2": "K1", "K1 top2": "K1", "K3 top2": "K3"}
+KERNELS.update({key: dict(KERNELS[base], **({"name": f"{KERNELS[base]['name']} "
+                                                     f"{key.split()[1]}"}
+                                            if key.split()[1] in VARIANTS else {}))
+                for key, base in SHAPE_RECORDS.items()})
 WRAPPERS = {"K1": band.tiles_topk_resid, "K2": flat.flat_topk,
             "K3": band.tiles_topk, "K7": band.band_topk, "K5": pq.pq_tiles_topk,
-            "K6": pq.pq_topk}
+            "K6": pq.pq_topk, "K1b": band.resid_row_bias}
 #: the least time the card could take (NVIDIA's H100 SXM data sheet, dense
 #: rates): bytes over the memory rate against
 #: operations over the peak rate of their type
@@ -247,6 +289,28 @@ def ptxas_report(out: str) -> list[str]:
             kernels.setdefault(name, []).append((regs, spill))
     return [f"{k} x{len(v)}: {min(r for r, _ in v)}-{max(r for r, _ in v)} registers, "
             f"spill stores <= {max(s for _, s in v)} B" for k, v in kernels.items()]
+
+
+def ptxas_instances(out: str, label) -> list[str]:
+    """Registers and spill stores of each kernel instantiation in ``nvcc
+    -Xptxas -v`` output that ``label(mangled symbol)`` names (None: skip)."""
+    lines, sym, spill = [], None, 0
+    for line in out.splitlines():
+        entry = re.search(r"entry function '(\S+)'", line)
+        if entry:
+            sym = entry.group(1)
+        elif "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif "Used" in line and "registers" in line and sym and label(sym):
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            lines.append(f"{label(sym)} {regs} registers, {spill} B spill stores")
+    return lines
+
+
+def tc_top2_label(sym: str) -> str | None:
+    """A tiles_scan.cu top-2 instantiation's label, else None."""
+    m = re.search(r"tiles_tc_kernelILi(\d)ELi(\d)E.*ELb1E", sym)
+    return f"TABLE {SCAN_TC_PAIRS[m.group(2)][0]} top2" if m else None
 
 
 #: tensor-core instructions in SASS: HMMA and IMMA (mma.sync), HGMMA and
@@ -327,9 +391,9 @@ def pq_tensor_core_check(lib: Path) -> None:
 
 
 #: tiles_scan.cu's tensor-core instantiations: (ALL, TABLE, BAND) x (int8,
-#: hybrid, bf16) in the narrow block, and (ALL, TABLE, BAND) x int8 in the
-#: wide one
-SCAN_TC_INSTANCES = 12
+#: hybrid, bf16) in the narrow block, (ALL, TABLE, BAND) x int8 in the wide
+#: one, and K3's top-2: TABLE x (int8, hybrid, bf16) narrow
+SCAN_TC_INSTANCES = 15
 #: tiles_scan.cu's f32-body instantiations: (ALL, TABLE, BAND) x (f32, bf16
 #: rows)
 SCAN_F32_INSTANCES = 6
@@ -352,9 +416,11 @@ def scan_tensor_core_check(counts: dict[str, tuple[dict[str, int], int]]) -> Non
         found = ", ".join(f"{k} {v}" for k, v in sorted(ops.items())) or "none"
         if name == "tiles_tc_kernel":
             n_tc += 1
-            src, pair, wm = re.search(r"ILi(\d)ELi(\d)E.*?TcCfgILi(\d)E", sym).groups()
+            src, pair, wm, top2 = re.search(
+                r"ILi(\d)ELi(\d)E.*?TcCfgILi(\d)E.*ELb(\d)E", sym).groups()
             kind, want = SCAN_TC_PAIRS[pair]
-            label = f"{SCAN_SOURCES[src]} {kind} {'narrow' if wm == '8' else 'wide'}"
+            label = (f"{SCAN_SOURCES[src]} {kind} {'narrow' if wm == '8' else 'wide'}"
+                     + (" top2" if top2 == "1" else ""))
             if not any(ops.get(k, 0) for k in want):
                 bad.append(label)
         elif name == "tiles_f32_kernel":
@@ -374,22 +440,44 @@ def scan_tensor_core_check(counts: dict[str, tuple[dict[str, int], int]]) -> Non
 
 
 #: tiles_resid.cu's kernels and the tensor-core instruction each must run:
-#: the scan int8 x int8 (IMMA), the centroid-term prologue bf16 (HMMA)
-RESID_TC = {"resid_scan_kernel": ("IMMA", "IGMMA"), "resid_centroid_kernel": ("HMMA", "HGMMA")}
+#: the scan's int8 pair IMMA, its hybrid pair ('precise') HMMA, the
+#: centroid-term prologue HMMA; the l2 bias kernel runs none (f32 sums)
+RESID_TC = {"0": ("IMMA", "IGMMA"), "1": ("HMMA", "HGMMA"),
+            "resid_centroid_kernel": ("HMMA", "HGMMA")}
+#: the scan's instantiations: (int8, hybrid) x mask x l2 x top-2
+RESID_SCAN_INSTANCES = 16
+
+
+def resid_label(sym: str) -> str:
+    """A K1 kernel's name, with the scan's template arguments spelt out."""
+    name = kernel_name(sym)
+    if name != "resid_scan_kernel":
+        return name
+    pair, masked, l2, top2 = re.search(r"ILi(\d)ELb(\d)ELb(\d)ELb(\d)E", sym).groups()
+    return (f"scan {'precise' if pair == '1' else 'int8'}"
+            + "".join(f" {o}" for o, f in (("mask", masked), ("l2", l2), ("top2", top2))
+                      if f == "1"))
 
 
 def resid_tensor_core_check(counts: dict[str, tuple[dict[str, int], int]]) -> None:
-    """``sass_tensor_core_counts`` of tiles_resid.cu's library (K1): its
-    scan and its prologue must each run their kind of tensor-core
-    instructions; one line with the counts."""
-    found = {kernel_name(sym): v for sym, v in counts.items()}
+    """``sass_tensor_core_counts`` of tiles_resid.cu's library (K1): every
+    instantiation of its scan and its prologue must run their kind of
+    tensor-core instructions; one line with the counts."""
+    found = {resid_label(sym): v for sym, v in counts.items()}
     log("[build] tiles_resid tensor-core instructions (cuobjdump --dump-sass): " + "; ".join(
         f"{k}: " + (", ".join(f"{o} {c}" for o, c in sorted(ops.items())) or "none") + f" of {n}"
         for k, (ops, n) in sorted(found.items())))
-    bad = [k for k, want in RESID_TC.items()
-           if not any(found.get(k, ({}, 0))[0].get(o, 0) for o in want)]
-    if bad:
-        raise AssertionError(f"K1 kernels without their tensor-core instructions: {bad}")
+    bad = []
+    for sym, (ops, _) in counts.items():
+        name = kernel_name(sym)
+        want = (RESID_TC[re.search(r"ILi(\d)E", sym).group(1)] if name == "resid_scan_kernel"
+                else RESID_TC.get(name, ()))
+        if want and not any(ops.get(o, 0) for o in want):
+            bad.append(resid_label(sym))
+    scans = sum(kernel_name(sym) == "resid_scan_kernel" for sym in counts)
+    if bad or scans != RESID_SCAN_INSTANCES or "resid_centroid_kernel" not in found:
+        raise AssertionError(f"K1 kernels: {scans} scan instantiations; without their "
+                             f"tensor-core instructions: {bad}")
 
 
 def reset_launches() -> None:
@@ -445,8 +533,9 @@ def compare(name: str, kernel, plain, quiet: bool = False, exact=None,
     f32 in different orders; where scores reach the hundreds, as the
     hybrid pair's do, the plain version's f32 sum alone is off by more than
     SCORE_TOL). ``equal``: values and ids must be the plain version's
-    outright (exact scores: int8 x int8). Every failed criterion is named in
-    the error."""
+    outright (exact scores: int8 x int8). Apart from K5 (whose pools may
+    hold one row twice), no id may repeat among a query's filled slots.
+    Every failed criterion is named in the error."""
     wrapper = WRAPPERS[name.split()[0]]
     before = wrapper.launches
     v_ref, i_ref = plain()
@@ -495,6 +584,10 @@ def compare(name: str, kernel, plain, quiet: bool = False, exact=None,
         faults.append(f"max |dscore| {err:.3g} > {score_tol:.3g}")
     if not near_tie:
         faults.append("a differing id is not a near-tie")
+    if not name.startswith("K5"):  # pools may hold one row twice; no other scan may
+        ids = np.sort(np.where(live, i, -1 - np.arange(i.shape[1])), axis=1)
+        if (np.diff(ids, axis=1) == 0).any():
+            faults.append("an id repeats within a query's results")
     if equal and not (np.array_equal(v, v_ref) and np.array_equal(i, i_ref)):
         faults.append(f"values and ids not equal outright ({int((v != v_ref).sum())} values, "
                       f"{int((i != i_ref).sum())} ids differ)")
@@ -566,6 +659,94 @@ def resid_checks(dev) -> float:
     return err
 
 
+def variant_args(a: dict, variant: str, rng) -> dict:
+    """K1's arguments ``a`` with a variant's options; 'masked' (and 'all')
+    draw a 50% row mask from ``rng``. The l2 key adds -s^2 |r|^2 / 2: over
+    full-range random int8 rows at the small checks' scale it reaches ~800,
+    where one f32 step is 6e-5, so l2 takes a tenth of the scale (keys of
+    ~10, as unit-norm data's are of ~1) to stay inside SCORE_TOL's absolute
+    hold."""
+    if variant == "all":
+        out = dict(a, int8_q=False, l2=True, top2=True)
+    else:
+        out = dict(a, **VARIANTS[variant])
+    if out.get("l2"):
+        out["resid_scale"] = a["resid_scale"] / 10
+    if variant in ("masked", "all"):
+        n = a["db_resid"].shape[0]
+        out["row_mask"] = torch.as_tensor((rng.random(n) < 0.5).astype(np.int8),
+                                          device=a["db_resid"].device)
+    return out
+
+
+#: K1's variant checks at small shapes: (name, random_resid_inputs shape,
+#: l_buckets, k): windows of 1, 3 and 129 lists, R 1, 4 and 8, D 768, 256,
+#: 128 and 100, k above L (top-2's second slots rank)
+RESID_VARIANT_CASES = [
+    ("R1_W3_D768", dict(), 0, K),
+    ("R4_W3_D768", dict(), 512, K),
+    ("R1_W1", dict(w=1, d=256), 0, K),
+    ("R4_W129", dict(w=129, d=128), 512, K),
+    ("R8_L32_k48", dict(tile_n=256, d=128), 32, 48),
+    ("R1_tq48_D100", dict(tile_q=48, nq=96, d=100), 0, K),
+]
+
+
+def resid_variant_checks(dev) -> float:
+    """K1's contract variants ('precise', row mask, l2, top-2, and all four
+    together) against the plain version on small shapes, ids held through
+    their exact f64 scores; the table repeats an entry (twice, adjacent, for
+    top-2)."""
+    err = 0.0
+    for seed, (name, shape, lb, k) in enumerate(RESID_VARIANT_CASES):
+        for variant in (*VARIANTS, "all"):
+            a = random_resid_inputs(700 + seed, dev, **shape)
+            a["tile_table"][:, 1] = a["tile_table"][:, 0]
+            args = variant_args(a, variant, np.random.default_rng(seed))
+            err = max(err, compare(
+                f"K1 {variant} {name}", lambda: band.tiles_topk_resid(**args, k=k, l_buckets=lb),
+                lambda: band.tiles_topk_resid_reference(**args, k=k, l_buckets=lb),
+                quiet=True, exact=resid_exact(args)))
+    return err
+
+
+def bias_compare(label: str, db, local, ct, scale: float, tile_n: int) -> float:
+    """K1's l2 bias kernel against its plain version and the exact f64
+    bias (``resid_bias_exact``): each within BIAS_TOL x max(1, |exact|) of
+    it; the kernel must count a launch. Returns max |kernel - plain|."""
+    before = band.resid_row_bias.launches
+    plain = band.resid_row_bias_reference(db, local, ct, scale, tile_n)
+    kern = band.resid_row_bias(db, local, ct, scale, tile_n)
+    sync()
+    if band.resid_row_bias.launches != before + 1:
+        raise AssertionError(f"K1b {label}: the kernel was not launched once")
+    exact = torch.cat([resid_bias_exact(db, local, ct, scale, tile_n,
+                                        torch.arange(s0, min(s0 + (1 << 18), db.shape[0]),
+                                                     device=db.device))
+                       for s0 in range(0, db.shape[0], 1 << 18)])
+    off = [float(((x.double() - exact).abs() / exact.abs().clamp_min(1.0)).max())
+           for x in (kern, plain)]
+    if max(off) > BIAS_TOL:
+        raise AssertionError(f"K1b {label}: relative distance from the exact bias: kernel "
+                             f"{off[0]:.3g}, plain {off[1]:.3g} > {BIAS_TOL}")
+    err = float((kern - plain).abs().max())
+    log(f"[kernel] K1b {label}: max |kernel - plain| {err:.3g}; relative distance from the "
+        f"exact f64 bias: kernel {off[0]:.3g}, plain {off[1]:.3g} (tolerance {BIAS_TOL})")
+    return err
+
+
+def bias_checks(dev) -> float:
+    """The bias kernel on K1's small random inputs (rows not unit-norm,
+    D 768, 256, 100)."""
+    err = 0.0
+    for seed, shape in enumerate((dict(), dict(w=1, d=256), dict(w=129, d=100, tile_n=256))):
+        a = random_resid_inputs(800 + seed, dev, **shape)
+        err = max(err, bias_compare(f"D{a['db_resid'].shape[1]} W{a['centroid_tiles'].shape[1]}",
+                                    a["db_resid"], a["local_ids"], a["centroid_tiles"],
+                                    a["resid_scale"], a["tile_n"]))
+    return err
+
+
 def random_rows(rng, n, d, dtype, dev):
     """Rows of ``dtype`` on the device: random int8 codes, or normal values
     scaled to unit-order norms for bf16/f32."""
@@ -630,6 +811,12 @@ def table_checks(dev) -> float:
             err3 = max(err3, compare(
                 f"K3 {tag}", lambda: band.tiles_topk(db, q, table, K, **kw),
                 lambda: band.tiles_topk_reference(db, q, table, K, **kw), quiet=True, **hold))
+            if qt != torch.float32:  # top-2 (the tensor-core pairs), k above L at R > 1
+                k2 = 2 * lb if lb else K
+                err3 = max(err3, compare(
+                    f"K3 top2 {tag}", lambda: band.tiles_topk(db, q, table, k2, top2=True, **kw),
+                    lambda: band.tiles_topk_reference(db, q, table, k2, top2=True, **kw),
+                    quiet=True, **hold))
             starts = torch.tensor([1, n_tiles - 3], dtype=torch.int32, device=dev)
             err7 = max(err7, compare(
                 f"K7 {tag}", lambda: band.band_topk(db, q, starts, K, 3, **kw),
@@ -702,7 +889,8 @@ def pq_checks(dev) -> tuple[float, float]:
 
 
 def small_kernel_checks(dev) -> dict:
-    err = {"K1": resid_checks(dev), "K2": flat_checks(dev)}
+    err = {"K1": max(resid_checks(dev), resid_variant_checks(dev)), "K2": flat_checks(dev),
+           "K1b": bias_checks(dev)}
     err["K3"], err["K7"] = table_checks(dev)
     err["K5"], err["K6"] = pq_checks(dev)
     for key, (n, match, worst, own, own_plain) in CHECKS.items():
@@ -973,33 +1161,250 @@ def run_residual(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> d
         raise AssertionError(f"residual recall {recall:.4f} < {RECALL_FLOOR}")
 
     op = idx._op_point or {}
-    p_tiles, tq = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
+    p_tiles, tq, _ = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
     mp = k1_check(f"main path B{queries.shape[0]} p{p_tiles} tq{tq}", idx,
                   k1_plan(idx, queries, p_tiles, tq), reps=10, plain_reps=3)
-    return dict(launches={"K1": launches}, mp={"K1": mp})
+    out = run_resid_variants(dev, idx, chunk_fn, n_chunks, queries, gt, card, p_tiles, tq)
+    return dict(launches={"K1": launches, **out["launches"]}, mp={"K1": mp, **out["mp"]})
 
 
-def k1_plan(idx, queries, p_tiles: int, tq: int) -> dict:
+#: filtered search at full width: random filters by fraction of the gids,
+#: and a correlated one, every row of CORRELATED_LISTS lists adjacent in the
+#: locality order (a tenant clustered into few lists)
+FILTER_FRACS = {"random 10%": 0.10, "random 0.1%": 0.001}
+CORRELATED_LISTS = 32
+
+
+def make_filters(idx, dev) -> dict:
+    """name -> (N_ROWS,) bool allow mask by gid, on the device."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4242)
+    masks = {name: torch.rand(N_ROWS, generator=g, device=dev) < frac
+             for name, frac in FILTER_FRACS.items()}
+    # the window of adjacent lists whose rows come nearest an average window's
+    sums = idx._offsets[CORRELATED_LISTS:] - idx._offsets[:-CORRELATED_LISTS]
+    l0 = int(np.argmin(np.abs(sums - CORRELATED_LISTS * N_ROWS / idx.nlist)))
+    rows = idx._ids[idx._offsets[l0]:idx._offsets[l0 + CORRELATED_LISTS]]
+    corr = torch.zeros(N_ROWS, dtype=torch.bool, device=dev)
+    corr[torch.as_tensor(rows[rows >= 0], device=dev)] = True
+    masks[f"correlated {CORRELATED_LISTS} lists"] = corr
+    return masks
+
+
+def exact_pass(chunk_fn, n_chunks: int, chunk: int, q: torch.Tensor, masks: dict,
+               need: torch.Tensor):
+    """One pass over the corpus: the exact f32 top-K ids of ``q`` restricted
+    to each allow mask (ip), its exact l2 top-K ids, and the corpus rows of
+    the sorted gids ``need``. Returns ({name: ids}, l2 ids, rows)."""
+    nq = q.shape[0]
+    best = {name: (torch.full((nq, K), float("-inf"), device=q.device),
+                   torch.zeros((nq, K), dtype=torch.int64, device=q.device))
+            for name in (*masks, "l2")}
+    rows = torch.zeros((need.numel(), D), device=q.device)
+    for ci in range(n_chunks):
+        x = chunk_fn(ci)
+        base = ci * chunk
+        for name in best:
+            if name == "l2":
+                cv, cidx = tiled_topk(x, q, K, metric="l2", tile=8192)
+                best[name] = merge_topk(*best[name], cv, cidx + base, K)
+                continue
+            sel = masks[name][base:base + x.shape[0]].nonzero()[:, 0]
+            if sel.numel():
+                cv, cidx = tiled_topk(x[sel], q, K, metric="ip", tile=8192)
+                best[name] = merge_topk(*best[name], cv, sel[cidx] + base, K)
+        here = (need >= base) & (need < base + x.shape[0])
+        rows[here] = x[need[here] - base]
+    gts = {name: b[1].cpu().numpy() for name, b in best.items()}
+    return gts, gts.pop("l2"), rows
+
+
+def check_filtered(v, ids, allow: torch.Tensor, label: str) -> None:
+    """No returned id is disallowed; unfilled slots are exactly (-inf, -1)."""
+    filled = ids >= 0
+    if not torch.equal(filled, torch.isfinite(v)) or not bool(
+            torch.isneginf(v[~filled]).all()):
+        raise AssertionError(f"{label}: unfilled slots are not (-inf, -1)")
+    if not bool(allow[ids[filled].long()].all()):
+        raise AssertionError(f"{label}: a disallowed id was returned")
+
+
+def counted(fn):
+    """fn() with K1's, K1b's and K3's launch counts reset just before and
+    read just after: (result, {wrapper key: launches})."""
+    reset_launches()
+    out = fn()
+    sync()
+    return out, {k: WRAPPERS[k].launches for k in ("K1", "K1b", "K3")}
+
+
+def run_resid_variants(dev, idx, chunk_fn, n_chunks, queries, gt, card, p_tiles: int,
+                       tq: int, reps: int = 5) -> dict:
+    """Cell 1's filtered, 'precise', top-2 and l2 searches on the residual
+    index, each path's launch counts reset just before and read just after;
+    recall against exact ground truth from one pass over the corpus; then K1
+    at each variant's plan and the l2 bias kernel against their plain
+    versions, timed, with their bounds."""
+    n_gt = gt.shape[0]
+    masks = make_filters(idx, dev)
+    res, launches = {}, {}
+    flts = {}
+    for name, m in masks.items():
+        flts[name] = flt = idx.make_filter(m.cpu().numpy())
+        t0 = time.perf_counter()
+        rm = idx._arena_row_mask(flt)
+        sync()
+        gather_s = time.perf_counter() - t0
+        hit = idx._arena_row_mask(flt) is rm
+        (v, ids), n = counted(lambda: idx.search_device(queries, K, where=flt))
+        qps = qps_device(lambda q: idx.search_device(q, K, where=flt), queries, reps=reps)
+        check_filtered(v, ids, m, f"resid filtered {name}")
+        live = int(rm.reshape(-1, idx.tile_n).amax(dim=1).gt(0).sum())
+        res[name] = dict(ids=ids[:n_gt].cpu().numpy(), qps=qps, gather_s=gather_s, hit=hit,
+                         live=live, n=int(m.sum()), launches=n["K1"])
+    name10 = "random 10%"
+    p_all = idx._tune_n_tiles()
+    (v, ids), _ = counted(lambda: idx.search_device(queries[:n_gt], K, where=flts[name10],
+                                                    p_tiles=p_all))
+    check_filtered(v, ids, masks[name10], f"resid filtered {name10} full coverage")
+    res[name10]["ids_full"] = ids.cpu().numpy()
+    launches["K1 masked"] = sum(r["launches"] for r in res.values())
+
+    # 'precise' and top-2 at the op point
+    mp = {}
+    for key, kw in (("K1 precise", dict(scoring="precise")), ("K1 top2", dict(top2=True))):
+        (recall, qps), n = counted(lambda: serve(idx, queries, gt, reps, f"resid {key[3:]}",
+                                                 **kw))
+        launches[key] = n["K1"]
+        if recall < RECALL_FLOOR:
+            raise AssertionError(f"residual {key[3:]} recall {recall:.4f} < {RECALL_FLOOR}")
+
+    # l2: a view of the same arena (the build never reads the metric); the
+    # device tensors are shared, the caches are its own
+    l2 = copy.copy(idx)
+    l2.metric, l2._flt_cache, l2._bias_cache = "l2", {}, None
+    (v_l2, ids_l2), n = counted(lambda: l2.search_device(queries, K))
+    launches["K1 l2"], launches["K1b"] = n["K1"], n["K1b"]
+    qps_l2 = qps_device(lambda q: l2.search_device(q, K), queries, reps=reps)
+    check_result(v_l2.cpu().numpy(), ids_l2.cpu().numpy(), queries.shape[0], idx.ntotal,
+                 "resid l2")
+
+    q_gt = queries[:n_gt]
+    need = torch.unique(ids_l2[:n_gt].long())
+    t0 = time.perf_counter()
+    gts, gt_l2, rows = exact_pass(chunk_fn, n_chunks, CHUNK, q_gt, masks, need)
+    log(f"[resid] exact filtered and l2 ground truth on {n_gt} queries, one pass over "
+        f"{N_ROWS} rows: {time.perf_counter() - t0:.1f} s")
+    for name, r in res.items():
+        recall = recall_at_k(r["ids"], gts[name])
+        extra = ""
+        if "ids_full" in r:
+            full = recall_at_k(r["ids_full"], gts[name])
+            extra = f"; at full coverage (p_tiles {p_all}) {full:.4f}"
+            if full < RECALL_FLOOR:
+                raise AssertionError(f"{name} filter at full coverage: recall {full:.4f}")
+        log(f"[resid] filtered {name} ({r['n']} allowed ids, {r['live']} of {p_all} tiles "
+            f"live): recall@{K} vs exact filtered f32 {recall:.4f} at the op point{extra}; mask "
+            f"gather {r['gather_s'] * 1e3:.1f} ms host clock, then cache hit {r['hit']}; device "
+            f"QPS {r['qps']['qps']:.1f} (median {r['qps']['ms_median']:.3f} ms); K1 launches "
+            f"{r['launches']}; no disallowed id, unfilled slots (-inf, -1)")
+        if not r["hit"]:
+            raise AssertionError(f"{name}: the mask cache missed on a second call")
+        if name.startswith("correlated") and recall < RECALL_FLOOR:
+            raise AssertionError(f"correlated filter recall {recall:.4f} < {RECALL_FLOOR}")
+    recall_l2 = recall_at_k(ids_l2[:n_gt].cpu().numpy(), gt_l2)
+    same = float((np.sort(gt_l2, 1) == np.sort(gt, 1)).mean())
+    pos = torch.searchsorted(need, ids_l2[:n_gt].long())
+    exact_l2 = -((q_gt[:, None, :].double() - rows[pos].double()) ** 2).sum(2)
+    l2_err = float((v_l2[:n_gt].double() - exact_l2).abs().max())
+    log(f"[resid l2] recall@{K} vs exact f32 l2 ground truth {recall_l2:.4f} (the corpus is "
+        f"unit-norm, so that ground truth is the ip one: {same:.4f} of its ids equal); max "
+        f"|score - exact -|q - x|^2| over the returned ids {l2_err:.3g} (x the corpus row: "
+        f"quantization included); device QPS {qps_l2['qps']:.1f} (median "
+        f"{qps_l2['ms_median']:.3f} ms); K1 launches {launches['K1 l2']}, bias launches "
+        f"{launches['K1b']}")
+    if recall_l2 < RECALL_FLOOR:
+        raise AssertionError(f"residual l2 recall {recall_l2:.4f} < {RECALL_FLOOR}")
+
+    # K1's variants and the bias kernel at full shape
+    st = idx._device_state()
+    kern_bias = l2._arena_row_bias()
+    plain_bias = band.resid_row_bias_reference(st["payload"], st["local"],
+                                               st["centroid_tiles"], idx._scale, idx.tile_n)
+    err = bias_compare(f"{N_ROWS} x {D} arena", st["payload"], st["local"],
+                       st["centroid_tiles"], idx._scale, idx.tile_n)
+    n_pad = st["payload"].shape[0]
+    mp["K1b"] = dict(err=err, shape=f"{n_pad} x {D} arena", **bias_times(st, idx))
+    rm10 = idx._arena_row_mask(flts[name10])
+    for key, variant in (("K1 precise", "precise"), ("K1 masked", "masked"),
+                         ("K1 l2", "l2"), ("K1 top2", "top2")):
+        args = dict(k1_plan(idx, queries, p_tiles, tq,
+                            row_mask=rm10 if variant == "masked" else None),
+                    **VARIANTS[variant])
+        kw = {}
+        if variant == "l2":
+            kw = dict(kernel_kw=dict(row_bias=kern_bias), plain_kw=dict(row_bias=plain_bias))
+        mp[key] = k1_check(f"{variant} B{queries.shape[0]} p{p_tiles} tq{tq}", idx, args,
+                           reps=5, plain_reps=1, **kw)
+    return dict(launches=launches, mp=mp)
+
+
+def bias_times(st: dict, idx) -> dict:
+    """The l2 bias kernel and its plain version timed over the whole arena,
+    with its bound: rows, local ids and centroid tiles read, the bias
+    written; 4 operations a dim (three sums)."""
+    args = (st["payload"], st["local"], st["centroid_tiles"], idx._scale, idx.tile_n)
+    ms = time_ms(lambda: band.resid_row_bias(*args), 5)
+    plain_ms = time_ms(lambda: band.resid_row_bias_reference(*args), 2)
+    n = st["payload"].shape[0]
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(nbytes(st["payload"], st["local"], st["centroid_tiles"]) + 4 * n,
+                       6.0 * n * D, "f32"))
+    log(f"[kernel] K1b over {n} x {D}: kernel {ms:.3f} ms, plain version {plain_ms:.3f} ms; "
+        f"bound {out['bound_ms']:.3f} ms ({out['bound_by']})")
+    return out
+
+
+def k1_plan(idx, queries, p_tiles: int, tq: int, row_mask=None) -> dict:
     """tiles_topk_resid's arguments (but k) for the residual index's tiles
     search at (p_tiles, tile_q)."""
     st = idx._device_state()
-    q_s, _, _, table = _plan_tiles(queries, st["centroids"], st["tile_window"], tq, p_tiles)
-    return dict(db_resid=st["payload"], local_ids=st["local"],
-                centroid_tiles=st["centroid_tiles"], resid_scale=idx._scale, queries_sorted=q_s,
-                tile_table=table, valid_end=st["valid_end"], tile_n=idx.tile_n, tile_q=tq)
+    live = None if row_mask is None else row_mask.reshape(-1, idx.tile_n).amax(dim=1) > 0
+    q_s, _, _, table = _plan_tiles(queries, st["centroids"], st["tile_window"], tq, p_tiles,
+                                   tile_live=live)
+    out = dict(db_resid=st["payload"], local_ids=st["local"],
+               centroid_tiles=st["centroid_tiles"], resid_scale=idx._scale, queries_sorted=q_s,
+               tile_table=table, valid_end=st["valid_end"], tile_n=idx.tile_n, tile_q=tq)
+    return out if row_mask is None else dict(out, row_mask=row_mask)
+
+
+def resid_bias_exact(db, local, ct, scale: float, tile_n: int, rows: torch.Tensor):
+    """f64 l2 bias of arena ``rows``: -s^2 |r|^2 / 2 - s (c . r) - |c|^2 / 2
+    on the int8 rows, their bf16 list centroids and the f32 scale, without
+    rounding."""
+    s = float(np.float32(scale))
+    r = db[rows].double()
+    c = ct.to(torch.bfloat16)[rows // tile_n, local.reshape(-1)[rows].long()].double()
+    return -0.5 * s * s * (r * r).sum(1) - s * (c * r).sum(1) - 0.5 * (c * c).sum(1)
 
 
 def resid_exact(args: dict):
     """(query indices, arena rows) -> f64 scores of the function K1 computes
-    on ``args`` (tiles_topk_resid's arguments), on the bf16 queries,
-    centroid tiles, int8 queries and row scales it takes, without rounding:
-    f64(bf16 q) . f64(bf16 ct[g // tile_n, local[g]]) + f64(row_scale) .
-    (q8 . r8[g]); -inf where g >= valid_end[g // tile_n, local[g]]."""
+    on ``args`` (tiles_topk_resid's arguments, options included), on the
+    bf16 queries, centroid tiles, int8 (or, int8_q=False, bf16) queries and
+    row scales it takes, without rounding: f64(bf16 q) . f64(bf16
+    ct[g // tile_n, local[g]]) + f64(row_scale) . (q' . r8[g]), plus the
+    exact l2 bias with l2; -inf where g >= valid_end[g // tile_n, local[g]]
+    or the row mask's bit is 0."""
     q_bf, q8, rs = band._quantize_queries(args["queries_sorted"], args["resid_scale"])
+    if not args.get("int8_q", True):
+        q8, rs = q_bf, torch.full_like(rs, float(np.float32(args["resid_scale"])))
     qd, q8d, rsd = q_bf.double(), q8.double(), rs.double()
     ct = args["centroid_tiles"].to(torch.bfloat16)
     payload, tile_n, valid_end = args["db_resid"], args["tile_n"], args["valid_end"]
     local = args["local_ids"].reshape(-1)
+    mask = args.get("row_mask")
+    mask = None if mask is None else mask.reshape(-1)
 
     def score(qi, rows):
         qi, rows = (torch.as_tensor(a, device=payload.device).long() for a in (qi, rows))
@@ -1009,27 +1414,40 @@ def resid_exact(args: dict):
             t, li = g // tile_n, local[g].long()
             c = (ct[t, li].double() * qd[q]).sum(dim=1)
             r = (payload[g].double() * q8d[q]).sum(dim=1) * rsd[q]
+            x = c + r
+            if args.get("l2"):
+                x = x + resid_bias_exact(payload, local, ct, args["resid_scale"], tile_n, g)
             live = g < valid_end[t, li].long()
-            out.append(torch.where(live, c + r, float("-inf")))
+            if mask is not None:
+                live = live & (mask[g] != 0)
+            out.append(torch.where(live, x, float("-inf")))
         return torch.cat(out) if out else torch.zeros(0, dtype=torch.float64)
 
     return score
 
 
-def k1_check(label: str, idx, args: dict, reps: int, plain_reps: int) -> dict:
+def k1_check(label: str, idx, args: dict, reps: int, plain_reps: int,
+             kernel_kw: dict | None = None, plain_kw: dict | None = None) -> dict:
     """K1 against its plain version on ``args`` (a residual-int8 arena of
-    ``idx`` and a tile plan), its ids held through their exact f64 scores
-    (``resid_exact``, as EXACT_TIE says), both timed, with its bound."""
+    ``idx``, a tile plan and a variant's options; ``kernel_kw`` and
+    ``plain_kw`` go to one side each: each version's own l2 bias), its ids
+    held through their exact f64 scores (``resid_exact``, as EXACT_TIE
+    says), both timed, with its bound: the rows, local ids, centroid tiles
+    and valid_end of the tiles read, plus a byte a row of mask or four of
+    bias; the operations at the int8 peak, or the bf16 one for 'precise'."""
     q_s, table, tq = args["queries_sorted"], args["tile_table"], args["tile_q"]
-    mp = main_shape_check("K1", label, lambda: band.tiles_topk_resid(**args, k=K),
-                          lambda: band.tiles_topk_resid_reference(**args, k=K), reps=reps,
-                          plain_reps=plain_reps, exact=resid_exact(args))
+    mp = main_shape_check("K1", label,
+                          lambda: band.tiles_topk_resid(**args, **(kernel_kw or {}), k=K),
+                          lambda: band.tiles_topk_resid_reference(**args, **(plain_kw or {}), k=K),
+                          reps=reps, plain_reps=plain_reps, exact=resid_exact(args))
     used, macs = table_work(table, tq, idx.tile_n, D)
     w = args["centroid_tiles"].shape[1]  # per tile: rows, local ids, centroids, valid_end
-    mp.update(bound(used * (idx.tile_n * (D + 1) + w * (2 * D + 4))
-                    + nbytes(q_s, table) + q_s.shape[0] * K * 8, 2.0 * macs, "int8"))
+    side = (1 if args.get("row_mask") is not None else 0) + (4 if args.get("l2") else 0)
+    kind = "int8" if args.get("int8_q", True) else "bf16"
+    mp.update(bound(used * (idx.tile_n * (D + 1 + side) + w * (2 * D + 4))
+                    + nbytes(q_s, table) + q_s.shape[0] * K * 8, 2.0 * macs, kind))
     ops = 2.0 * q_s.shape[0] * table.shape[1] * idx.tile_n * D
-    log(f"[kernel] K1 {label}: {ops / mp['ms'] / 1e9:.1f} T int8 ops/s; bound "
+    log(f"[kernel] K1 {label}: {ops / mp['ms'] / 1e9:.1f} T {kind} ops/s; bound "
         f"{mp['bound_ms']:.3f} ms ({mp['bound_by']}): {used} of {idx._tune_n_tiles()} tiles "
         f"read")
     return mp
@@ -1054,6 +1472,11 @@ def run_whole_row(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> 
     check_result(vb, idsb, queries.shape[0], idx.ntotal, "whole band")
     recall_band = recall_at_k(idsb[: gt.shape[0]], gt)
     launches = {"K3": band.tiles_topk.launches, "K7": band.band_topk.launches}
+    (recall2, _), n = counted(lambda: serve(idx, queries, gt, reps, "whole top2", top2=True))
+    launches["K3 top2"] = n["K3"]
+    if recall2 < WHOLE_ROW_RECALL_FLOOR:
+        raise AssertionError(f"whole-row hybrid top-2 recall {recall2:.4f} < "
+                             f"{WHOLE_ROW_RECALL_FLOOR}")
     log(f"[whole] {card}: build {build_s:.1f} s, op {report['op']}, recall@{K} hybrid "
         f"{recall:.4f}, int8 {recall8:.4f}, band {recall_band:.4f} (band search "
         f"{band_s:.2f} s host clock), device QPS {qps['qps']:.1f}, launches {launches}")
@@ -1062,8 +1485,8 @@ def run_whole_row(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> 
                              f"{WHOLE_ROW_RECALL_FLOOR}")
 
     op = idx._op_point or {}
-    p_tiles, tq = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
-    mp = k3_holds(idx, queries, p_tiles, tq, reps=5)
+    p_tiles, tq, _ = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
+    mp = k3_holds(idx, queries, p_tiles, tq, reps=5, main_op=(p_tiles, tq))
     if (p_tiles, tq) != MAIN_OP:  # the tuner moved: K3 also where the earlier runs timed it
         mp.update({f"{k} {MAIN_OP}": v
                    for k, v in k3_holds(idx, queries, *MAIN_OP, reps=3).items()})
@@ -1099,10 +1522,12 @@ def k3_plan(idx, queries, p_tiles: int, tq: int):
     return q_s, table
 
 
-def k3_holds(idx, queries, p_tiles: int, tq: int, reps: int) -> dict:
+def k3_holds(idx, queries, p_tiles: int, tq: int, reps: int,
+             main_op: tuple | None = None) -> dict:
     """K3 at a whole-row plan against its plain version, timed, with its
     bound: hybrid (held to the exact scores) and int8 (values and ids equal
-    outright)."""
+    outright); hybrid top-2 (held as hybrid) at the plan ``main_op`` (the
+    tuned one)."""
     st = idx._device_state()
     q_s, table = k3_plan(idx, queries, p_tiles, tq)
     q_bf = q_s.to(torch.bfloat16)
@@ -1112,8 +1537,12 @@ def k3_holds(idx, queries, p_tiles: int, tq: int, reps: int) -> dict:
     ops = 2.0 * batch * p_tiles * idx.tile_n * D
     mp = {}
     for key, label, qk, int8, kind in (("K3", "hybrid", q_bf, "hybrid", "bf16"),
-                                       ("K3 int8", "int8", q8, True, "int8")):
-        kw = dict(tile_n=idx.tile_n, tile_q=tq, int8=int8, n_valid=idx._n)
+                                       ("K3 int8", "int8", q8, True, "int8"),
+                                       ("K3 top2", "hybrid top2", q_bf, "hybrid", "bf16")):
+        if key == "K3 top2" and (p_tiles, tq) != main_op:
+            continue
+        kw = dict(tile_n=idx.tile_n, tile_q=tq, int8=int8, n_valid=idx._n,
+                  top2=key == "K3 top2")
         hold = (dict(exact=wholerow_exact(st["payload"], q_bf), tie=None)
                 if int8 == "hybrid" else dict(equal=True))
         r = main_shape_check(
@@ -1857,6 +2286,10 @@ def main() -> int:
     for name, (_, out) in built.items():
         for line in ptxas_report(out):
             log(f"[build] {name} {line}")
+    log("[build] tiles_resid instantiations (ptxas): " + "; ".join(ptxas_instances(
+        built["tiles_resid"][1], lambda sym: resid_label(sym) if "resid_" in sym else None)))
+    log("[build] tiles_scan top-2 instantiations (ptxas): " + "; ".join(ptxas_instances(
+        built["tiles_scan"][1], tc_top2_label)))
     k4_tensor_core_check(built["mha_small_head"][0])
     pq_tensor_core_check(built["pq_scan"][0])
     scan_tensor_core_check(sass_counts(built["tiles_scan"][0]))

@@ -34,7 +34,15 @@
 //     queries, and a warp's fragment loads feed twice the products;
 //   - query blocks are the fastest grid index, so the blocks that read the
 //     same rows (every query block of one slot block) run together and
-//     share them in L2.
+//     share them in L2;
+//   - top-2 (TOP2: each slot keeps its best two distinct rows, the
+//     reference's _tile_second_best and _merge_top2) keeps slot 2 in
+//     registers beside slot 1. With one r a tile (R = 1) a (step, r) is a
+//     tile, so each merges straight into the slots (slot_merge2 with no
+//     runner-up). With R > 1 the tile's best and runner-up build up over
+//     its r in shared memory, each thread's own entries, and merge into
+//     the slots after its last r, as K5 does (pq_scan.cu): a per-(step, r)
+//     merge would rank exact ties otherwise than the reference.
 
 #pragma once
 
@@ -86,7 +94,7 @@ struct TcLayout {
 };
 
 template <class C>
-__host__ __device__ inline TcLayout tc_layout(int pair, int d, int side = 0) {
+__host__ __device__ inline TcLayout tc_layout(int pair, int d, int side = 0, int extra = 0) {
   TcLayout l;
   l.row_bytes = d * (pair == P_BF16 ? 2 : 1);
   l.row_pad = round_up(l.row_bytes, 32);
@@ -98,7 +106,7 @@ __host__ __device__ inline TcLayout tc_layout(int pair, int d, int side = 0) {
   l.q_total = C::QB * l.q_stride;
   l.rows = C::SB * C::RSTR;
   l.stage = l.rows + round_up(side, 16);
-  l.total = l.q_total + C::STAGES * l.stage;
+  l.total = l.q_total + C::STAGES * l.stage + extra;  // extra: tc_top2_bytes
   return l;
 }
 
@@ -110,7 +118,17 @@ struct TcScan {
   int32_t* out_i;
   int tile_q, steps, tile_n, l_buckets, d;
   int copy;  // bytes one cp.async moves (16, 8 or 4; the row width's largest), 0: plain loads
+  float* out_v2 = nullptr;  // top-2: (Q, L) slot 2
+  int32_t* out_i2 = nullptr;
 };
+
+// Shared memory a top-2 scan keeps the tiles' best and runner-up in: four
+// words (value, r, value, r) a (slot, query) pair of a thread, only when a
+// tile has several r.
+template <class C>
+__host__ __device__ inline int tc_top2_bytes(bool top2, int r_per_tile) {
+  return top2 && r_per_tile > 1 ? 16 * C::MT * 16 * TC_THREADS : 0;
+}
 
 // The rows of one (step, r): the arena row of slot 0 of the block, and how
 // many of its SB slots are live.
@@ -204,23 +222,26 @@ __device__ __forceinline__ void add_comp(float& hi, float& lo, float p) {
 
 // What one warp keeps: the running products of its (row, query) pairs
 // (float pairs: a sum and its rounding error), and their best (value, arena
-// row) so far.
-template <int PAIR, int MT>
+// row) so far (top-2: and their second best).
+template <int PAIR, int MT, bool TOP2>
 struct WarpAcc {
   using T = typename std::conditional<PAIR == P_I8, int, float>::type;
   T acc[MT][4][4];
   float lo[PAIR == P_I8 ? 1 : MT][4][4];
   float best_v[MT][4][4];
   int best_i[MT][4][4];
+  float best_v2[TOP2 ? MT : 1][4][4];
+  int best_i2[TOP2 ? MT : 1][4][4];
 };
 
 // The scan: one block's walk over (step, r, chunk), in the kernel that owns
 // `smem` (the layout's total bytes of dynamic shared memory). Block x is
 // (query tile, query block), query blocks fastest; block y a slot block.
-template <int PAIR, class C, class Epi>
+template <int PAIR, class C, bool TOP2 = false, class Epi>
 __device__ __forceinline__ void tc_scan(const TcScan& a, const Epi& epi, unsigned char* smem) {
   constexpr int MT = C::MT;
-  const TcLayout lay = tc_layout<C>(PAIR, a.d, epi.side);
+  const TcLayout lay = tc_layout<C>(PAIR, a.d, epi.side,
+                                    tc_top2_bytes<C>(TOP2, a.tile_n / a.l_buckets));
   unsigned char* q_s = smem;
   unsigned char* ring = smem + lay.q_total;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -289,7 +310,7 @@ __device__ __forceinline__ void tc_scan(const TcScan& a, const Epi& epi, unsigne
     }
   };
 
-  WarpAcc<PAIR, MT> w;
+  WarpAcc<PAIR, MT, TOP2> w;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -299,7 +320,11 @@ __device__ __forceinline__ void tc_scan(const TcScan& a, const Epi& epi, unsigne
         w.acc[mt][nt][e] = 0;
         if constexpr (PAIR != P_I8) w.lo[mt][nt][e] = 0.f;
         slot_init(w.best_v[mt][nt][e], w.best_i[mt][nt][e]);
+        if constexpr (TOP2) slot_init(w.best_v2[mt][nt][e], w.best_i2[mt][nt][e]);
       }
+  // top-2 with R > 1: the tiles' (best, r, runner-up, r) of this thread's
+  // pairs, entry ((f * MT * 16 + pair) * TC_THREADS + tid) for field f
+  float* tile2 = reinterpret_cast<float*>(smem + lay.q_total + C::STAGES * lay.stage);
 
   // the products of one stage: its 32-byte depth steps, on the tensor cores
   auto compute = [&](int stage, int kc) {
@@ -380,7 +405,7 @@ __device__ __forceinline__ void tc_scan(const TcScan& a, const Epi& epi, unsigne
   // after the last chunk of (j, r): each pair's score (the epilogue's, from
   // the raw product and the stage's side data) against its best so far, a
   // strict '>' in (step, r) order (what tile_take then slot_merge give: the
-  // first maximum wins), then the sums restart
+  // first maximum wins; top-2: the file header), then the sums restart
   auto merge = [&](int j, int r, int stage) {
     const RowBlock x = rows(j, r);
     const unsigned char* side = ring + stage * lay.stage + lay.rows;
@@ -397,7 +422,27 @@ __device__ __forceinline__ void tc_scan(const TcScan& a, const Epi& epi, unsigne
             sc = epi.score(w.acc[mt][nt][e], slot, qi, x, side);
           else
             sc = epi.score(w.acc[mt][nt][e] + w.lo[mt][nt][e], slot, qi, x, side);
-          if (sc > w.best_v[mt][nt][e]) {
+          if constexpr (TOP2) {
+            const long long row = x.row0 + slot;
+            float &v1 = w.best_v[mt][nt][e], &v2 = w.best_v2[mt][nt][e];
+            int &i1 = w.best_i[mt][nt][e], &i2 = w.best_i2[mt][nt][e];
+            if (R == 1) {
+              slot_merge2(sc, row, -INFINITY, row, v1, i1, v2, i2);
+            } else {
+              constexpr int NP = MT * 16;
+              const int k = (mt * 4 + nt) * 4 + e;
+              float* tm1 = tile2 + k * TC_THREADS + tid;
+              int* tr1 = reinterpret_cast<int*>(tm1 + NP * TC_THREADS);
+              float* tm2 = tm1 + 2 * NP * TC_THREADS;
+              int* tr2 = reinterpret_cast<int*>(tm1 + 3 * NP * TC_THREADS);
+              tile_take2(sc, r, *tm1, *tr1, *tm2, *tr2);
+              if (r == R - 1) {
+                const long long row_r0 = row - (long long)r * a.l_buckets;
+                slot_merge2(*tm1, row_r0 + (long long)*tr1 * a.l_buckets, *tm2,
+                            row_r0 + (long long)*tr2 * a.l_buckets, v1, i1, v2, i2);
+              }
+            }
+          } else if (sc > w.best_v[mt][nt][e]) {
             w.best_v[mt][nt][e] = sc;
             w.best_i[mt][nt][e] = static_cast<int>(x.row0 + slot);
           }
@@ -454,6 +499,10 @@ __device__ __forceinline__ void tc_scan(const TcScan& a, const Epi& epi, unsigne
           const size_t o = (size_t)(q_lo + qi) * a.l_buckets + b;
           a.out_v[o] = w.best_v[mt][nt][e];
           a.out_i[o] = w.best_i[mt][nt][e];
+          if constexpr (TOP2) {
+            a.out_v2[o] = w.best_v2[mt][nt][e];
+            a.out_i2[o] = w.best_i2[mt][nt][e];
+          }
         }
       }
 }

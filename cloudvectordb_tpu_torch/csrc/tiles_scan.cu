@@ -24,7 +24,11 @@
 // With sqnorm (the flat index's l2) the score is 2 s - sqnorm[g]. Rows with
 // g >= n_valid score -inf and are never read, so a ragged database needs no
 // padded copy. Each query keeps L = l_buckets slots, merged as
-// csrc/slot_merge.cuh says. The final top-k over the slots is the caller's.
+// csrc/slot_merge.cuh says; with top2 (source TABLE, the reference's
+// tiles_topk_pallas(top2=True)) two a slot, its best two distinct rows, on
+// the tensor-core body's narrow block (tc_scan.cuh's TOP2; the f32 and
+// CUDA-core bodies have no top-2). The final top-k over the slots is the
+// caller's.
 //
 // Three bodies. The TPU walks the steps as a sequential grid axis and
 // carries the slots in VMEM; here one block owns some queries of one query
@@ -359,13 +363,13 @@ struct TcArgs {
   int n_valid;
 };
 
-template <int SRC, int PAIR, class C>
+template <int SRC, int PAIR, class C, bool TOP2 = false>
 __global__ void __launch_bounds__(TC_THREADS, C::MT == 1 ? 2 : 1)
 tiles_tc_kernel(const TcArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const WholeRow<SRC> epi{a.table, a.sqnorm, a.s.steps, a.s.tile_n, a.s.l_buckets, a.n_valid,
                           C::SB};
-  tc_scan<PAIR, C>(a.s, epi, smem);
+  tc_scan<PAIR, C, TOP2>(a.s, epi, smem);
 }
 
 // ---- the f32 body: (f32, f32) and (f32, bf16), f32 FMA on the CUDA cores --
@@ -592,10 +596,18 @@ inline int tc_pair(int qtype, int rtype) {
 // Which body a call takes, whatever its source: the f32 body for the f32
 // pairs; for the tensor-core pairs the wide block at int8 tile_q >= 128, else
 // the narrow one, unless the resident queries overflow shared memory: then
-// the CUDA-core body; -1 for a pair no body takes.
+// the CUDA-core body; -1 for a pair no body takes. Top-2 (r_per_tile rows a
+// slot in a tile) takes the narrow block alone, if its state fits.
 enum Body { CUDA_CORE = 0, NARROW = 1, WIDE = 2, F32_BODY = 3 };
 
-inline int body_of(int qtype, int rtype, int tile_q, int d) {
+inline int body_of(int qtype, int rtype, int tile_q, int d, int top2 = 0, int r_per_tile = 1) {
+  if (top2) {
+    const int pair = tc_pair(qtype, rtype);
+    return pair >= 0 && tc_layout<Narrow>(pair, d, 0, tc_top2_bytes<Narrow>(true, r_per_tile))
+                                .total <= SMEM_MAX
+               ? NARROW
+               : -1;
+  }
   if (qtype == F32) return rtype == F32 || rtype == BF16 ? F32_BODY : -1;
   const int pair = tc_pair(qtype, rtype);
   if (pair < 0) return -1;
@@ -605,16 +617,24 @@ inline int body_of(int qtype, int rtype, int tile_q, int d) {
   return NARROW;
 }
 
-template <int SRC, int PAIR, class C>
+template <int SRC, int PAIR, class C, bool TOP2 = false>
 cudaError_t launch_tc(const TcArgs& a, int n_qt, cudaStream_t stream) {
-  const int smem = tc_layout<C>(PAIR, a.s.d).total;
+  const int smem =
+      tc_layout<C>(PAIR, a.s.d, 0, tc_top2_bytes<C>(TOP2, a.s.tile_n / a.s.l_buckets)).total;
   const cudaError_t err = cudaFuncSetAttribute(
-      tiles_tc_kernel<SRC, PAIR, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tiles_tc_kernel<SRC, PAIR, C, TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_qt * ((a.s.tile_q + C::QB - 1) / C::QB),
                   (a.s.l_buckets + C::SB - 1) / C::SB);
-  tiles_tc_kernel<SRC, PAIR, C><<<grid, TC_THREADS, smem, stream>>>(a);
+  tiles_tc_kernel<SRC, PAIR, C, TOP2><<<grid, TC_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// K3's top-2: source TABLE, the narrow block.
+cudaError_t launch_tc_top2(int pair, const TcArgs& a, int n_qt, cudaStream_t s) {
+  if (pair == P_I8) return launch_tc<TABLE, P_I8, Narrow, true>(a, n_qt, s);
+  if (pair == P_HYB) return launch_tc<TABLE, P_HYB, Narrow, true>(a, n_qt, s);
+  return launch_tc<TABLE, P_BF16, Narrow, true>(a, n_qt, s);
 }
 
 template <int SRC>
@@ -651,38 +671,48 @@ const char* cvdb_cuda_error_string(int code) {
 }
 
 // Dynamic shared memory of the body a call takes: 0 for the CUDA-core body
-// (static shared memory, grid y = query blocks of 32); the tensor-core and
-// f32 bodies put their query blocks on grid x. The body does not depend on
-// the source or on l2; both stay in the signature, so that every build of
-// this interface binds alike (scripts/torch_pq_scan_ab.py times variants).
-int cvdb_tiles_scan_smem_bytes(int, int qtype, int rtype, int tile_q, int d, int) {
-  const int body = body_of(qtype, rtype, tile_q, d);
+// (static shared memory, grid y = query blocks of 32), -1 where no body
+// takes the call (a pair without a scan, or top-2 outside the tensor-core
+// body); the tensor-core and f32 bodies put their query blocks on grid x.
+// The body does not depend on the source or on l2; both stay in the
+// signature, so that every build of this interface binds alike
+// (scripts/torch_pq_scan_ab.py times variants).
+int cvdb_tiles_scan_smem_bytes(int, int qtype, int rtype, int tile_q, int d, int, int top2,
+                               int r_per_tile) {
+  const int body = body_of(qtype, rtype, tile_q, d, top2, r_per_tile);
   if (body == F32_BODY) return f32_smem_bytes(rtype == BF16 ? 2 : 4);
   if (body == NARROW || body == WIDE) {
     const int pair = tc_pair(qtype, rtype);
-    return body == WIDE ? tc_layout<Wide>(pair, d).total : tc_layout<Narrow>(pair, d).total;
+    return body == WIDE ? tc_layout<Wide>(pair, d).total
+                        : tc_layout<Narrow>(pair, d, 0,
+                                            tc_top2_bytes<Narrow>(top2 != 0, r_per_tile))
+                              .total;
   }
-  return 0;
+  return body == CUDA_CORE ? 0 : -1;
 }
 
 // Queries one block of that body takes.
-int cvdb_tiles_scan_block_queries(int, int qtype, int rtype, int tile_q, int d, int) {
-  const int body = body_of(qtype, rtype, tile_q, d);
+int cvdb_tiles_scan_block_queries(int, int qtype, int rtype, int tile_q, int d, int, int top2,
+                                  int r_per_tile) {
+  const int body = body_of(qtype, rtype, tile_q, d, top2, r_per_tile);
   return body == F32_BODY ? F_QB : body == WIDE ? Wide::QB : body == NARROW ? Narrow::QB : QB;
 }
 
 // Launches the scan on `stream`; returns the launch's cudaGetLastError()
-// (cudaErrorInvalidValue for an unknown source or type pair).
+// (cudaErrorInvalidValue for an unknown source or type pair, or top-2
+// outside source TABLE's tensor-core body). out_v2/out_i2 (null: top-1) take
+// slot 2's (Q, L) values and rows.
 int cvdb_tiles_scan(int source, int qtype, int rtype, const void* db, const void* q,
                     const void* table, const void* sqnorm, void* out_v, void* out_i,
-                    int n_qt, int tile_q, int steps, int tile_n, int l_buckets, int d,
-                    int n_valid, int device, void* stream) {
+                    void* out_v2, void* out_i2, int n_qt, int tile_q, int steps, int tile_n,
+                    int l_buckets, int d, int n_valid, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (source != ALL && source != TABLE && source != BAND)
+  const bool top2 = out_v2 != nullptr;
+  if ((source != ALL && source != TABLE && source != BAND) || (top2 && source != TABLE))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int body = body_of(qtype, rtype, tile_q, d);
+  const int body = body_of(qtype, rtype, tile_q, d, top2, tile_n / l_buckets);
   if (body == F32_BODY) {
     const F32Args a{static_cast<const unsigned char*>(db), static_cast<const float*>(q),
                     static_cast<const int32_t*>(table), static_cast<const float*>(sqnorm),
@@ -697,10 +727,12 @@ int cvdb_tiles_scan(int source, int qtype, int rtype, const void* db, const void
     const int copy = copy_size(tc_layout<Narrow>(pair, d).row_bytes);
     const TcArgs a{{static_cast<const unsigned char*>(db), static_cast<const unsigned char*>(q),
                     static_cast<float*>(out_v), static_cast<int32_t*>(out_i), tile_q, steps,
-                    tile_n, l_buckets, d, copy},
+                    tile_n, l_buckets, d, copy, static_cast<float*>(out_v2),
+                    static_cast<int32_t*>(out_i2)},
                    static_cast<const int32_t*>(table), static_cast<const float*>(sqnorm),
                    n_valid};
-    err = source == ALL     ? launch_tc_pair<ALL>(body, pair, a, n_qt, s)
+    err = top2              ? launch_tc_top2(pair, a, n_qt, s)
+          : source == ALL   ? launch_tc_pair<ALL>(body, pair, a, n_qt, s)
           : source == TABLE ? launch_tc_pair<TABLE>(body, pair, a, n_qt, s)
                             : launch_tc_pair<BAND>(body, pair, a, n_qt, s);
   } else if (body == CUDA_CORE) {

@@ -17,11 +17,18 @@ each query group's contiguous band of tiles instead (K7). The index lives
 on one explicit ``device``; only small metadata (assignments, offsets,
 per-tile tables, band plans) is computed on the host.
 
-Not in this slice (each raises or is absent): filters and ``row_mask``,
-``metric='l2'`` (residual arenas; the reference refuses it for whole rows),
-``top2``, slack arenas with ``add``/``remove``, the pending buffer and
-annex, ``merge_from`` and ``build_streaming``. Without ``add`` there are
-never pending rows, so a search is the arena scan alone.
+Residual arenas also serve filtered search (``where=``: an allow bitmap by
+global id, index/filters.py, gathered into arena order once per filter and
+arena state and masked in K1 at score time, with tiles that hold no allowed
+row dropped from the plan), ``metric='l2'`` (K1's l2 key over a cached
+per-row bias; scores come back as -‖q - x̂‖²), ``top2`` (K1 or K3 keep each
+bucket's best two rows) and ``scoring='precise'`` (bf16 queries in K1's
+residual term). Whole-row arenas filter through ``filters.filtered_search``.
+
+Not ported yet (each raises or is absent): slack arenas with
+``add``/``remove``, the pending buffer and annex, ``merge_from`` and
+``build_streaming`` (ROADMAP queue 1 item 6 (b)). Without ``add`` there
+are never pending rows, so a search is the arena scan alone.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from cloudvectordb_tpu_torch.index.base import Index, from_numpy, to_numpy
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
 from cloudvectordb_tpu_torch.ops.assign import assign_clusters
 from cloudvectordb_tpu_torch.ops.band import (
-    band_topk, order_centroids, tiles_topk, tiles_topk_resid)
+    band_topk, order_centroids, resid_row_bias, tiles_topk, tiles_topk_resid)
 from cloudvectordb_tpu_torch.ops.flat_topk import quantize_queries
 from cloudvectordb_tpu_torch.ops.pq import pq_tiles_topk
 from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const, tiled_topk, topk_stable
@@ -48,7 +55,8 @@ _ARENA_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16, "float32": torc
 
 
 def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
-                tile_window: torch.Tensor, tile_q: int, p_tiles: int):
+                tile_window: torch.Tensor, tile_q: int, p_tiles: int,
+                tile_live: torch.Tensor | None = None):
     """Device-side planning prologue of every tiles search.
 
     Sorts queries by their top-1 coarse centroid (L2 ranking — the
@@ -61,6 +69,11 @@ def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
     Every tile of a list spanning several tiles gets the same score, so the
     tile scores hold many exact ties; the table keeps the lower tile id on
     ties, as ``lax.top_k`` does (a stable descending sort, not torch.topk).
+
+    ``tile_live`` (n_tiles,) bool (filtered search): tiles holding no
+    allowed row score -inf, so the p_tiles budget goes to tiles the filter
+    can hit (selectivity-aware planning: a filter correlated with a few
+    lists still gets its tiles covered).
     """
     n_qt = q.shape[0] // tile_q
     n_tiles = tile_window.shape[0]
@@ -74,6 +87,8 @@ def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
     q_s = q[order]
     g_max = coarse[order].reshape(n_qt, tile_q, -1).amax(dim=1)
     ts = g_max[:, tile_window.T].amax(dim=1)  # (n_qt, n_tiles)
+    if tile_live is not None:
+        ts = torch.where(tile_live[None, :], ts, NEG_INF)
     _, tile_table = topk_stable(ts, p_tiles)
     return q_s, order, dots, tile_table.to(torch.int32).contiguous()
 
@@ -85,25 +100,62 @@ def _unsort(order, v, gids):
     return v[inv], gids[inv]
 
 
+def _arena_mask_from_ids(ids: torch.Tensor, allowed: torch.Tensor, n_pad: int | None = None):
+    """(1, n_pad) int8 arena-order allow bits: the allow bitmap (by global
+    id, index/filters.py) gathered through the arena's id table. It must
+    cover every arena row, pad rows included (``n_pad``, a tile_n multiple;
+    the id table may be shorter); pad rows and gid -1 (holes) are 0. A
+    random-access (N,) gather, so the index caches the result per filter
+    and arena state (``BandIVFIndex._arena_row_mask``)."""
+    g = ids.long()
+    ok = allowed[g.clamp(0, allowed.shape[0] - 1)]
+    ok = torch.where(g >= 0, ok, 0).to(torch.int8)
+    if n_pad is not None and n_pad != ok.shape[0]:
+        ok = torch.cat([ok, torch.zeros(n_pad - ok.shape[0], dtype=torch.int8,
+                                        device=ok.device)])
+    return ok[None, :]
+
+
 def _tiles_resid_plan_search(
     q, centroids, payload, local_ids, centroid_tiles, resid_scale, ids,
-    tile_window, valid_end, *, k: int, p_tiles: int, tile_n: int,
-    tile_q: int, int8_q: bool = True,
+    tile_window, valid_end, allowed=None, row_mask=None, *, k: int,
+    p_tiles: int, tile_n: int, tile_q: int, int8_q: bool = True,
+    l2: bool = False, top2: bool = False, row_bias=None,
 ):
     """One-dispatch residual-int8 search: device planning, the tile scan
     (ops/band.py), the arena-row → global-id map and the unsort to caller
     query order. q (B, D) f32 with B % tile_q == 0; ids int32 on the
-    device. Unfilled slots map through ids[clip(row)], as the reference's."""
+    device. Unfilled slots map through ids[clip(row)], as the reference's.
+
+    Filtered search: ``row_mask`` ((1, N_pad) arena-order allow bits, the
+    index's cached form) or ``allowed`` (the gid-keyed bitmap, gathered
+    here); tiles with no allowed row leave the plan, and unfilled slots
+    return (-inf, -1). ``l2``: K1 ranks by q·x̂ - ‖x̂‖²/2 over ``row_bias``
+    (computed if None) and the scores return as -‖q - x̂‖² (-inf stays
+    -inf). ``top2``: two slots a bucket in K1."""
+    if row_mask is None and allowed is not None:
+        row_mask = _arena_mask_from_ids(ids, allowed, n_pad=payload.shape[0])
+    tile_live = None
+    if row_mask is not None:
+        tile_live = row_mask.reshape(-1, tile_n).amax(dim=1) > 0
     q_s, order, _, tile_table = _plan_tiles(
-        q, centroids, tile_window, tile_q, p_tiles)
+        q, centroids, tile_window, tile_q, p_tiles, tile_live=tile_live)
     v, rows = tiles_topk_resid(
         payload, local_ids, centroid_tiles, resid_scale, q_s, tile_table, k,
-        valid_end, tile_n=tile_n, tile_q=tile_q, int8_q=int8_q)
-    return _unsort(order, v, ids[rows.long().clamp(0, ids.shape[0] - 1)])
+        valid_end, tile_n=tile_n, tile_q=tile_q, int8_q=int8_q, row_mask=row_mask,
+        l2=l2, top2=top2, row_bias=row_bias)
+    gids = ids[rows.long().clamp(0, ids.shape[0] - 1)]
+    if row_mask is not None:
+        gids = torch.where(v > NEG_INF, gids, -1)
+    v, gids = _unsort(order, v, gids)
+    if l2:  # the key q·x̂ - ‖x̂‖²/2 -> -‖q - x̂‖², FlatIndex's l2 convention
+        v = f32_const(2.0, v) * v - (q * q).sum(dim=1, keepdim=True)
+    return v, gids
 
 
 def _tiles_plan_search(q, centroids, payload, ids, tile_window, db_scale, n_valid,
-                       *, k: int, p_tiles: int, tile_n: int, tile_q: int, int8):
+                       *, k: int, p_tiles: int, tile_n: int, tile_q: int, int8,
+                       top2: bool = False):
     """One-dispatch whole-row search: device planning, the tile scan (K3,
     ops/band.py), the arena-row → global-id map and the unsort. ``int8``
     is the reference's score mode: True quantizes each query to int8
@@ -119,7 +171,7 @@ def _tiles_plan_search(q, centroids, payload, ids, tile_window, db_scale, n_vali
     else:
         q_dev = q_s.to(payload.dtype)
     v, rows = tiles_topk(payload, q_dev, tile_table, k, tile_n=tile_n,
-                         tile_q=tile_q, int8=int8, n_valid=n_valid)
+                         tile_q=tile_q, int8=int8, n_valid=n_valid, top2=top2)
     v = v * scale
     return _unsort(order, v, ids[rows.long().clamp(0, ids.shape[0] - 1)])
 
@@ -217,10 +269,10 @@ class BandIVFIndex(Index):
         """The reference's constructor with an explicit ``device``.
         ``residual=True`` (int8 only) stores int8 residuals and adds the
         centroid term back in the kernel; otherwise the arena holds whole
-        rows in ``dtype``. What the reference refuses raises ValueError
-        (residual bf16/f32, slack on whole rows, l2 on whole rows); what
-        this slice has not ported raises NotImplementedError (slack arenas,
-        residual l2)."""
+        rows in ``dtype``. ``metric='l2'`` (residual arenas) ranks by
+        -‖q - x̂‖². What the reference refuses raises ValueError (residual
+        bf16/f32, slack on whole rows, l2 on whole rows); slack arenas, not
+        ported yet, raise NotImplementedError."""
         if dtype not in ("int8", "bfloat16", "float32"):
             raise ValueError(f"unknown arena dtype {dtype!r}")
         if residual and dtype != "int8":
@@ -232,12 +284,10 @@ class BandIVFIndex(Index):
                 raise ValueError("slack slots require the residual-int8 arena")
             raise NotImplementedError(
                 "slack arenas (in-place add/remove) arrive with the mutation slice")
-        if metric == "l2":
-            if not residual:
-                # the whole-row kernels carry no l2 bias (as the reference)
-                raise ValueError(
-                    "BandIVFIndex metric='l2' requires the residual-int8 arena")
-            raise NotImplementedError("metric='l2' arrives with the l2/top2 slice")
+        if metric == "l2" and not residual:
+            # the whole-row kernels carry no l2 bias (as the reference)
+            raise ValueError("BandIVFIndex metric='l2' requires the residual-int8 arena; "
+                             "FlatIndex serves whole-row l2")
         self.dim = dim
         self.metric = metric
         self.nlist = nlist
@@ -262,6 +312,8 @@ class BandIVFIndex(Index):
         self._n = 0  # arena extent (capacity offsets[-1])
         self._next_id = 0  # 0: derive from the id table (_gid_bound)
         self._dev = None
+        self._flt_cache: dict = {}  # filter masks by (filter, ids tensor, its version)
+        self._bias_cache = None  # (arena key, (N_pad,) f32 l2 row bias)
 
     @property
     def _n_valid(self) -> int:
@@ -538,85 +590,140 @@ class BandIVFIndex(Index):
                 )
         return self._dev
 
+    def make_filter(self, where):
+        """``where`` (an IdFilter, a bool mask by global id, or an array of
+        allowed gids) as an IdFilter over this index's id space. Build once
+        and reuse: its device bitmap and arena mask are cached."""
+        from cloudvectordb_tpu_torch.index.filters import IdFilter
+
+        return IdFilter.coerce(where, self._gid_bound())
+
     def search(self, queries, k: int, nprobe: int = 32, strategy: str = "tiles",
                p_tiles: int = 0, scoring: str = "hybrid", tile_q: int | None = None,
-               top2: bool | None = None):
+               where=None, top2: bool | None = None):
         """Numpy in, numpy out: (scores (Q, k) f32, ids (Q, k) int64).
 
         strategy='tiles' (default): device-planned, query-clustered tile
         probing in one dispatch; compute ∝ p_tiles/n_tiles of a full scan.
         p_tiles=0 and tile_q=None take the tuned op point, else the
-        span-aware auto budget. strategy='band' (whole-row arenas): each
-        query group scans a contiguous band of tiles (``_search_band``).
-        scoring on int8 arenas: residual arenas score the residual with
-        int8 queries for 'hybrid' and 'int8' ('precise' is not ported yet);
-        whole-row arenas score bf16 queries against the int8 rows for
-        'hybrid' and 'precise' and int8 x int8 for 'int8'. top2 is not
-        ported yet."""
+        span-aware auto budget; top2=None takes the op point's, else False.
+        strategy='band' (whole-row arenas): each query group scans a
+        contiguous band of tiles (``_search_band``). scoring on int8
+        arenas: residual arenas score the residual with int8 queries for
+        'hybrid' and 'int8' and with bf16 queries for 'precise'; whole-row
+        arenas score bf16 queries against the int8 rows for 'hybrid' and
+        'precise' and int8 x int8 for 'int8'. ``where`` (residual arenas):
+        an id predicate (``make_filter``), masked at score time; queries
+        with fewer than k allowed hits return (-inf, -1) tails. top2 keeps
+        each bucket's best two rows (2·L candidates)."""
         assert self._n, "empty index"
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
-        self._refuse_top2(top2)
+        flt = self.make_filter(where) if where is not None else None
         if strategy == "band":
             if self.residual:
                 raise ValueError("band strategy lacks the centroid term; use tiles")
+            if flt is not None:
+                raise ValueError("filtered search: use strategy='tiles' (residual arenas) "
+                                 "or index.filters.filtered_search")
             return self._search_band(queries, k, nprobe)
         if strategy != "tiles":
             raise ValueError(f"unknown strategy {strategy!r}")
-        p_tiles, tq = self._resolve_knobs(nq, nprobe, p_tiles, tile_q)
+        p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
         q_pad = -(-nq // tq) * tq
         qp = queries if q_pad == nq else np.concatenate(
             [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
         v, gids = self._tiles_kernel_dispatch(
-            torch.as_tensor(qp, device=self.device), k, p_tiles, tq, scoring)
+            torch.as_tensor(qp, device=self.device), k, p_tiles, tq, scoring, flt, top2)
         return v[:nq].cpu().numpy(), gids[:nq].cpu().numpy().astype(np.int64)
 
     def search_device(self, queries, k: int, nprobe: int = 32,
                       p_tiles: int = 0, scoring: str = "hybrid",
-                      tile_q: int | None = None, top2: bool | None = None):
+                      tile_q: int | None = None, where=None, top2: bool | None = None):
         """All-device serving path: ``queries`` is (or becomes) a (B, D) f32
         tensor on the index's device and the returned (scores (B, k) f32,
-        ids (B, k) int32) stay there — no host transfer or sync in the call.
-        Knobs resolve as in ``search()``."""
+        ids (B, k) int32) stay there — no host transfer or sync in the call
+        once a filter's mask is cached. Knobs resolve as in ``search()``."""
         assert self._n, "empty index"
-        self._refuse_top2(top2)
+        flt = self.make_filter(where) if where is not None else None
         queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = queries.shape[0]
-        p_tiles, tq = self._resolve_knobs(nq, nprobe, p_tiles, tile_q)
+        p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
         q_pad = -(-nq // tq) * tq
         qp = queries if q_pad == nq else torch.cat(
             [queries, queries[-1:].expand(q_pad - nq, -1)])
-        v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring)
+        v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
         return v[:nq], gids[:nq]
 
-    def _refuse_top2(self, top2) -> None:
-        if top2 is None:
-            top2 = bool((self._op_point or {}).get("top2", False))
-        if top2:
-            raise NotImplementedError("top2 arrives with the l2/top2 slice")
-
-    def _resolve_knobs(self, nq: int, nprobe: int, p_tiles: int, tile_q):
+    def _resolve_knobs(self, nq: int, nprobe: int, p_tiles: int, tile_q, top2=None):
         """Tuned op point for knobs left at their sentinels, then
-        _resolve_tiles_knobs."""
+        _resolve_tiles_knobs: (p_tiles, tile_q, top2)."""
         op = self._op_point or {}
         if p_tiles <= 0:
             p_tiles = op.get("p_tiles", 0)
         if tile_q is None:
             tile_q = op.get("tile_q")
-        return self._resolve_tiles_knobs(nq, nprobe, p_tiles, tile_q)
+        if top2 is None:
+            top2 = bool(op.get("top2", False))
+        return (*self._resolve_tiles_knobs(nq, nprobe, p_tiles, tile_q), top2)
 
-    def _tiles_kernel_dispatch(self, qp, k, p_tiles, tq, scoring):
+    def _arena_row_mask(self, flt):
+        """K1's arena-order allow bits for ``flt``, cached per (filter, device
+        id table, the table's version): the (N,) gid gather runs once per
+        filter and arena state. The version counts in-place writes to the
+        ids tensor, so a mutation that keeps the tensor still misses."""
+        ids = self._device_state()["ids"]
+        key = (id(flt), id(ids), ids._version)
+        hit = self._flt_cache.get(key)
+        if hit is None:
+            if len(self._flt_cache) > 32:  # bound multi-tenant rotation
+                self._flt_cache.clear()
+            rm = self._split_row_mask(_arena_mask_from_ids(
+                ids, flt.mask_device(self.device), n_pad=self._mask_pad_rows()))
+            # the entry holds the filter and ids, so their ids stay unique
+            self._flt_cache[key] = hit = (flt, ids, rm)
+        return hit[2]
+
+    def _mask_pad_rows(self) -> int:
+        """The padded arena row count a filter mask must cover."""
+        return int(self._payload.shape[0])
+
+    def _split_row_mask(self, rm):
+        return rm  # a segmented arena would re-slice it
+
+    def _arena_row_bias(self) -> torch.Tensor:
+        """K1's (N_pad,) f32 l2 row bias (ops/band.py::resid_row_bias),
+        cached per arena state: the payload and local-id tensors, their
+        versions and the scale."""
+        st = self._device_state()
+        pay, loc = st["payload"], st["local"]
+        key = (id(pay), pay._version, id(loc), loc._version, self._scale)
+        if self._bias_cache is None or self._bias_cache[0] != key:
+            bias = resid_row_bias(pay, loc, st["centroid_tiles"], self._scale, self.tile_n)
+            self._bias_cache = (key, bias)
+        return self._bias_cache[1]
+
+    def _tiles_kernel_dispatch(self, qp, k, p_tiles, tq, scoring, flt=None, top2=False):
+        """One device dispatch of the tiles search over the arena: qp a
+        (q_pad, D) f32 tensor on the device, q_pad a multiple of tq.
+        Returns (v (q_pad, k) f32, gids (q_pad, k) int32) on the device."""
         if scoring not in ("hybrid", "int8", "precise"):
             raise ValueError(f"unknown scoring {scoring!r}")
         st = self._device_state()
         if self.residual:
+            l2 = self.metric == "l2"
             return _tiles_resid_plan_search(
                 qp, st["centroids"], st["payload"], st["local"],
                 st["centroid_tiles"], self._scale, st["ids"],
                 st["tile_window"], st["valid_end"],
+                row_mask=self._arena_row_mask(flt) if flt is not None else None,
                 k=k, p_tiles=p_tiles, tile_n=self.tile_n, tile_q=tq,
-                int8_q=(scoring != "precise"),
+                int8_q=(scoring != "precise"), l2=l2, top2=top2,
+                row_bias=self._arena_row_bias() if l2 else None,
             )
+        if flt is not None:
+            raise ValueError("where= masks at score time in the residual-int8 kernel; for "
+                             "whole-row arenas use index.filters.filtered_search")
         if self.dtype == "int8":
             # 'precise' maps to the hybrid scan: two-sided int8 is the
             # noisiest mode and serves scoring='int8' only
@@ -626,7 +733,7 @@ class BandIVFIndex(Index):
         return _tiles_plan_search(
             qp, st["centroids"], st["payload"], st["ids"], st["tile_window"],
             self._scale, self._n, k=k, p_tiles=p_tiles, tile_n=self.tile_n,
-            tile_q=tq, int8=int8)
+            tile_q=tq, int8=int8, top2=top2)
 
     def _search_band(self, queries: np.ndarray, k: int, nprobe: int):
         """Contiguous-band search (whole-row arenas; kept for comparison:
@@ -779,18 +886,19 @@ class BandIVFIndex(Index):
         }
 
     @classmethod
-    def from_state(cls, meta: dict, arrays: dict, device: str | torch.device = DEFAULT
-                   ) -> "BandIVFIndex":
+    def from_state(cls, meta: dict, arrays: dict, device: str | torch.device = DEFAULT,
+                   metric: str = "ip") -> "BandIVFIndex":
         """Index from the reference's numpy state: ``meta`` as its
         ``_state_meta()`` (the manifest's "meta"), ``arrays`` as its
-        ``_state_arrays()`` (centroids, payload, ids, offsets, list_lens).
-        The derived tables (tile_window, local, centroid_tiles, valid_end)
-        are recomputed here."""
+        ``_state_arrays()`` (centroids, payload, ids, offsets, list_lens),
+        ``metric`` as its ``metric`` (the manifest's top level). The derived
+        tables (tile_window, local, centroid_tiles, valid_end) are
+        recomputed here."""
         dim = int(np.asarray(arrays["centroids"]).shape[1])
         idx = cls(dim, meta["nlist"], meta["dtype"], meta["kmeans_iters"],
                   meta["seed"], meta["tile_n"], meta["tile_q"],
                   residual=meta.get("residual", False),
-                  slack=meta.get("slack", 0.0), device=device)
+                  slack=meta.get("slack", 0.0), metric=metric, device=device)
         idx.centroids = np.array(arrays["centroids"], np.float32)  # off the mmap
         if "list_lens" in arrays:
             idx._list_lens = np.array(arrays["list_lens"], np.int64)
@@ -803,9 +911,8 @@ class BandIVFIndex(Index):
 
     @classmethod
     def _from_state(cls, manifest: dict, arrays: dict, device=DEFAULT) -> "BandIVFIndex":
-        if manifest.get("metric", "ip") != "ip":
-            raise NotImplementedError("metric='l2' arrives with the l2/top2 slice")
-        idx = cls.from_state(manifest["meta"], arrays, device=device)
+        idx = cls.from_state(manifest["meta"], arrays, device=device,
+                             metric=manifest.get("metric", "ip"))
         if idx.dim != manifest["dim"]:
             raise ValueError(f"manifest dim {manifest['dim']} != centroids {idx.dim}")
         return idx

@@ -38,15 +38,16 @@ _VP, _CI, _CF, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_lo
 #: C functions of each library: name -> (argtypes, restype)
 _SIGNATURES = {
     "tiles_resid": {
-        "cvdb_tiles_resid": ([_VP] * 11 + [_CI] * 8 + [_VP], _CI),
-        "cvdb_tiles_resid_smem_bytes": ([_CI, _CI], _CI),
+        "cvdb_tiles_resid": ([_VP] * 15 + [_CI] * 9 + [_VP], _CI),
+        "cvdb_tiles_resid_smem_bytes": ([_CI] * 7, _CI),
         "cvdb_tiles_resid_scratch_bytes": ([_CI] * 4, _CLL),
+        "cvdb_resid_row_bias": ([_VP] * 4 + [_CLL] + [_CI] * 3 + [_CF, _CI, _VP], _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "tiles_scan": {
-        "cvdb_tiles_scan": ([_CI] * 3 + [_VP] * 6 + [_CI] * 8 + [_VP], _CI),
-        "cvdb_tiles_scan_smem_bytes": ([_CI] * 6, _CI),
-        "cvdb_tiles_scan_block_queries": ([_CI] * 6, _CI),
+        "cvdb_tiles_scan": ([_CI] * 3 + [_VP] * 8 + [_CI] * 8 + [_VP], _CI),
+        "cvdb_tiles_scan_smem_bytes": ([_CI] * 8, _CI),
+        "cvdb_tiles_scan_block_queries": ([_CI] * 8, _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "pq_scan": {
@@ -164,58 +165,99 @@ def _check(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({rc})")
 
 
-def tiles_resid_slots(db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale,
-                      tile_table, valid_end, *, tile_n: int, tile_q: int,
-                      l_buckets: int):
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def tiles_resid_slots(db_resid, local_ids, centroid_tiles, q_bf16, q_dot, row_scale,
+                      tile_table, valid_end, row_mask=None, row_bias=None, *, tile_n: int,
+                      tile_q: int, l_buckets: int, top2: bool = False):
     """Launch K1 (its centroid-term prologue, then the scan): (Q_pad, L)
-    f32 slot values and (Q_pad, L) int32 arena rows, on the tensors' device
-    and PyTorch's current stream; the prologue's (n_qt, P, tile_q, W) f32
-    centroid term goes to a scratch tensor allocated here. Shapes are
-    checked by ops/band.py; this checks what the kernel reads raw."""
+    f32 slot values and (Q_pad, L) int32 arena rows (top2: (Q_pad, 2·L),
+    slot 1's buckets then slot 2's), on the tensors' device and PyTorch's
+    current stream; the prologue's (n_qt, P, tile_q, W) f32 centroid term
+    goes to a scratch tensor allocated here. ``q_dot`` is the residual
+    term's queries, int8 or bf16 (the scan's hybrid pair); ``row_mask``
+    (N,) uint8 and ``row_bias`` (N,) f32 are optional. Shapes are checked
+    by ops/band.py; this checks what the kernel reads raw."""
     dev = db_resid.device
     local_ids = local_ids.reshape(-1)
+    hybrid = q_dot.dtype == torch.bfloat16
     for t, name, dt in ((db_resid, "db_resid", torch.int8),
                         (local_ids, "local_ids", torch.uint8),
                         (centroid_tiles, "centroid_tiles", torch.bfloat16),
                         (q_bf16, "q_bf16", torch.bfloat16),
-                        (q8, "q8", torch.int8),
+                        (q_dot, "q_dot", torch.bfloat16 if hybrid else torch.int8),
                         (row_scale, "row_scale", torch.float32),
                         (tile_table, "tile_table", torch.int32),
-                        (valid_end, "valid_end", torch.int32)):
-        _need(t, name, dt, dev)
+                        (valid_end, "valid_end", torch.int32),
+                        (row_mask, "row_mask", torch.uint8),
+                        (row_bias, "row_bias", torch.float32)):
+        if t is not None:
+            _need(t, name, dt, dev)
     n, d = db_resid.shape
-    nq = q8.shape[0]
+    nq = q_dot.shape[0]
     n_qt, p = tile_table.shape
     w = centroid_tiles.shape[1]
     if n >= 2**31:
         raise ValueError(f"arena rows {n} exceed the kernel's int32 row ids")
     lib = _load("tiles_resid")
-    smem = lib.cvdb_tiles_resid_smem_bytes(d, w)
+    smem = lib.cvdb_tiles_resid_smem_bytes(d, w, int(hybrid), int(row_mask is not None),
+                                           int(row_bias is not None), int(top2),
+                                           tile_n // l_buckets)
     if smem > _SMEM_MAX:
         raise ValueError(f"D={d}, W={w} need {smem} B of shared memory > {_SMEM_MAX}")
     cterm = torch.empty(lib.cvdb_tiles_resid_scratch_bytes(n_qt, tile_q, p, w),
                         dtype=torch.uint8, device=dev)
-    out_v = torch.empty((nq, l_buckets), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, l_buckets), dtype=torch.int32, device=dev)
+    out_v = torch.empty((2 if top2 else 1, nq, l_buckets), dtype=torch.float32, device=dev)
+    out_i = torch.empty((2 if top2 else 1, nq, l_buckets), dtype=torch.int32, device=dev)
     rc = lib.cvdb_tiles_resid(
         db_resid.data_ptr(), local_ids.data_ptr(), centroid_tiles.data_ptr(),
-        q_bf16.data_ptr(), q8.data_ptr(), row_scale.data_ptr(),
-        tile_table.data_ptr(), valid_end.data_ptr(), cterm.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), n_qt, tile_q, p, tile_n, l_buckets, d, w,
+        q_bf16.data_ptr(), q_dot.data_ptr(), row_scale.data_ptr(),
+        tile_table.data_ptr(), valid_end.data_ptr(), _ptr(row_mask), _ptr(row_bias),
+        cterm.data_ptr(), out_v[0].data_ptr(), out_i[0].data_ptr(),
+        out_v[1].data_ptr() if top2 else None, out_i[1].data_ptr() if top2 else None,
+        n_qt, tile_q, p, tile_n, l_buckets, d, w, int(hybrid),
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "tiles_resid")
-    return out_v, out_i
+    if top2:
+        return torch.cat([out_v[0], out_v[1]], 1), torch.cat([out_i[0], out_i[1]], 1)
+    return out_v[0], out_i[0]
+
+
+def resid_row_bias(db_resid, local_ids, centroid_tiles, resid_scale: float, *, tile_n: int):
+    """Launch K1's l2 bias kernel: (N,) f32, on the tensors' device and
+    PyTorch's current stream. Shapes are checked by ops/band.py."""
+    dev = db_resid.device
+    local_ids = local_ids.reshape(-1)
+    for t, name, dt in ((db_resid, "db_resid", torch.int8),
+                        (local_ids, "local_ids", torch.uint8),
+                        (centroid_tiles, "centroid_tiles", torch.bfloat16)):
+        _need(t, name, dt, dev)
+    n, d = db_resid.shape
+    if d % 4:
+        raise ValueError(f"D={d} must be a multiple of 4")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _load("tiles_resid")
+    rc = lib.cvdb_resid_row_bias(
+        db_resid.data_ptr(), local_ids.data_ptr(), centroid_tiles.data_ptr(), out.data_ptr(),
+        n, tile_n, d, centroid_tiles.shape[1], float(resid_scale), _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "resid_row_bias")
+    return out
 
 
 def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: int,
-                     steps: int, tile_n: int, l_buckets: int, n_valid: int):
+                     steps: int, tile_n: int, l_buckets: int, n_valid: int,
+                     top2: bool = False):
     """Launch the whole-row scan (K2, K3 or K7, by ``source``, numbered as
     ops/band.py's SCAN_*): (Q, L) f32 slot values and (Q, L) int32 arena
-    rows, on the tensors' device and PyTorch's current stream. ``table`` is
-    None (ALL), the (n_qt, steps) tile table (TABLE) or the (n_qt,) band
-    starts (BAND);
-    ``sqnorm`` is None or the (N,) f32 l2 bias. Shapes are checked by the
-    callers; this checks what the kernel reads raw."""
+    rows (top2: (Q, 2·L), slot 1's buckets then slot 2's), on the tensors' device and
+    PyTorch's current stream. ``table`` is None (ALL), the (n_qt, steps)
+    tile table (TABLE) or the (n_qt,) band starts (BAND); ``sqnorm`` is
+    None or the (N,) f32 l2 bias. top2 is K3's (TABLE) on the tensor-core
+    pairs; elsewhere it raises. Shapes are checked by the callers; this
+    checks what the kernel reads raw."""
     dev = db.device
     if db.dtype not in _ELEM or q.dtype not in _ELEM:
         raise TypeError(f"no scan for {q.dtype} queries x {db.dtype} rows")
@@ -232,21 +274,28 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
     lib = _load("tiles_scan")
     # the body the call takes: the tensor-core and f32 ones (dynamic shared
     # memory) put query blocks on grid x, the CUDA-core one on grid y
-    body = (source, _ELEM[q.dtype], _ELEM[db.dtype], tile_q, d, int(sqnorm is not None))
+    body = (source, _ELEM[q.dtype], _ELEM[db.dtype], tile_q, d, int(sqnorm is not None),
+            int(top2), tile_n // l_buckets)
+    smem = lib.cvdb_tiles_scan_smem_bytes(*body)
+    if top2 and (source != 1 or smem < 0):  # 1: ops/band.py's SCAN_TABLE
+        raise NotImplementedError(
+            f"top2 runs on K3's tensor-core body only (int8, hybrid, bf16 queries at a D "
+            f"whose state fits shared memory), not {q.dtype} x {db.dtype} at D={d}")
     q_blocks = n_qt * -(-tile_q // lib.cvdb_tiles_scan_block_queries(*body))
-    if q_blocks > (65535 if lib.cvdb_tiles_scan_smem_bytes(*body) == 0 else 2**31 - 1):
+    if q_blocks > (65535 if smem == 0 else 2**31 - 1):
         raise ValueError(f"{n_qt} query tiles of {tile_q} exceed the launch grid")
-    out_v = torch.empty((nq, l_buckets), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, l_buckets), dtype=torch.int32, device=dev)
+    out_v = torch.empty((2 if top2 else 1, nq, l_buckets), dtype=torch.float32, device=dev)
+    out_i = torch.empty((2 if top2 else 1, nq, l_buckets), dtype=torch.int32, device=dev)
     rc = lib.cvdb_tiles_scan(
         source, _ELEM[q.dtype], _ELEM[db.dtype], db.data_ptr(), q.data_ptr(),
-        None if table is None else table.data_ptr(),
-        None if sqnorm is None else sqnorm.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), n_qt, tile_q, steps, tile_n,
-        l_buckets, d, n_valid, _device_index(dev),
+        _ptr(table), _ptr(sqnorm), out_v[0].data_ptr(), out_i[0].data_ptr(),
+        out_v[1].data_ptr() if top2 else None, out_i[1].data_ptr() if top2 else None,
+        n_qt, tile_q, steps, tile_n, l_buckets, d, n_valid, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "tiles_scan")
-    return out_v, out_i
+    if top2:
+        return torch.cat([out_v[0], out_v[1]], 1), torch.cat([out_i[0], out_i[1]], 1)
+    return out_v[0], out_i[0]
 
 
 def pq_scan_slots(source: int, codes, local, cb, ct, q, table, *, n_qt: int, tile_q: int,

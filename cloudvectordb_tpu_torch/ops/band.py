@@ -16,18 +16,32 @@ smallest r on ties); across steps a strict ``>`` keeps the earlier step on
 ties. Slots start at (-inf, row 0). The final top-k over the slots is a
 stable descending sort, so ties go to the lower slot as ``lax.top_k`` does.
 
-K1 (the reference kernel ``_tiles_resid_kernel`` with int8_q=True, no
-row_mask, no l2, no top2). For query tile ``qt``, table entry ``p``, arena
-tile ``t = tile_table[qt, p]`` and arena row ``g`` of that tile::
+K1 (the reference kernel ``_tiles_resid_kernel``). For query tile ``qt``,
+table entry ``p``, arena tile ``t = tile_table[qt, p]`` and arena row ``g``
+of that tile::
 
     score = bf16(q)·bf16(c[local[g]])  (f32 accumulation)
             + row_scale[q] · (q8 · r8[g])  (exact int32)
     live  = g < valid_end[t, local[g]]
 
-K3 and K7 (``_tiles_kernel``, ``_band_kernel``; no top2): whole rows, step j
-of query tile qt reads tile ``tile_table[qt, j]`` (K3) or ``band_start[qt]
-+ j`` (K7), scores ``q·row[g]`` under the mode the reference's ``int8`` flag
-names (``_score_tile``), and rows ``g >= n_valid`` score -inf.
+Its options, each the reference's expression:
+  - ``int8_q=False`` (``scoring='precise'``): the residual term is
+    ``bf16(q)·bf16(r8[g])`` with f32 accumulation and ``row_scale`` is
+    ``resid_scale`` for every query;
+  - ``row_mask`` (N_pad,) int8 allow bits: a row whose bit is 0 is not live;
+  - ``l2``: the score gains the row's bias ``-s²‖r‖²/2 - s·(c·r) - ‖c‖²/2``
+    (``s`` the global ``resid_scale``, ``c`` the row's bf16 list centroid,
+    all in f32; ``resid_row_bias``), so the ranking key is
+    ``q·x̂ - ‖x̂‖²/2``;
+  - ``top2``: each bucket keeps its best two distinct rows
+    (``_bucket_merge_top2``) and the final top-k runs over the 2·L slots
+    laid side by side.
+
+K3 and K7 (``_tiles_kernel``, ``_band_kernel``): whole rows, step j of
+query tile qt reads tile ``tile_table[qt, j]`` (K3) or ``band_start[qt] +
+j`` (K7), scores ``q·row[g]`` under the mode the reference's ``int8`` flag
+names (``_score_tile``), and rows ``g >= n_valid`` score -inf. K3 takes
+``top2`` as K1 does; K7 has none, as the reference's band kernel.
 """
 
 from __future__ import annotations
@@ -98,12 +112,9 @@ def _resolve_buckets(tile_n: int, l_buckets: int) -> int:
 
 
 def _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
-                tile_table, valid_end, tile_n, tile_q, l_buckets,
-                row_mask, l2, top2) -> int:
+                tile_table, valid_end, tile_n, tile_q, l_buckets, row_mask=None,
+                row_bias=None) -> int:
     """Validate shapes and options; return the resolved l_buckets."""
-    if row_mask is not None or l2 or top2:
-        raise NotImplementedError(
-            "row_mask, l2 and top2 arrive with the filtered/l2 slice")
     n, d = db_resid.shape
     nq = queries_sorted.shape[0]
     if n % tile_n or nq % tile_q:
@@ -119,24 +130,32 @@ def _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
                          f"({n_tiles}, W, {d})")
     if tuple(valid_end.shape) != (n_tiles, w):
         raise ValueError(f"valid_end {tuple(valid_end.shape)} != ({n_tiles}, {w})")
-    if local_ids.numel() != n:
-        raise ValueError(f"local_ids has {local_ids.numel()} entries, arena {n}")
+    for name, t in (("local_ids", local_ids), ("row_mask", row_mask),
+                    ("row_bias", row_bias)):
+        if t is not None and t.numel() != n:
+            raise ValueError(f"{name} has {t.numel()} entries, arena {n}")
     if tile_table.dim() != 2 or tile_table.shape[0] != nq // tile_q:
         raise ValueError(f"tile_table {tuple(tile_table.shape)} needs "
                          f"{nq // tile_q} rows")
     if db_resid.dtype != torch.int8:
         raise TypeError(f"arena must be int8, got {db_resid.dtype}")
-    devices = {t.device for t in (db_resid, local_ids, centroid_tiles,
-                                  queries_sorted, tile_table, valid_end)}
+    if row_mask is not None and row_mask.dtype not in (torch.int8, torch.uint8, torch.bool):
+        raise TypeError(f"row_mask must be int8 allow bits, got {row_mask.dtype}")
+    devices = {t.device for t in (db_resid, local_ids, centroid_tiles, queries_sorted,
+                                  tile_table, valid_end, row_mask, row_bias)
+               if t is not None}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
     return l_buckets
 
 
-def _slots_init(n_qt: int, tile_q: int, l_buckets: int, dev):
-    """(n_qt, tile_q, L) slots at (-inf, row 0)."""
-    return (torch.full((n_qt, tile_q, l_buckets), NEG_INF, device=dev),
-            torch.zeros((n_qt, tile_q, l_buckets), dtype=torch.int64, device=dev))
+def _slots_init(n_qt: int, tile_q: int, l_buckets: int, dev, top2: bool = False):
+    """(n_qt, tile_q, L) slots at (-inf, row 0): [values, rows], and with
+    top2 [values, rows] of slot 2 after them."""
+    shape = (n_qt, tile_q, l_buckets)
+    return [t for _ in range(2 if top2 else 1)
+            for t in (torch.full(shape, NEG_INF, device=dev),
+                      torch.zeros(shape, dtype=torch.int64, device=dev))]
 
 
 def _bucket_merge(scores, base, l_buckets: int, best_v, best_i):
@@ -194,36 +213,62 @@ def _bucket_merge_top2(scores, base, l_buckets: int, v1, i1, v2, i2):
             torch.where(win2, lo, c2), torch.where(win2, lo_i, c2_i))
 
 
-def _slots_reference(db_resid, local_ids, centroid_tiles, q_bf16, q8,
+def _slots_out(top2: bool, nq: int, l_buckets: int, v1, i1, v2=None, i2=None):
+    """(Q, L) slots, or with top2 the (Q, 2·L) slots of both ranks side by
+    side (slot 1's L buckets, then slot 2's), as the reference lays them."""
+    v1, i1 = v1.reshape(nq, l_buckets), i1.reshape(nq, l_buckets)
+    if not top2:
+        return v1, i1.int()
+    return (torch.cat([v1, v2.reshape(nq, l_buckets)], 1),
+            torch.cat([i1, i2.reshape(nq, l_buckets)], 1).int())
+
+
+def _merge_step(scores, base, l_buckets: int, slots: list, top2: bool) -> list:
+    if top2:
+        return list(_bucket_merge_top2(scores, base, l_buckets, *slots))
+    return list(_bucket_merge(scores, base, l_buckets, *slots))
+
+
+def _slots_reference(db_resid, local_ids, centroid_tiles, q_bf16, q_dot,
                      row_scale, tile_table, valid_end, tile_n, tile_q,
-                     l_buckets):
-    """Plain PyTorch slot scan: (Q_pad, L) f32 values, (Q_pad, L) int32 rows.
-    Walks the table entries in order, each one vectorized over query tiles;
-    the int8 dot runs in float64, exact for any D this kernel takes."""
+                     l_buckets, row_mask=None, row_bias=None, top2=False):
+    """Plain PyTorch slot scan: (Q_pad, L) f32 values and (Q_pad, L) int32
+    rows (top2: (Q_pad, 2·L), ``_slots_out``). Walks the table entries in
+    order, each one vectorized over query tiles. ``q_dot`` is the residual
+    term's queries: int8 (``int8_q``) or bf16; the dot runs in float64,
+    exact for int8 queries and for bf16 ones but for one rounding to f32.
+    ``row_mask`` (N,) allow bits and ``row_bias`` (N,) f32 l2 bias are
+    optional."""
     n, d = db_resid.shape
-    nq = q8.shape[0]
+    nq = q_dot.shape[0]
     n_qt, p = tile_table.shape
     dev = db_resid.device
     rows3 = db_resid.view(n // tile_n, tile_n, d)
     local3 = local_ids.reshape(n // tile_n, tile_n).long()
-    q8t = q8.view(n_qt, tile_q, d).double()
+    mask3 = None if row_mask is None else row_mask.reshape(n // tile_n, tile_n) != 0
+    bias3 = None if row_bias is None else row_bias.reshape(n // tile_n, tile_n)
+    qdt = q_dot.view(n_qt, tile_q, d).double()
     qbt = q_bf16.view(n_qt, tile_q, d).float()
     rst = row_scale.view(n_qt, tile_q, 1)
     ct = centroid_tiles.to(torch.bfloat16).float()
     row_iota = torch.arange(tile_n, device=dev, dtype=torch.int64)
-    best_v, best_i = _slots_init(n_qt, tile_q, l_buckets, dev)
+    slots = _slots_init(n_qt, tile_q, l_buckets, dev, top2)
     for j in range(p):
         t = tile_table[:, j].long()  # (n_qt,)
-        r_scores = torch.bmm(q8t, rows3[t].double().transpose(1, 2)).float()
+        r_scores = torch.bmm(qdt, rows3[t].double().transpose(1, 2)).float()
         qc = torch.bmm(qbt, ct[t].transpose(1, 2))  # (n_qt, tile_q, W) f32
         loc = local3[t]  # (n_qt, tile_n)
         c_scores = torch.gather(qc, 2, loc[:, None, :].expand(-1, tile_q, -1))
         scores = c_scores + rst * r_scores
+        if bias3 is not None:
+            scores = scores + bias3[t][:, None, :]
         g = t[:, None] * tile_n + row_iota[None, :]
-        ve = torch.gather(valid_end[t].long(), 1, loc)
-        scores = torch.where((g < ve)[:, None, :], scores, NEG_INF)
-        best_v, best_i = _bucket_merge(scores, t * tile_n, l_buckets, best_v, best_i)
-    return best_v.view(nq, l_buckets), best_i.view(nq, l_buckets).int()
+        live = g < torch.gather(valid_end[t].long(), 1, loc)
+        if mask3 is not None:
+            live = live & mask3[t]
+        scores = torch.where(live[:, None, :], scores, NEG_INF)
+        slots = _merge_step(scores, t * tile_n, l_buckets, slots, top2)
+    return _slots_out(top2, nq, l_buckets, *slots)
 
 
 def _final_topk(out_v, out_i, k):
@@ -231,23 +276,106 @@ def _final_topk(out_v, out_i, k):
     return top_v, torch.gather(out_i, 1, pos)
 
 
+def _row_bias_tiles(rows, ct, loc, s):
+    """The l2 bias of every row of some tiles (``resid_row_bias``'s plain
+    expression, the reference's pallas_band.py:518-549 in f32): rows
+    (T, tile_n, D) int8, ct (T, W, D) f32 centroid tiles, loc (T, tile_n)
+    local list ids, s the f32 residual scale as a 0-d tensor."""
+    r = rows.float()
+    rr = (r * r).sum(dim=2)  # exact: integers below 2^24
+    cr = torch.gather(torch.bmm(r, ct.transpose(1, 2)), 2, loc[:, :, None])[:, :, 0]
+    cc = torch.gather((ct * ct).sum(dim=2), 1, loc)
+    half = f32_const(0.5, rows)
+    return ((-half * s) * s) * rr - s * cr - half * cc
+
+
+def resid_row_bias_reference(db_resid, local_ids, centroid_tiles, resid_scale,
+                             tile_n: int):
+    """Plain version of ``resid_row_bias``, 64 tiles at a time."""
+    chunk_tiles = 64
+    n, d = db_resid.shape
+    n_tiles = n // tile_n
+    rows3 = db_resid.view(n_tiles, tile_n, d)
+    local3 = local_ids.reshape(n_tiles, tile_n).long()
+    ct = centroid_tiles.to(torch.bfloat16).float()
+    s = f32_const(resid_scale, db_resid)
+    parts = [_row_bias_tiles(rows3[a:a + chunk_tiles], ct[a:a + chunk_tiles],
+                             local3[a:a + chunk_tiles], s).reshape(-1)
+             for a in range(0, n_tiles, chunk_tiles)]
+    return torch.cat(parts) if parts else torch.zeros(0, device=db_resid.device)
+
+
+def resid_row_bias(db_resid, local_ids, centroid_tiles, resid_scale, tile_n: int):
+    """(N_pad,) f32 l2 bias of every arena row of a residual-int8 arena:
+    ``-s²‖r‖²/2 - s·(c·r) - ‖c‖²/2`` with ``s`` the residual scale, ``r``
+    the row's int8 residual and ``c`` its bf16 list centroid
+    (``centroid_tiles[g // tile_n, local[g]]``). It depends on the arena
+    only, so an index computes it once per arena state. CUDA tensors launch
+    the hand-written kernel (csrc/tiles_resid.cu ``resid_bias_kernel``);
+    CPU tensors run the plain version."""
+    n, d = db_resid.shape
+    if n % tile_n or local_ids.numel() != n or tuple(centroid_tiles.shape[::2]) != (
+            n // tile_n, d):
+        raise ValueError(f"arena {tuple(db_resid.shape)}, tile_n {tile_n}, local ids "
+                         f"{local_ids.numel()}, centroid_tiles {tuple(centroid_tiles.shape)}")
+    dev = db_resid.device
+    if dev.type == "cuda":
+        from cloudvectordb_tpu_torch.ops import _cuda
+
+        out = _cuda.resid_row_bias(db_resid, local_ids, centroid_tiles.to(torch.bfloat16),
+                                   resid_scale, tile_n=tile_n)
+        resid_row_bias.launches += 1
+        return out
+    if dev.type != "cpu":
+        raise NotImplementedError(f"no resid_row_bias path for {dev.type} tensors")
+    return resid_row_bias_reference(db_resid, local_ids, centroid_tiles, resid_scale, tile_n)
+
+
+resid_row_bias.launches = 0
+
+
+def _resid_prepare(db_resid, local_ids, centroid_tiles, resid_scale, queries_sorted,
+                   tile_table, valid_end, tile_n, tile_q, l_buckets, int8_q, row_mask,
+                   l2, row_bias, bias_fn):
+    """Checked arguments of K1 and its plain version: (l_buckets, bf16
+    queries, the residual term's queries, row scales, mask, bias)."""
+    if not l2 and row_bias is not None:
+        raise ValueError("row_bias is the l2 key's; pass l2=True")
+    l_buckets = _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
+                            tile_table, valid_end, tile_n, tile_q, l_buckets,
+                            row_mask, row_bias)
+    q_bf16, q8, row_scale = _quantize_queries(queries_sorted, resid_scale)
+    if not int8_q:  # the reference's row scale without the query's own
+        q8 = q_bf16
+        row_scale = f32_const(resid_scale, queries_sorted).expand(
+            queries_sorted.shape[0]).contiguous()
+    if row_mask is not None:
+        row_mask = row_mask.reshape(-1)
+        row_mask = row_mask.view(torch.uint8) if row_mask.dtype == torch.int8 else (
+            row_mask.to(torch.uint8))
+    if l2 and row_bias is None:
+        row_bias = bias_fn(db_resid, local_ids, centroid_tiles, resid_scale, tile_n)
+    if row_bias is not None:
+        row_bias = row_bias.reshape(-1).float()
+    return l_buckets, q_bf16, q8, row_scale, row_mask, row_bias
+
+
 def tiles_topk_resid_reference(
     db_resid, local_ids, centroid_tiles, resid_scale, queries_sorted,
     tile_table, k: int, valid_end, tile_n: int = 2048, tile_q: int = 256,
     l_buckets: int = 0, int8_q: bool = True, row_mask=None, l2: bool = False,
-    top2: bool = False,
+    top2: bool = False, row_bias=None,
 ):
     """Plain PyTorch version of ``tiles_topk_resid`` on any device: the CPU
-    path of the wrapper, and the kernel's yardstick on the card."""
-    if not int8_q:
-        raise NotImplementedError("int8_q=False (scoring='precise') is not ported yet")
-    l_buckets = _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
-                            tile_table, valid_end, tile_n, tile_q, l_buckets,
-                            row_mask, l2, top2)
-    q_bf16, q8, row_scale = _quantize_queries(queries_sorted, resid_scale)
+    path of the wrapper, and the kernel's yardstick on the card. With l2
+    and no ``row_bias`` the bias is ``resid_row_bias_reference``'s."""
+    l_buckets, q_bf16, q_dot, row_scale, row_mask, row_bias = _resid_prepare(
+        db_resid, local_ids, centroid_tiles, resid_scale, queries_sorted, tile_table,
+        valid_end, tile_n, tile_q, l_buckets, int8_q, row_mask, l2, row_bias,
+        resid_row_bias_reference)
     out_v, out_i = _slots_reference(
-        db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale,
-        tile_table, valid_end, tile_n, tile_q, l_buckets)
+        db_resid, local_ids, centroid_tiles, q_bf16, q_dot, row_scale,
+        tile_table, valid_end, tile_n, tile_q, l_buckets, row_mask, row_bias, top2)
     return _final_topk(out_v, out_i, k)
 
 
@@ -263,33 +391,33 @@ def tiles_topk_resid(
     tile_n: int = 2048,
     tile_q: int = 256,
     l_buckets: int = 0,
-    int8_q: bool = True,
-    row_mask=None,
-    l2: bool = False,
-    top2: bool = False,
+    int8_q: bool = True,   # False: bf16 queries in the residual term ('precise')
+    row_mask=None,         # (1, N_pad) or (N_pad,) int8 allow bits (filtered search)
+    l2: bool = False,      # rank by q·x̂ - ‖x̂‖²/2 (module docstring)
+    top2: bool = False,    # best two distinct rows a bucket: 2·L candidates
+    row_bias=None,         # (N_pad,) f32 l2 bias (resid_row_bias), computed if None
 ):
     """Top-k over residual-int8 arena tiles: (Q_pad, k) f32 scores and
     (Q_pad, k) int32 arena rows (module docstring). CUDA tensors launch the
     hand-written kernel; CPU tensors run the plain version."""
-    if not int8_q:
-        raise NotImplementedError("int8_q=False (scoring='precise') is not ported yet")
-    l_buckets = _check_args(db_resid, local_ids, centroid_tiles, queries_sorted,
-                            tile_table, valid_end, tile_n, tile_q, l_buckets,
-                            row_mask, l2, top2)
-    q_bf16, q8, row_scale = _quantize_queries(queries_sorted, resid_scale)
+    l_buckets, q_bf16, q_dot, row_scale, row_mask, row_bias = _resid_prepare(
+        db_resid, local_ids, centroid_tiles, resid_scale, queries_sorted, tile_table,
+        valid_end, tile_n, tile_q, l_buckets, int8_q, row_mask, l2, row_bias,
+        resid_row_bias)
     dev = db_resid.device
     if dev.type == "cuda":
         from cloudvectordb_tpu_torch.ops import _cuda
 
         out_v, out_i = _cuda.tiles_resid_slots(
-            db_resid, local_ids, centroid_tiles.to(torch.bfloat16), q_bf16, q8,
+            db_resid, local_ids, centroid_tiles.to(torch.bfloat16), q_bf16, q_dot,
             row_scale, tile_table.to(torch.int32), valid_end.to(torch.int32),
-            tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets)
+            row_mask, row_bias, tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets,
+            top2=top2)
         tiles_topk_resid.launches += 1
     elif dev.type == "cpu":
         out_v, out_i = _slots_reference(
-            db_resid, local_ids, centroid_tiles, q_bf16, q8, row_scale,
-            tile_table, valid_end, tile_n, tile_q, l_buckets)
+            db_resid, local_ids, centroid_tiles, q_bf16, q_dot, row_scale,
+            tile_table, valid_end, tile_n, tile_q, l_buckets, row_mask, row_bias, top2)
     else:
         raise NotImplementedError(f"no tiles_topk_resid path for {dev.type} tensors")
     return _final_topk(out_v, out_i, k)
@@ -320,10 +448,11 @@ def _check_score_mode(queries, db, int8) -> None:
 
 
 def _scan_reference(db, q, tiles, sqnorm, tile_n: int, tile_q: int,
-                    l_buckets: int, n_valid: int):
+                    l_buckets: int, n_valid: int, top2: bool = False):
     """Plain whole-row scan (K2, K3, K7): (Q, L) f32 slot values and (Q, L)
-    int32 arena rows. ``tiles`` (n_qt, S) int64 names the arena tile of each
-    query tile at each step (n_qt = 1 and tile_q = Q for the flat scan).
+    int32 arena rows (top2: (Q, 2·L), ``_slots_out``). ``tiles`` (n_qt, S)
+    int64 names the arena tile of each query tile at each step (n_qt = 1
+    and tile_q = Q for the flat scan).
     Rows outside [0, n_valid) score -inf; only tile-sized row blocks are
     gathered, never a padded copy of ``db``. int8 x int8 dots are exact:
     every partial sum is an integer below 2^24 in f32 (D <= 1024), else the
@@ -337,7 +466,7 @@ def _scan_reference(db, q, tiles, sqnorm, tile_n: int, tile_q: int,
         acc = torch.float64
     qt = q.to(acc).view(n_qt, tile_q, d)
     row_iota = torch.arange(tile_n, device=dev, dtype=torch.int64)
-    best_v, best_i = _slots_init(n_qt, tile_q, l_buckets, dev)
+    slots = _slots_init(n_qt, tile_q, l_buckets, dev, top2)
     for j in range(tiles.shape[1]):
         t = tiles[:, j]
         g = t[:, None] * tile_n + row_iota  # (n_qt, tile_n)
@@ -347,15 +476,16 @@ def _scan_reference(db, q, tiles, sqnorm, tile_n: int, tile_q: int,
             scores = 2.0 * scores - sqnorm[gc][:, None, :]
         live = (g >= 0) & (g < n_valid)
         scores = torch.where(live[:, None, :], scores, NEG_INF)
-        best_v, best_i = _bucket_merge(scores, t * tile_n, l_buckets, best_v, best_i)
-    return best_v.view(nq, l_buckets), best_i.view(nq, l_buckets).int()
+        slots = _merge_step(scores, t * tile_n, l_buckets, slots, top2)
+    return _slots_out(top2, nq, l_buckets, *slots)
 
 
 def _scan_slots(source: int, db, q, table, steps: int, sqnorm, *, tile_n: int,
-                tile_q: int, l_buckets: int, n_valid: int, plain: bool):
-    """(Q, L) slots of a whole-row scan: the plain version when ``plain`` or
-    on CPU tensors, the kernel (csrc/tiles_scan.cu) on CUDA tensors.
-    Returns (values, rows, launched)."""
+                tile_q: int, l_buckets: int, n_valid: int, plain: bool,
+                top2: bool = False):
+    """(Q, L) slots of a whole-row scan (top2: (Q, 2·L)): the plain version
+    when ``plain`` or on CPU tensors, the kernel (csrc/tiles_scan.cu) on
+    CUDA tensors. Returns (values, rows, launched)."""
     dev = db.device
     if plain or dev.type == "cpu":
         step = torch.arange(steps, device=dev, dtype=torch.int64)
@@ -365,7 +495,8 @@ def _scan_slots(source: int, db, q, table, steps: int, sqnorm, *, tile_n: int,
             tiles = table.long()
         else:
             tiles = table.long()[:, None] + step
-        out = _scan_reference(db, q, tiles, sqnorm, tile_n, tile_q, l_buckets, n_valid)
+        out = _scan_reference(db, q, tiles, sqnorm, tile_n, tile_q, l_buckets, n_valid,
+                              top2)
         return (*out, False)
     if dev.type != "cuda":
         raise NotImplementedError(f"no whole-row scan for {dev.type} tensors")
@@ -374,14 +505,11 @@ def _scan_slots(source: int, db, q, table, steps: int, sqnorm, *, tile_n: int,
     out = _cuda.tiles_scan_slots(
         source, db, q.contiguous(), None if table is None else table.to(torch.int32).contiguous(),
         sqnorm, n_qt=q.shape[0] // tile_q, tile_q=tile_q, steps=steps, tile_n=tile_n,
-        l_buckets=l_buckets, n_valid=n_valid)
+        l_buckets=l_buckets, n_valid=n_valid, top2=top2)
     return (*out, True)
 
 
-def _check_arena(db, queries_sorted, tile_n: int, tile_q: int, int8, top2: bool,
-                 others=()) -> None:
-    if top2:
-        raise NotImplementedError("top2 arrives with the l2/top2 slice")
+def _check_arena(db, queries_sorted, tile_n: int, tile_q: int, int8, others=()) -> None:
     n = db.shape[0]
     nq = queries_sorted.shape[0]
     if n % tile_n or nq % tile_q:
@@ -397,7 +525,7 @@ def _check_arena(db, queries_sorted, tile_n: int, tile_q: int, int8, top2: bool,
 
 def _tiles_topk(db, queries_sorted, tile_table, k, tile_n, tile_q, l_buckets,
                 int8, n_valid, top2, plain):
-    _check_arena(db, queries_sorted, tile_n, tile_q, int8, top2, (tile_table,))
+    _check_arena(db, queries_sorted, tile_n, tile_q, int8, (tile_table,))
     l_buckets = _resolve_buckets(tile_n, l_buckets)
     n_qt = queries_sorted.shape[0] // tile_q
     if tile_table.dim() != 2 or tile_table.shape[0] != n_qt:
@@ -405,7 +533,7 @@ def _tiles_topk(db, queries_sorted, tile_table, k, tile_n, tile_q, l_buckets,
     out_v, out_i, launched = _scan_slots(
         SCAN_TABLE, db, queries_sorted, tile_table, tile_table.shape[1], None,
         tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets,
-        n_valid=db.shape[0] if n_valid is None else int(n_valid), plain=plain)
+        n_valid=db.shape[0] if n_valid is None else int(n_valid), plain=plain, top2=top2)
     tiles_topk.launches += launched
     return _final_topk(out_v, out_i, k)
 
@@ -420,7 +548,7 @@ def tiles_topk(
     l_buckets: int = 0,
     int8=False,      # True int8 x int8, 'hybrid' bf16 x int8, False native dtypes
     n_valid=None,    # true row count; rows >= n_valid never become candidates
-    top2: bool = False,
+    top2: bool = False,  # best two distinct rows a bucket: 2·L candidates
 ):
     """K3: top-k over each query tile's table of arena tiles: (Q_pad, k) f32
     scores and (Q_pad, k) int32 arena rows (module docstring). CUDA tensors
@@ -440,7 +568,7 @@ def tiles_topk_reference(db, queries_sorted, tile_table, k: int, tile_n: int = 2
 
 def _band_topk(db, queries_sorted, band_start, k, band_tiles, tile_n, tile_q,
                l_buckets, int8, n_valid, plain):
-    _check_arena(db, queries_sorted, tile_n, tile_q, int8, False, (band_start,))
+    _check_arena(db, queries_sorted, tile_n, tile_q, int8, (band_start,))
     l_buckets = _resolve_buckets(tile_n, l_buckets)
     n_qt = queries_sorted.shape[0] // tile_q
     if tuple(band_start.shape) != (n_qt,):

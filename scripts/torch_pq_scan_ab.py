@@ -7,9 +7,8 @@ Run from the repository root::
     python3 scripts/torch_pq_scan_ab.py [--source tiles_scan] [--only K2] [SOURCE.cu ...]
 
 The package's csrc/<source>.cu (default pq_scan) comes first, then each
-SOURCE.cu given (a whole variant of it, with the same C interface; a
-tiles_resid.cu without the centroid-term scratch, as it was before the
-prologue, is bound through its own argument list). Each is built by nvcc
+SOURCE.cu given (a whole variant of it, with the same C interface). Each is
+built by nvcc
 (all at once), bound in place of the package's library, held against the
 plain version (a build that fails the hold is logged and still timed) and
 timed (CUDA events, median) at the source's shapes whose name starts with
@@ -21,14 +20,15 @@ timed (CUDA events, median) at the source's shapes whose name starts with
   64 codes at B 4096;
 - tiles_scan: K3 at the whole-row path's plan (B 4096, 96 table entries of
   tile_q 32 over a 12.5M x 768 int8 arena of 2048-row tiles; hybrid and
-  int8 queries), K7 at its band plan (int8, tile_q 256, a band of every
+  int8 queries, and hybrid with top-2), K7 at its band plan (int8, tile_q 256, a band of every
   tile), and K2 at the flat cells' shapes: f32 l2 over 1M x 128 integer
   rows in [0, 255] against 10,000 such queries, int8 over 1M x 768 against
   4096 queries, f32 ip over 1M x 384 unit rows against 10,000 queries;
 - tiles_resid: K1 at the residual path's plan (B 4096, tile_q 32, 96 table
-  entries over a 12.5M x 768 int8 arena of 2048-row tiles with W 16
-  centroid rows a tile and valid_end holes) and at config #3's refine plan
-  (224 entries of a 10M-row arena).
+  entries over a 12.5M x 768 int8 arena of 2048-row tiles with W 36
+  centroid rows a tile and valid_end holes), there also with each contract
+  variant ('precise', a 10% row mask, l2 over a given bias, top-2), and at
+  config #3's refine plan (224 entries of a 10M-row arena).
 
 The builds run in turns (forward, then backward) at each shape; the line
 per (shape, build) is the mean of its two medians, beside the card's name
@@ -53,31 +53,6 @@ from cloudvectordb_tpu_torch.ops import _cuda, band, pq  # noqa: E402
 from cloudvectordb_tpu_torch.ops import flat_topk as flat  # noqa: E402
 
 
-class ResidBeforePrologue:
-    """A tiles_resid.cu library of the interface before the centroid-term
-    prologue (no scratch argument), bound so that ops/_cuda.py calls it as
-    the package's."""
-
-    def __init__(self, dll: ctypes.CDLL):
-        self.dll = dll
-        dll.cvdb_tiles_resid.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                                         + [ctypes.c_void_p])
-        dll.cvdb_tiles_resid.restype = ctypes.c_int
-        for fn in ("cvdb_tiles_resid_smem_bytes", "cvdb_cuda_error_string"):
-            argtypes, restype = _cuda._SIGNATURES["tiles_resid"][fn]
-            getattr(dll, fn).argtypes = argtypes
-            getattr(dll, fn).restype = restype
-        self.cvdb_tiles_resid_smem_bytes = dll.cvdb_tiles_resid_smem_bytes
-        self.cvdb_cuda_error_string = dll.cvdb_cuda_error_string
-
-    @staticmethod
-    def cvdb_tiles_resid_scratch_bytes(*_):
-        return 16
-
-    def cvdb_tiles_resid(self, *args):
-        return self.dll.cvdb_tiles_resid(*args[:8], *args[9:])  # no scratch
-
-
 def build(name: str, sources: list[Path], out: Path) -> dict[str, ctypes.CDLL]:
     """Each source built and bound as ops/_cuda.py binds library ``name``,
     by label (its position and file name)."""
@@ -96,9 +71,6 @@ def build(name: str, sources: list[Path], out: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{label}: nvcc failed\n{err}")
         dll = ctypes.CDLL(str(lib))
         print(f"[build] {label}: {'; '.join(c.ptxas_report(err))}", flush=True)
-        if name == "tiles_resid" and not hasattr(dll, "cvdb_tiles_resid_scratch_bytes"):
-            libs[label] = ResidBeforePrologue(dll)
-            continue
         for fn, (argtypes, restype) in _cuda._SIGNATURES[name].items():
             getattr(dll, fn).argtypes = argtypes
             getattr(dll, fn).restype = restype
@@ -146,8 +118,9 @@ def scan_shapes(dev):
     table = torch.randint(0, n_tiles, (c.B // 32, 96), generator=g, device=dev,
                           dtype=torch.int32)
     n_valid = n_tiles * tile_n - 1000
-    for label, qk, int8 in (("hybrid", q_bf, "hybrid"), ("int8", q8, True)):
-        kw = dict(tile_n=tile_n, tile_q=32, int8=int8, n_valid=n_valid)
+    for label, qk, int8, top2 in (("hybrid", q_bf, "hybrid", False), ("int8", q8, True, False),
+                                  ("hybrid top2", q_bf, "hybrid", True)):
+        kw = dict(tile_n=tile_n, tile_q=32, int8=int8, n_valid=n_valid, top2=top2)
         yield (f"K3 {label} B{c.B} p96 tq32", lambda a=(qk, kw): band.tiles_topk(
             db, a[0], table, c.K, **a[1]), lambda a=(qk, kw): band.tiles_topk_reference(
             db, a[0], table, c.K, **a[1]))
@@ -186,11 +159,12 @@ def flat_shapes(dev):
 
 def resid_shapes(dev):
     """K1 at the residual path's plan and at config #3's refine plan, on a
-    random arena: local ids rising through each tile's W = 16 lists, each
-    list's last eighth of rows past its valid_end."""
+    random arena: local ids rising through each tile's W = 36 lists (the
+    12.5M-row index's window), each list's last eighth of rows past its
+    valid_end."""
     g = torch.Generator(device=dev)
     g.manual_seed(4)
-    n_tiles, tile_n, w = 6104, 2048, 16
+    n_tiles, tile_n, w = 6104, 2048, 36
     db = torch.randint(-127, 128, (n_tiles * tile_n, c.D), generator=g, device=dev,
                        dtype=torch.int8)
     local = torch.sort(torch.randint(0, w, (n_tiles, tile_n), generator=g, device=dev),
@@ -204,14 +178,19 @@ def resid_shapes(dev):
     ct = (torch.randn((n_tiles, w, c.D), generator=g, device=dev) / c.D ** 0.5).to(torch.bfloat16)
     q = torch.randn((c.B, c.D), generator=g, device=dev)
     q = q / q.norm(dim=1, keepdim=True)
+    mask = (torch.rand(n_tiles * tile_n, generator=g, device=dev) < 0.1).to(torch.int8)
+    bias = -torch.rand(n_tiles * tile_n, generator=g, device=dev)
+    variants = {"": {}, " precise": dict(int8_q=False), " masked": dict(row_mask=mask),
+                " l2": dict(l2=True, row_bias=bias), " top2": dict(top2=True)}
     for p in (96, 224):
         table = torch.randint(0, n_tiles, (c.B // 32, p), generator=g, device=dev,
                               dtype=torch.int32)
-        args = dict(db_resid=db, local_ids=local.to(torch.uint8).reshape(-1),
-                    centroid_tiles=ct, resid_scale=0.00114, queries_sorted=q, tile_table=table,
-                    valid_end=valid_end, tile_n=tile_n, tile_q=32)
-        yield (f"K1 B{c.B} p{p} tq32", lambda a=args: band.tiles_topk_resid(**a, k=c.K),
-               lambda a=args: band.tiles_topk_resid_reference(**a, k=c.K))
+        for label, kw in variants.items() if p == 96 else [("", {})]:
+            args = dict(db_resid=db, local_ids=local.to(torch.uint8).reshape(-1),
+                        centroid_tiles=ct, resid_scale=0.00114, queries_sorted=q,
+                        tile_table=table, valid_end=valid_end, tile_n=tile_n, tile_q=32, **kw)
+            yield (f"K1{label} B{c.B} p{p} tq32", lambda a=args: band.tiles_topk_resid(**a, k=c.K),
+                   lambda a=args: band.tiles_topk_resid_reference(**a, k=c.K))
 
 
 SHAPES = {"pq_scan": pq_shapes,

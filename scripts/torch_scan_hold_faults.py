@@ -21,12 +21,18 @@ include to a temporary directory (the package's sources are not touched):
 - ``local`` (K1's epilogue): a row takes the centroid term of the next local
   list, not its own;
 - ``valid_end`` (K1's epilogue): rows past their list's valid_end are scored;
+- ``mask`` (K1's epilogue): the row mask is not applied;
+- ``bias`` (K1's epilogue): the l2 key drops the row's bias;
+- ``dup`` (the top-2 merge, slot_merge.cuh): a repeated table entry's best
+  row, already in slot 1, races for slot 2 too;
 - ``sqnorm`` (the f32 body): the l2 bias drops |x|^2 (scores 2 q.x);
 - ``last_tile`` (the rows of a flat scan): the ragged last tile is never
   scored.
 
 Then it holds K1 against its exact f64 scores at two of chip_smoke.py's
-small shapes (R 1 and R 4, D 768, valid_end cutting every list) and, as
+small shapes (R 1 and R 4, D 768, valid_end cutting every list; there also
+with a 50% row mask against ``mask``, with l2 against ``bias`` and with
+top-2 over a table that repeats entries against ``dup``) and, as
 chip_smoke.py does, over the residual index (12.5M x 768, nlist 4096) at
 (p_tiles, tile_q) = (96, 32), every fault but valid_end there (the arena has
 too few rows past a valid_end for the top-10 to see it); then the whole-row
@@ -49,6 +55,7 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -79,6 +86,14 @@ FAULTS = {
     "valid_end": {"tiles_resid.cu": [(
         "if (x.row0 + slot >= reinterpret_cast<const int32_t*>(side + at.ve)[li]) "
         "return -INFINITY;", "")]},
+    "mask": {"tiles_resid.cu": [(
+        "if (side[at.mask + static_cast<int>(x.row0 & 3) + slot] == 0) return -INFINITY;",
+        ";")]},
+    "bias": {"tiles_resid.cu": [(
+        "if constexpr (L2) return __fadd_rn(s, reinterpret_cast<const float*>(side + at.bias)"
+        "[slot]);", "if constexpr (L2) return s;")]},
+    "dup": {"slot_merge.cuh": [("const bool dup = !use_t && ni == i1;",
+                                "const bool dup = false;")]},
     "sqnorm": {"tiles_scan.cu": [("__fsub_rn(2.f * acc[i][jj], bias)", "2.f * acc[i][jj]")]},
     "last_tile": {"tiles_scan.cu": [(
         "x.n_rows = x.row0 < 0 ? 0 : (int)max(0LL, hi);",
@@ -160,6 +175,14 @@ def holds_k1(libs, dev, chunk_fn, queries) -> list[str]:
                       lambda: band.tiles_topk_resid(**a, k=c.K, l_buckets=lb),
                       lambda: band.tiles_topk_resid_reference(**a, k=c.K, l_buckets=lb),
                       faults, exact=c.resid_exact(a))
+        a["tile_table"][:, 1] = a["tile_table"][:, 0]  # a repeat next to its first
+        for variant, fault in (("masked", "mask"), ("l2", "bias"), ("top2", "dup")):
+            v = c.variant_args(a, variant, np.random.default_rng(seed))
+            wrong += hold(libs, "tiles_resid", f"K1 {variant} small shape R{r_blocks} W3 D768",
+                          lambda v=v: band.tiles_topk_resid(**v, k=4 * c.K, l_buckets=lb),
+                          lambda v=v: band.tiles_topk_resid_reference(**v, k=4 * c.K,
+                                                                      l_buckets=lb),
+                          [fault], exact=c.resid_exact(v))
     idx, _ = c.build_index(dev, chunk_fn, c.N_ROWS // c.CHUNK, True)
     p_tiles, tq = c.MAIN_OP
     args = c.k1_plan(idx, queries, p_tiles, tq)

@@ -171,18 +171,37 @@ def test_search_device_matches_search(data, jidx):
     np.testing.assert_array_equal(v_d.numpy(), v_h)
 
 
+def _assert_same_scored(t, j, q, **kw):
+    """Values within 1e-4 (l2 keys: 2e-4) and ids equal on >= 99% of slots,
+    every mismatch a near-tie."""
+    tol = 2e-4 if t.metric == "l2" else 1e-4
+    vj, ij = j.search(q, 10, **kw)
+    vt, it = t.search(q, 10, **kw)
+    np.testing.assert_allclose(vt, vj, atol=tol, rtol=0)
+    same = it == ij
+    assert same.mean() >= 0.99 and np.all(np.abs(vt - vj)[~same] <= tol)
+
+
 def test_unported_options_raise(data, jidx, tmp_path):
+    """Slack arenas, add() and other index kinds still raise; l2, top2 and
+    'precise', which this test once refused, are held to the reference."""
+    db, q, gt = data
     with pytest.raises(NotImplementedError):
         BandIVFIndex(64, 16, residual=True, slack=0.5, device="cpu")
-    with pytest.raises(NotImplementedError):
-        BandIVFIndex(64, 16, residual=True, metric="l2", device="cpu")
-    t = BandIVFIndex.from_state(jidx._state_meta(), jidx._state_arrays(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.search(data[1], 10, top2=True)  # K1's top2 variant
+    meta, arrays = jidx._state_meta(), jidx._state_arrays()
+    t = BandIVFIndex.from_state(meta, arrays, device="cpu")
+    for kw in (dict(top2=True), dict(scoring="precise"), dict(top2=True, scoring="precise")):
+        _assert_same_scored(t, jidx, q, p_tiles=8, **kw)
+    assert recall_at_k(t.search(q, 10, p_tiles=8, scoring="precise")[1], gt) >= (
+        recall_at_k(t.search(q, 10, p_tiles=8)[1], gt) - 0.01)
+    t._op_point = {"p_tiles": 8, "tile_q": 16, "top2": True}  # top2=None reads it
+    np.testing.assert_array_equal(t.search(q, 10)[1], t.search(q, 10, p_tiles=8, top2=True)[1])
+    t_l2 = BandIVFIndex.from_state(meta, arrays, device="cpu", metric="l2")
+    j_l2 = JaxBandIVFIndex._from_state({"dim": 64, "meta": meta, "metric": "l2"}, arrays)
+    assert BandIVFIndex(64, 16, residual=True, metric="l2", device="cpu").metric == "l2"
+    _assert_same_scored(t_l2, j_l2, q, p_tiles=8)
     with pytest.raises(NotImplementedError):
         t.add(data[0][:4])
-    with pytest.raises(NotImplementedError):
-        t.search(data[1], 10, scoring="precise")
     (tmp_path / "pq").mkdir()
     (tmp_path / "pq" / "manifest.json").write_text(json.dumps(
         {"kind": "ivf_pq", "meta": {}, "arrays": []}))

@@ -108,14 +108,92 @@ def test_fully_masked_slots_stay_unfilled():
     np.testing.assert_array_equal(i, i_jax)
 
 
+def _run_variant(fn, x, k, l_buckets, kw, mask):
+    """One K1 call with the options ``kw`` and allow bits ``mask`` (or
+    None): the reference's Pallas kernel when ``fn`` is None."""
+    if fn is None:
+        v, i = tiles_topk_resid_pallas(
+            x["payload"], x["local"], x["ct"], x["scale"], x["queries"], x["table"], k,
+            x["valid_end"], tile_n=x["tile_n"], tile_q=x["tile_q"], l_buckets=l_buckets,
+            interpret=True, row_mask=None if mask is None else mask[None, :], **kw)
+        return np.asarray(v), np.asarray(i)
+    t = torch.as_tensor
+    v, i = fn(t(x["payload"]), t(x["local"]), t(x["ct"]), x["scale"], t(x["queries"]),
+              t(x["table"]), k, t(x["valid_end"]), tile_n=x["tile_n"], tile_q=x["tile_q"],
+              l_buckets=l_buckets, row_mask=None if mask is None else t(mask), **kw)
+    return v.numpy(), i.numpy()
+
+
+def _assert_variant_agrees(x, k, l_buckets, kw, mask):
+    v_jax, i_jax = _run_variant(None, x, k, l_buckets, kw, mask)
+    v, i = _run_variant(band.tiles_topk_resid_reference, x, k, l_buckets, kw, mask)
+    live = np.isfinite(v_jax)
+    np.testing.assert_array_equal(np.isfinite(v), live)
+    np.testing.assert_allclose(v[live], v_jax[live], atol=TOL, rtol=0)
+    same = (i == i_jax) | ~live
+    assert same.mean() >= 0.995, same.mean()
+    assert np.all(np.abs(v - v_jax)[~same] <= TOL)
+    v_w, i_w = _run_variant(band.tiles_topk_resid, x, k, l_buckets, kw, mask)
+    np.testing.assert_array_equal(v_w, v)  # the wrapper's CPU path is the plain version
+    np.testing.assert_array_equal(i_w, i)
+    return v, i
+
+
+#: K1's options: (options, allow bits); l2 keys reach ~60 here, where f32
+#: steps are 4e-6, still far inside TOL
+VARIANTS = {"precise": (dict(int8_q=False), False), "l2": (dict(l2=True), False),
+            "top2": (dict(top2=True), False), "row_mask": ({}, True),
+            "all_four": (dict(int8_q=False, l2=True, top2=True), True)}
+
+
+@pytest.mark.parametrize("l_buckets,k", [(0, 10), (64, 10), (16, 24)],
+                         ids=["R1", "R4", "R16_k_gt_L"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_variants_match_pallas_interpret(variant, l_buckets, k):
+    """Each contract variant of K1 (and all four at once) against the
+    reference's kernel: R 1, 4 and 16 (k above L, so top-2's second slots
+    rank), valid_end holes, a repeated table entry, a 50% row mask."""
+    kw, masked = VARIANTS[variant]
+    x = _inputs(30 + len(variant))
+    mask = ((np.random.default_rng(31).random(x["payload"].shape[0]) < 0.5).astype(np.int8)
+            if masked else None)
+    v, i = _assert_variant_agrees(x, k, l_buckets, kw, mask)
+    assert np.isfinite(v).any()
+    if masked:
+        assert mask[i[np.isfinite(v)]].all()
+    if kw.get("top2") and k > (l_buckets or x["tile_n"]):
+        assert np.isfinite(v[:, l_buckets:]).any()  # the second slots reached the top-k
+
+
 @pytest.mark.parametrize("kw", [dict(l2=True), dict(top2=True), dict(int8_q=False)])
 def test_unported_variants_raise(kw):
-    x = _inputs(5)
+    """The three variants this file once refused (NotImplementedError) are
+    now ported: each is held against the reference's kernel, at R 4."""
+    _assert_variant_agrees(_inputs(5), 12, 64, kw, None)
+
+
+def test_row_bias_is_the_reference_expression():
+    """``resid_row_bias`` (the CPU path: the plain version) gives each row
+    -s²‖r‖²/2 - s·(c·r) - ‖c‖²/2 in f64 to f32 accuracy, and K1's l2 key
+    less its ip score is that bias on every filled slot."""
+    x = _inputs(8, p=1)  # one tile a query tile: its slots hold every row of it
     t = torch.as_tensor
-    with pytest.raises(NotImplementedError):
-        band.tiles_topk_resid(t(x["payload"]), t(x["local"]), t(x["ct"]), 0.1,
-                              t(x["queries"]), t(x["table"]), 10,
-                              t(x["valid_end"]), tile_n=256, tile_q=16, **kw)
+    bias = band.resid_row_bias(t(x["payload"]), t(x["local"]), t(x["ct"]), x["scale"],
+                               x["tile_n"]).numpy()
+    r = x["payload"].astype(np.float64)
+    c = x["ct"].astype(np.float64)[np.arange(r.shape[0]) // x["tile_n"], x["local"][0]]
+    s = np.float64(np.float32(x["scale"]))
+    exact = -0.5 * s * s * (r * r).sum(1) - s * (c * r).sum(1) - 0.5 * (c * c).sum(1)
+    np.testing.assert_allclose(bias, exact, atol=2e-5, rtol=0)
+    k = x["tile_n"]
+    v_ip, i_ip = _run_variant(band.tiles_topk_resid, x, k, 0, {}, None)
+    v_l2, i_l2 = _run_variant(band.tiles_topk_resid, x, k, 0, dict(l2=True), None)
+    for q in range(v_ip.shape[0]):
+        live = np.isfinite(v_ip[q])
+        key = dict(zip(i_l2[q][np.isfinite(v_l2[q])], v_l2[q][np.isfinite(v_l2[q])]))
+        assert sorted(key) == sorted(i_ip[q][live])
+        for val, row in zip(v_ip[q][live], i_ip[q][live]):
+            assert abs(key[row] - (val + bias[row])) <= TOL
 
 
 def test_query_quantization_is_the_reference_byte_for_byte():
@@ -186,3 +264,24 @@ def test_exact_scorer_fails_a_planted_wrong_local_id(fault):
         x["valid_end"][row // x["tile_n"], x["local"][0, row]] = row
     exact = c.resid_exact(_exact_args(x))
     assert _exact_gap(exact, v[:1, :1], i[:1, :1]) > c.SCORE_TOL
+
+
+def test_hold_fails_a_repeated_id(monkeypatch):
+    """chip_smoke.py's compare fails a kernel whose results name one row
+    twice for a query (a top-2 merge that lets slot 1's row into slot 2),
+    even where each id's score is its exact score."""
+    c = _chip_smoke()
+
+    def fake(ids):
+        fake.launches += 1
+        return v, ids
+
+    fake.launches = 0
+    monkeypatch.setitem(c.WRAPPERS, "Kt", fake)
+    monkeypatch.setattr(c, "sync", lambda: None)  # no card here
+    v = torch.tensor([[3.0, 2.0, 1.0]])
+    i = torch.tensor([[7, 9, 4]], dtype=torch.int32)
+    dup = torch.tensor([[7, 7, 4]], dtype=torch.int32)
+    c.compare("Kt distinct", lambda: fake(i), lambda: (v, i), quiet=True)
+    with pytest.raises(AssertionError, match="an id repeats"):
+        c.compare("Kt repeated", lambda: fake(dup), lambda: (v, dup), quiet=True)

@@ -21,6 +21,8 @@ same quantizers.
    the tuners of both packages prune the same candidates.
 """
 
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -221,6 +223,29 @@ def test_unported_options_raise(data, jax_builds):
             call()
     with pytest.raises(ValueError):  # no refine rows to scan
         t.search(data[1], 10, serve_from="refine")
+
+
+def test_filters_and_l2_still_refused(data, jax_builds, tmp_path):
+    """BandIVFIndex's where=, top2-free l2 and their caches do not leak into
+    the PQ subclass: where= (search and search_device) and metric='l2' (the
+    constructor and a saved l2 manifest) raise, naming item 13."""
+    j = jax_builds("resid_int8")
+    t = BandIVFPQIndex.build(data[0], device="cpu", **dict(KW, **_same_quantizers(j)))
+    mask = np.ones(data[0].shape[0], bool)
+    for call in (lambda: t.search(data[1], 10, where=mask),
+                 lambda: t.search_device(torch.from_numpy(data[1]), 10, where=mask),
+                 lambda: t.search(data[1], 10, where=mask, serve_from="refine"),
+                 lambda: BandIVFPQIndex(64, 16, m=8, metric="l2", device="cpu")):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            call()
+    t.save(tmp_path / "pq")
+    manifest = json.loads((tmp_path / "pq" / "manifest.json").read_text())
+    (tmp_path / "pq" / "manifest.json").write_text(json.dumps(dict(manifest, metric="l2")))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        load_index(tmp_path / "pq", device="cpu")
+    # its refine route still takes K1's unfiltered ip top-1 variant
+    v, ids = t.search(data[1], 10, serve_from="refine", p_tiles=4)
+    assert np.isfinite(v).all() and (ids >= 0).all()
 
 
 @pytest.mark.parametrize("tile_n,expect", [(1024, 256), (384, 256)])

@@ -156,8 +156,9 @@ def test_refused_and_unported_options(data, jidx):
                                             nlist=4, dtype="float32", device="cpu")
     t = BandIVFIndex.from_state(jidx["int8"]._state_meta(), jidx["int8"]._state_arrays(),
                                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.search(q, 10, top2=True)
+    # top2, once refused here, is held to the reference (K3's two slots a bucket)
+    for scoring in ("hybrid", "int8"):
+        _assert_same_search(t, jidx["int8"], q, data[2], p_tiles=8, top2=True, scoring=scoring)
     with pytest.raises(ValueError):
         t.search(q, 10, strategy="bands")
     resid = BandIVFIndex.build(db, residual=True, device="cpu", **KW)

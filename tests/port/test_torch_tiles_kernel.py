@@ -90,6 +90,31 @@ def test_tiles_reference_matches_pallas_interpret(mode, l_buckets, d, tile_q):
     assert np.isfinite(v.numpy()).all()
 
 
+@pytest.mark.parametrize("l_buckets,k", [(0, 10), (64, 10), (16, 24)],
+                         ids=["R1", "R4", "R16_k_gt_L"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_tiles_top2_matches_pallas_interpret(mode, l_buckets, k):
+    """K3's top2 (best two distinct rows a bucket, 2·L candidates) against
+    the reference, every score mode; the table repeats an entry (the
+    repeat must change nothing) and n_valid cuts the last tile. With k
+    above L the second slots rank."""
+    x = _inputs(6, mode, d=100, tile_q=48)
+    x["table"][:, 2] = x["table"][:, 1]  # a second repeat, next to its first
+    kw = dict(tile_n=x["tile_n"], tile_q=x["tile_q"], l_buckets=l_buckets,
+              int8=x["int8"], n_valid=x["n_valid"], top2=True)
+    v_j, i_j = tiles_topk_pallas(jnp.asarray(x["db"]), jnp.asarray(x["q"]),
+                                 jnp.asarray(x["table"]), k, interpret=True, **kw)
+    args = (_torch(x["db"]), _torch(x["q"]), torch.from_numpy(x["table"]), k)
+    v, i = band.tiles_topk(*args, **kw)
+    _assert_agree(mode, v_j, i_j, v.numpy(), i.numpy())
+    assert np.isfinite(v.numpy()).all()
+    for q in range(i.shape[0]):  # the two slots of a bucket hold distinct rows
+        assert len(set(i[q].tolist())) == k
+    if k > (l_buckets or x["tile_n"]):  # top-2's slots are a superset of top-1's
+        top1 = band.tiles_topk(*args, **dict(kw, top2=False))[0].numpy()
+        assert top1.shape[1] == l_buckets and (v.numpy()[:, :l_buckets] >= top1).all()
+
+
 @SHAPES
 @pytest.mark.parametrize("mode", list(MODES))
 def test_band_reference_matches_pallas_interpret_clamped(mode, d, tile_q):
@@ -131,10 +156,15 @@ def test_wrappers_cpu_path_is_the_reference():
 
 
 def test_top2_and_wrong_score_modes_raise():
+    """top2, which this test once refused, is held against the reference
+    (int8: values and ids equal outright); wrong score modes still raise."""
     x = _inputs(5, "int8")
     args = (_torch(x["db"]), _torch(x["q"]), torch.from_numpy(x["table"]), 10)
-    with pytest.raises(NotImplementedError):
-        band.tiles_topk(*args, tile_n=256, tile_q=16, int8=True, top2=True)
+    v_j, i_j = tiles_topk_pallas(jnp.asarray(x["db"]), jnp.asarray(x["q"]),
+                                 jnp.asarray(x["table"]), 10, tile_n=256, tile_q=16,
+                                 int8=True, top2=True, interpret=True)
+    v, i = band.tiles_topk(*args, tile_n=256, tile_q=16, int8=True, top2=True)
+    _assert_agree("int8", v_j, i_j, v.numpy(), i.numpy())
     with pytest.raises(TypeError):  # int8 queries are not the hybrid mode's
         band.tiles_topk(*args, tile_n=256, tile_q=16, int8="hybrid")
     with pytest.raises(TypeError):  # int8 rows need the int8 flag
@@ -191,17 +221,20 @@ _NARROW, _WIDE = "6TcCfgILi8ELi1ELi1ELi3ELi128EE", "6TcCfgILi2ELi4ELi2ELi4ELi256
 
 
 def _scan_functions(f32_op: str = "FFMA R1, R2, R3, R1") -> dict[str, list[str]]:
-    """tiles_scan.cu's kernels as its SASS names them: 12 tensor-core
-    instantiations (three sources x three pairs narrow, three int8 wide),
-    6 of the f32 body (three sources x f32 and bf16 rows)."""
+    """tiles_scan.cu's kernels as its SASS names them: 15 tensor-core
+    instantiations (three sources x three pairs narrow, three int8 wide,
+    K3's top-2 over the three pairs), 6 of the f32 body (three sources x f32
+    and bf16 rows)."""
     op = {0: "IMMA.16832.S8.S8 R16, R20, R24, R16", 1: "HMMA.16816.F32.BF16 R4, R8, R12, R4",
           2: "HMMA.16816.F32.BF16 R4, R8, R12, R4"}
+    tc = "_ZN12_GLOBAL__N_115tiles_tc_kernelILi{}ELi{}E{}Lb{}EEEvNS_6TcArgsE"
     fns = {}
     for src in range(3):
         for pair in range(3):
-            fns[f"_ZN12_GLOBAL__N_115tiles_tc_kernelILi{src}ELi{pair}E{_NARROW}EEvNS_6TcArgsE"] = [
-                "LDSM.16.M88.4 R8, [R2]", op[pair]]
-        fns[f"_ZN12_GLOBAL__N_115tiles_tc_kernelILi{src}ELi0E{_WIDE}EEvNS_6TcArgsE"] = [op[0]]
+            fns[tc.format(src, pair, _NARROW, 0)] = ["LDSM.16.M88.4 R8, [R2]", op[pair]]
+            if src == 1:
+                fns[tc.format(src, pair, _NARROW, 1)] = ["LDSM.16.M88.4 R8, [R2]", op[pair]]
+        fns[tc.format(src, 0, _WIDE, 0)] = [op[0]]
         for rt in ("f", "13__nv_bfloat16"):
             fns[f"_ZN12_GLOBAL__N_116tiles_f32_kernelILi{src}E{rt}EEvNS_7F32ArgsE"] = [
                 "LDS.128 R4, [R2]", f32_op]
@@ -226,24 +259,48 @@ def test_sass_checks_of_the_scan_refuse_tensor_cores_in_the_f32_body():
     fns[next(iter(fns))] = ["LDSM.16.M88.4 R8, [R2]", "IDP.4A.S8.S8 R1, R2, R3, R1"]
     with pytest.raises(AssertionError, match="ALL int8 narrow"):
         chip_smoke.scan_tensor_core_check(chip_smoke.sass_tensor_core_counts(_sass(fns)))
+    fns = _scan_functions()  # a top-2 instantiation without its instruction
+    fns[[k for k in fns if "ILi1ELi1E" in k and "Lb1E" in k][0]] = ["FFMA R1, R2, R3, R1"]
+    with pytest.raises(AssertionError, match="TABLE hybrid narrow top2"):
+        chip_smoke.scan_tensor_core_check(chip_smoke.sass_tensor_core_counts(_sass(fns)))
 
 
 def test_sass_checks_count_k1s_kernels():
-    """K1's scan and its centroid-term prologue are found by their names in
-    tiles_resid.cu's SASS and counted: IMMA in the scan, HMMA in the
-    prologue; either missing fails resid_tensor_core_check."""
+    """K1's 16 scan instantiations (int8 or 'precise' queries x mask x l2 x
+    top-2) and its centroid-term prologue are found by their names in
+    tiles_resid.cu's SASS and counted: IMMA in the int8 scans, HMMA in the
+    'precise' ones and in the prologue; a missing one, or one without its
+    instruction, fails resid_tensor_core_check."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke
 
-    scan = "_ZN12_GLOBAL__N_117resid_scan_kernelE6TcScanNS_5ResidE"
+    imma, hmma = "IMMA.16832.S8.S8 R16, R20, R24, R16", "HMMA.16816.F32.BF16 R4, R8, R12, R4"
+    scan = ("_ZN12_GLOBAL__N_117resid_scan_kernelILi{}ELb{}ELb{}ELb{}EEEv6TcScan"
+            "NS_5ResidIXT0_EXT1_EEE")
     prologue = "_ZN12_GLOBAL__N_121resid_centroid_kernelEPK13__nv_bfloat16S2_PKiPfxiiiii"
-    sass = _sass({scan: ["IMMA.16832.S8.S8 R16, R20, R24, R16", "IMMA.16832.S8.S8 R8, R20, R26, R8",
-                         "FADD R1, R2, R3"],
-                  prologue: ["HMMA.16816.F32.BF16 R4, R8, R12, R4", "FADD R1, R2, R3"]})
-    counts = chip_smoke.sass_tensor_core_counts(sass)
-    assert {chip_smoke.kernel_name(k): v for k, v in counts.items()} == {
-        "resid_scan_kernel": ({"IMMA": 2}, 3), "resid_centroid_kernel": ({"HMMA": 1}, 2)}
+    bias = "_ZN12_GLOBAL__N_117resid_bias_kernelEPKaPKhPK13__nv_bfloat16Pfxiiif"
+
+    def fns():
+        out = {scan.format(p, m, l, t): [imma if p == 0 else hmma, "FADD R1, R2, R3"]
+               for p in (0, 1) for m in (0, 1) for l in (0, 1) for t in (0, 1)}
+        out[prologue] = [hmma, "FADD R1, R2, R3"]
+        out[bias] = ["FFMA R1, R2, R3, R1"]
+        return out
+
+    counts = chip_smoke.sass_tensor_core_counts(_sass(fns()))
+    assert sum(chip_smoke.kernel_name(k) == "resid_scan_kernel" for k in counts) == 16
+    assert counts[scan.format(1, 1, 0, 1)] == ({"HMMA": 1}, 2)
+    assert chip_smoke.resid_label(scan.format(1, 1, 0, 1)) == "scan precise mask top2"
     chip_smoke.resid_tensor_core_check(counts)
-    with pytest.raises(AssertionError, match="resid_centroid_kernel"):
-        chip_smoke.resid_tensor_core_check(chip_smoke.sass_tensor_core_counts(
-            _sass({scan: ["IMMA.16832.S8.S8 R16, R20, R24, R16"], prologue: ["FFMA R1, R2, R3, R1"]})))
+    for fault, match in (("prologue", "16 scan"), ("precise", "scan precise l2"),
+                         ("missing", "15 scan")):
+        f = fns()
+        if fault == "prologue":
+            f[prologue] = ["FFMA R1, R2, R3, R1"]
+            match = "resid_centroid_kernel"
+        elif fault == "precise":
+            f[scan.format(1, 0, 1, 0)] = [imma]  # int8 instructions in a bf16 scan
+        else:
+            del f[scan.format(0, 1, 1, 1)]
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.resid_tensor_core_check(chip_smoke.sass_tensor_core_counts(_sass(f)))
