@@ -72,7 +72,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (values and ids equal outright), and hybrid top-2 (held as hybrid) at
    the tuned op point, again at (96, 32) if the tuner picked another point;
    K7 at the band plan (values and ids equal outright);
-7. the flat path: ``FlatIndex`` at BASELINE config #1's shape (1M x 128
+7. mutation (``run_mutation``, the launch counts of K1, K3 and K7 reset
+   just before and read just after, at the residual path's op point, each
+   state's recall@10 against its own exact f32 ground truth from one pass
+   over its rows): scripts/bench_fold.py's protocol (the residual index
+   with merge_headroom 0.06; five adds of 131,072 rows of further chunks of
+   the corpus, the first pending, the fifth past the 5% threshold folding
+   all 655,360 into the annex; a batch under a random 10% filter;
+   ``merge_pending`` in place: the arena's buffer and capacity kept), then
+   scripts/bench_remove.py's (a slack 0.05 arena, four fenced rounds of
+   8,192 removes of random live ids, K1 held against its plain version on
+   the mutated arena at the op point, a refill of 8,192 rows in place, a
+   filtered batch under a filter built before the removes), then whole
+   rows (1M x 768 int8, 131,072 added rows in the annex through the tiles
+   and band strategies, 8,192 removed by the compact path); recall@10 >=
+   0.90 in every residual state (0.80 whole rows), no removed id returned,
+   no -1 in a filled slot, self-hit@1 of 256 added rows >= 0.99 while
+   pending or in the annex and >= 0.90 merged;
+8. the flat path: ``FlatIndex`` at BASELINE config #1's shape (1M x 128
    SIFT-like f32 rows: clustered, non-negative, integer-valued, made on the
    device; 10,000 queries; l2; k 10) must reach recall@10 0.99 against the
    exact f32 scan, and at bench.py's int8 flat shape (1M x 768 of the
@@ -80,7 +97,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    then K2 against its plain version at both shapes, values and ids equal
    outright (int8 is exact; the f32 l2 rows and queries are integers whose
    every partial sum is exact in f32), both timed;
-8. the PQ-tiles path at BASELINE config #3 (``run_pq``): the first 10M
+9. the PQ-tiles path at BASELINE config #3 (``run_pq``): the first 10M
    rows of the corpus, ``BandIVFPQIndex.build_device_streaming`` (nlist
    4096, m 64, nbits 8, OPQ, residual int8 refine, k-means 10 and PQ 8
    iterations), ``tune``, the refine route (K1) at the op point (recall@10
@@ -93,22 +110,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version's through their exact f64 scores, as EXACT_TIE says, and
    each score to its id's exact score); the index is freed before the next
    phase;
-9. K6 (``pq_topk``, ``run_k6``): codebooks trained (m 64) on 65,536
+10. K6 (``pq_topk``, ``run_k6``): codebooks trained (m 64) on 65,536
    corpus rows, 1M rows encoded, the 4096 queries, k 10: recall against the
    exact scan, then K6 against its plain version as K5, both timed;
-10. K4 (mha_small_head) against its plain version, forward outputs and dq,
+11. K4 (mha_small_head) against its plain version, forward outputs and dq,
    dk, dv: L 128, 256 and 512, (H, d) (12, 32) and (12, 64), f32 and bf16,
    and (12, 16) bf16, ragged key padding and a fully masked sequence; each
    check must count one forward and one backward launch, and each bf16
    backward must give bit-identical gradients in two runs;
-11. training: ``Trainer.fit`` on minilm-l6-384 at full width (bf16, max_len
+12. training: ``Trainer.fit`` on minilm-l6-384 at full width (bf16, max_len
    128, no probs dropout, 'auto'), 20 steps of 512 learnable triplets made
    on the device; finite losses, K4 forward and backward launched once per
    layer and step; from the checkpoint fit wrote, one step through 'auto'
    (K4) against one through 'naive' (dropout 0): loss within 1e-2 and grad
    norm within 1% relative; ms/step of 'auto', 'naive' and 'fused' (SDPA),
    and a torch.profiler split of one step;
-12. encoding and search: 1,000,000 passages of device-made token ids
+13. encoding and search: 1,000,000 passages of device-made token ids
    (lengths 16-128, padded to 128) through 'packed' (K4, launches counted)
    in batches of 1024 into ``FlatIndex(384)``; passages/s, also for
    'naive' and 'fused'; mean cosine 'packed' vs 'naive' on 4096 passages
@@ -118,7 +135,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``FlatIndex.search`` (K2) must reach recall@10 0.99 against the exact
    scan; then K2 (f32 ip, 1M x 384, 10,000 queries) against its plain
    version, both timed, with its bound;
-13. K4 at the main path's shapes (bf16, B 1536 forward and backward, B 1024
+14. K4 at the main path's shapes (bf16, B 1536 forward and backward, B 1024
    forward) against its plain version (with SDPA's own distance to it, and
    the backward bit-identical in two runs, at B 1536), timed beside torch's
    scaled_dot_product_attention (K4 and SDPA as the mean of 20 calls back to
@@ -232,9 +249,10 @@ KERNELS["K1b"] = {"name": "resid_row_bias", "route": "cuda",
 #: its own in the kernels line: K1 over config #3's refine arena (cell 7),
 #: K2 over int8 rows (cell 4) and over the encoded passages (cell 6); K1's
 #: 'precise', filtered (row_mask), l2 and top-2 searches and K3's top-2
-#: (cells 1 and 2)
+#: (cells 1 and 2); K1 over the slack arena after its removes (cell 9)
 SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2", "K1 precise": "K1",
-                 "K1 masked": "K1", "K1 l2": "K1", "K1 top2": "K1", "K3 top2": "K3"}
+                 "K1 masked": "K1", "K1 l2": "K1", "K1 top2": "K1", "K3 top2": "K3",
+                 "K1 mutated": "K1"}
 KERNELS.update({key: dict(KERNELS[base], **({"name": f"{KERNELS[base]['name']} "
                                                      f"{key.split()[1]}"}
                                             if key.split()[1] in VARIANTS else {}))
@@ -1165,7 +1183,8 @@ def run_residual(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> d
     mp = k1_check(f"main path B{queries.shape[0]} p{p_tiles} tq{tq}", idx,
                   k1_plan(idx, queries, p_tiles, tq), reps=10, plain_reps=3)
     out = run_resid_variants(dev, idx, chunk_fn, n_chunks, queries, gt, card, p_tiles, tq)
-    return dict(launches={"K1": launches, **out["launches"]}, mp={"K1": mp, **out["mp"]})
+    return dict(launches={"K1": launches, **out["launches"]}, mp={"K1": mp, **out["mp"]},
+                op=(p_tiles, tq))
 
 
 #: filtered search at full width: random filters by fraction of the gids,
@@ -1175,17 +1194,17 @@ FILTER_FRACS = {"random 10%": 0.10, "random 0.1%": 0.001}
 CORRELATED_LISTS = 32
 
 
-def make_filters(idx, dev) -> dict:
-    """name -> (N_ROWS,) bool allow mask by gid, on the device."""
+def make_filters(idx, dev, n_ids: int = N_ROWS) -> dict:
+    """name -> (n_ids,) bool allow mask by gid, on the device."""
     g = torch.Generator(device=dev)
     g.manual_seed(4242)
-    masks = {name: torch.rand(N_ROWS, generator=g, device=dev) < frac
+    masks = {name: torch.rand(n_ids, generator=g, device=dev) < frac
              for name, frac in FILTER_FRACS.items()}
     # the window of adjacent lists whose rows come nearest an average window's
     sums = idx._offsets[CORRELATED_LISTS:] - idx._offsets[:-CORRELATED_LISTS]
     l0 = int(np.argmin(np.abs(sums - CORRELATED_LISTS * N_ROWS / idx.nlist)))
     rows = idx._ids[idx._offsets[l0]:idx._offsets[l0 + CORRELATED_LISTS]]
-    corr = torch.zeros(N_ROWS, dtype=torch.bool, device=dev)
+    corr = torch.zeros(n_ids, dtype=torch.bool, device=dev)
     corr[torch.as_tensor(rows[rows >= 0], device=dev)] = True
     masks[f"correlated {CORRELATED_LISTS} lists"] = corr
     return masks
@@ -1592,6 +1611,277 @@ def k7_hold(idx, queries, reps: int) -> dict:
 
 
 # -- the flat path ------------------------------------------------------------
+# -- mutation ---------------------------------------------------------------------
+#: the mutation phase: scripts/bench_fold.py's protocol (merge_headroom, five
+#: adds of MUT_ADD rows, the fifth past the 5% fold threshold, an in-place
+#: merge) and scripts/bench_remove.py's (slack, MUT_ROUNDS rounds of
+#: MUT_REMOVE removes, a refill of MUT_REMOVE adds), then whole rows at a
+#: smaller depth
+MUT_ADD, MUT_ADDS, MUT_HEADROOM = 131_072, 5, 0.06
+MUT_SLACK, MUT_REMOVE, MUT_ROUNDS = 0.05, 8192, 4
+WHOLE_MUT_ROWS = 1_000_000
+#: self-hit@1 of added rows queried with themselves at full coverage, as
+#: the reference's test does: exact while pending or in the annex, the
+#: reference's bar once merged (tests/unit/test_band_ivf.py:538)
+SELF_HIT_ROWS, SELF_HIT_EXACT, SELF_HIT_MERGED = 256, 0.99, 0.90
+
+
+def added_rows(chunk_fn, n_chunks: int, j: int, n: int = MUT_ADD) -> torch.Tensor:
+    """The j-th batch of added rows: the first n rows of a further chunk of
+    the corpus's generating process."""
+    return chunk_fn(n_chunks + j)[:n]
+
+
+def exact_states(segments, q: torch.Tensor, keeps: dict) -> dict:
+    """One pass over a state's rows, ``segments`` [(first gid, rows fn)]:
+    the exact f32 top-K gids of ``q`` over the rows each ``keeps`` mask
+    (name -> (gid bound,) bool) allows."""
+    nq = q.shape[0]
+    best = {name: (torch.full((nq, K), float("-inf"), device=q.device),
+                   torch.zeros((nq, K), dtype=torch.int64, device=q.device)) for name in keeps}
+    for base, rows in segments:
+        x = rows()
+        for name, keep in keeps.items():
+            sel = keep[base:base + x.shape[0]].nonzero()[:, 0]
+            if sel.numel():
+                cv, cidx = tiled_topk(x[sel], q, K, metric="ip", tile=8192)
+                best[name] = merge_topk(*best[name], cv, sel[cidx] + base, K)
+    return {name: b[1].cpu().numpy() for name, b in best.items()}
+
+
+def corpus_segments(chunk_fn, n_chunks: int) -> list:
+    return [(ci * CHUNK, lambda ci=ci: chunk_fn(ci)) for ci in range(n_chunks)]
+
+
+def mut_serve(idx, queries, gt, label: str, floor: float, removed=None, reps: int = 5,
+              **kw) -> dict:
+    """search_device on the batch: no -1 in a filled slot, no removed id,
+    recall@10 >= floor against the state's exact ground truth; device QPS."""
+    v, ids = idx.search_device(queries, K, **kw)
+    qps = qps_device(lambda q: idx.search_device(q, K, **kw), queries, reps=reps)
+    v, ids = v.cpu().numpy(), ids.cpu().numpy()
+    check_result(v, ids, queries.shape[0], idx._gid_bound(), label)
+    if removed is not None and np.isin(ids, removed).any():
+        raise AssertionError(f"{label}: a removed id was returned")
+    recall = recall_at_k(ids[: gt.shape[0]], gt)
+    log(f"[mut] {label}: ntotal {idx.ntotal}, recall@{K} vs the state's exact f32 "
+        f"{recall:.4f}; search_device {qps['ms_median']:.3f} ms (QPS {qps['qps']:.1f}; min "
+        f"{qps['ms_min']:.3f}, max {qps['ms_max']:.3f})")
+    if recall < floor:
+        raise AssertionError(f"{label}: recall {recall:.4f} < {floor}")
+    return dict(recall=recall, ms=qps["ms_median"], qps=qps["qps"])
+
+
+def mut_filtered(idx, queries, flt, allow: torch.Tensor, gt, label: str, removed=None,
+                 **kw) -> float:
+    """One filtered batch: no disallowed or removed id, (-inf, -1) unfilled
+    slots, recall@10 >= RECALL_FLOOR against the exact filtered truth."""
+    v, ids = idx.search_device(queries, K, where=flt, **kw)
+    check_filtered(v, ids, allow, f"mut {label}")
+    ids = ids.cpu().numpy()
+    if removed is not None and np.isin(ids, removed).any():
+        raise AssertionError(f"{label}: a removed id was returned")
+    recall = recall_at_k(ids[: gt.shape[0]], gt)
+    log(f"[mut] {label}: recall@{K} vs the exact filtered f32 {recall:.4f}; no disallowed id")
+    if recall < RECALL_FLOOR:
+        raise AssertionError(f"{label}: recall {recall:.4f} < {RECALL_FLOOR}")
+    return recall
+
+
+def self_hit(idx, rows, first_gid: int, label: str, floor: float) -> float:
+    """Added rows queried with themselves at full coverage: the share whose
+    top-1 is the row."""
+    _, ids = idx.search_device(rows, 1, p_tiles=idx._tune_n_tiles(), tile_q=32)
+    hit = float((ids[:, 0].cpu().numpy() == first_gid + np.arange(rows.shape[0])).mean())
+    log(f"[mut] {label}: self-hit@1 of {rows.shape[0]} added rows {hit:.4f}")
+    if hit < floor:
+        raise AssertionError(f"{label}: self-hit@1 {hit:.4f} < {floor}")
+    return hit
+
+
+def fenced(fn):
+    """(fn(), seconds to its return, seconds to the card's end of its work)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    t1 = time.perf_counter()
+    sync()
+    return out, t1 - t0, time.perf_counter() - t0
+
+
+def slack_removed(dev, chunk_fn, n_chunks: int):
+    """scripts/bench_remove.py's arena at config #4's 12.5M: the residual
+    index with slack MUT_SLACK, then MUT_ROUNDS rounds of MUT_REMOVE removes
+    of random live ids (rng 3), each fenced. Returns (index, removed ids,
+    build seconds, [(host seconds, fenced seconds) per round])."""
+    t0 = time.perf_counter()
+    idx = BandIVFIndex.build_device_streaming(chunk_fn, n_chunks, nlist=NLIST, kmeans_iters=10,
+                                              residual=True, slack=MUT_SLACK, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    removed, rounds = [], []
+    for _ in range(MUT_ROUNDS):
+        live = np.asarray(idx._ids[: idx._n])
+        victims = rng.choice(live[live >= 0], MUT_REMOVE, replace=False)
+        n, host_s, all_s = fenced(lambda: idx.remove(victims))
+        if n != MUT_REMOVE:
+            raise AssertionError(f"remove: {n} of {MUT_REMOVE} rows removed")
+        removed.append(victims)
+        rounds.append((host_s, all_s))
+    return idx, np.concatenate(removed), build_s, rounds
+
+
+def run_mutation(dev, chunk_fn, n_chunks, queries, gt, card, op) -> dict:
+    """Cell 9: mutation of the residual index at 12.5M x 768 (fold and
+    in-place merge; remove and refill on a slack arena) and of a 1M
+    whole-row int8 arena (annex rows through K3 and K7, a compact remove),
+    served at the headline's op point ``op`` (p_tiles, tile_q); every state
+    held to its own exact ground truth. Launch counts reset just before and
+    read just after; K1 then held on the mutated slack arena."""
+    kw = dict(p_tiles=op[0], tile_q=op[1])
+    q_gt = queries[: gt.shape[0]]
+    out = {}
+    reset_launches()
+
+    # 1. fold and merge (scripts/bench_fold.py)
+    t0 = time.perf_counter()
+    idx = BandIVFIndex.build_device_streaming(chunk_fn, n_chunks, nlist=NLIST, kmeans_iters=10,
+                                              residual=True, merge_headroom=MUT_HEADROOM,
+                                              device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    ptr, cap = idx._payload.data_ptr(), idx._payload.shape[0]
+    n_ids = N_ROWS + MUT_ADDS * MUT_ADD
+    gid = torch.arange(n_ids, device=dev)
+    mask10 = make_filters(idx, dev, n_ids)["random 10%"]
+    gts = exact_states(corpus_segments(chunk_fn, n_chunks) + [
+        (N_ROWS + j * MUT_ADD, lambda j=j: added_rows(chunk_fn, n_chunks, j))
+        for j in range(MUT_ADDS)], q_gt,
+        {"pending": gid < N_ROWS + MUT_ADD, "annex": gid >= 0, "annex 10%": mask10})
+    hit_rows = added_rows(chunk_fn, n_chunks, 0, SELF_HIT_ROWS)
+    log(f"[mut] built {N_ROWS} x {D} with merge_headroom {MUT_HEADROOM}: {build_s:.1f} s, "
+        f"{cap} rows of capacity for an extent of {idx._n}")
+    add_s = []
+    for j in range(MUT_ADDS):
+        x = added_rows(chunk_fn, n_chunks, j)
+        _, _, s = fenced(lambda: idx.add(x))
+        add_s.append(s)
+        if j == 0:
+            if idx._pending.size != MUT_ADD or idx._annex is not None:
+                raise AssertionError("the first add did not stay pending")
+            out["pending"] = mut_serve(idx, queries, gts["pending"],
+                                       f"{MUT_ADD} rows pending", RECALL_FLOOR, **kw)
+            self_hit(idx, hit_rows, N_ROWS, "pending", SELF_HIT_EXACT)
+    if (idx._annex or {}).get("n") != n_ids - N_ROWS or idx._pending.size:
+        raise AssertionError(f"the fifth add did not fold into the annex "
+                             f"({idx._pending.size} pending)")
+    log(f"[mut] {card}: adds of {MUT_ADD} rows: " + ", ".join(
+        f"{s:.3f} s ({MUT_ADD / s:,.0f} rows/s)" for s in add_s)
+        + f"; the fifth folded {n_ids - N_ROWS} rows into the annex")
+    out["annex"] = mut_serve(idx, queries, gts["annex"], f"{n_ids - N_ROWS} rows in the annex",
+                             RECALL_FLOOR, **kw)
+    out["annex profile"] = device_profile(lambda: idx.search_device(queries, K, **kw),
+                                          "search_device with the annex", top=6)
+    self_hit(idx, hit_rows, N_ROWS, "annex", SELF_HIT_EXACT)
+    mut_filtered(idx, queries, idx.make_filter(mask10.cpu().numpy()), mask10, gts["annex 10%"],
+                 "random 10% filter over arena and annex", **kw)
+    _, _, merge_s = fenced(idx.merge_pending)
+    if (idx._payload.data_ptr(), idx._payload.shape[0]) != (ptr, cap) or idx._annex is not None \
+            or idx._pending.size or idx.ntotal != n_ids or idx._n != n_ids:
+        raise AssertionError("merge_pending did not merge in place")
+    log(f"[mut] {card}: merge_pending in place in {merge_s:.3f} s (the arena's buffer and "
+        f"capacity kept; {idx._n} of {cap} rows used)")
+    out["merged"] = mut_serve(idx, queries, gts["annex"], "merged", RECALL_FLOOR, **kw)
+    self_hit(idx, hit_rows, N_ROWS, "merged", SELF_HIT_MERGED)
+    rec = torch.as_tensor(idx.reconstruct(N_ROWS + np.arange(SELF_HIT_ROWS)), device=dev)
+    cos = float(((rec * hit_rows).sum(1) / rec.norm(dim=1)).min())
+    log(f"[mut] merged: the {SELF_HIT_ROWS} added rows reconstructed from the arena: "
+        f"least cosine to their source rows {cos:.5f}")
+    if cos < 0.99:
+        raise AssertionError(f"merged rows do not reconstruct their sources (cosine {cos:.5f})")
+    out.update(add_s=add_s, merge_s=merge_s)
+    k1_fold = band.tiles_topk_resid.launches
+    del idx, gts
+    torch.cuda.empty_cache()
+
+    # 2. remove and refill on a slack arena (scripts/bench_remove.py)
+    idx, removed, build_s, rounds = slack_removed(dev, chunk_fn, n_chunks)
+    n_ids = N_ROWS + MUT_REMOVE
+    gid = torch.arange(n_ids, device=dev)
+    gone = torch.zeros(n_ids, dtype=torch.bool, device=dev)
+    gone[torch.as_tensor(removed, device=dev)] = True
+    allow = torch.cat([make_filters(idx, dev)["random 10%"],
+                       torch.zeros(MUT_REMOVE, dtype=torch.bool, device=dev)])
+    refill = added_rows(chunk_fn, n_chunks, 0, MUT_REMOVE)
+    gts = exact_states(corpus_segments(chunk_fn, n_chunks) + [(N_ROWS, lambda: refill)], q_gt,
+                       {"removed": ~gone & (gid < N_ROWS), "refill": ~gone,
+                        "refill 10%": ~gone & allow})
+    host_s, all_s = sum(r[0] for r in rounds), sum(r[1] for r in rounds)
+    log(f"[mut] {card}: slack {MUT_SLACK} arena built in {build_s:.1f} s; {MUT_ROUNDS} rounds "
+        f"of {MUT_REMOVE} removes: " + ", ".join(f"{a:.3f} s" for _, a in rounds)
+        + f" fenced; {len(removed) / all_s:,.0f} rows/s, host share {host_s / all_s:.0%}")
+    ptr = idx._payload.data_ptr()
+    if idx.ntotal != N_ROWS - len(removed):
+        raise AssertionError(f"ntotal {idx.ntotal} after removes")
+    out["removed"] = mut_serve(idx, queries, gts["removed"], f"{len(removed)} rows removed",
+                               RECALL_FLOOR, removed=removed, **kw)
+    flt = idx.make_filter(allow[:N_ROWS].cpu().numpy())
+    k1_path = band.tiles_topk_resid.launches
+    out["mp"] = k1_check(f"mutated slack arena B{queries.shape[0]} p{op[0]} tq{op[1]}", idx,
+                         k1_plan(idx, queries, *op), reps=10, plain_reps=3)
+    band.tiles_topk_resid.launches = k1_path  # the hold's launches are not the path's
+    _, _, refill_s = fenced(lambda: idx.add(refill))
+    if idx._pending.size or idx._payload.data_ptr() != ptr or \
+            idx.ntotal != N_ROWS - len(removed) + MUT_REMOVE:
+        raise AssertionError("the refill did not land in place")
+    log(f"[mut] {card}: refill of {MUT_REMOVE} rows in place in {refill_s:.3f} s "
+        f"({MUT_REMOVE / refill_s:,.0f} rows/s), none pending")
+    out["refill"] = mut_serve(idx, queries, gts["refill"], "refilled", RECALL_FLOOR,
+                              removed=removed, **kw)
+    mut_filtered(idx, queries, flt, allow, gts["refill 10%"],
+                 "random 10% filter built before the removes", removed=removed, **kw)
+    k1 = band.tiles_topk_resid.launches
+    out.update(remove_rounds=rounds, refill_s=refill_s)
+    del idx, gts, refill
+    torch.cuda.empty_cache()
+
+    # 3. whole rows at 1M: annex rows through K3 and K7, then a compact remove
+    n_w = WHOLE_MUT_ROWS // CHUNK
+    reset_launches()
+    idx = BandIVFIndex.build_device_streaming(chunk_fn, n_w, nlist=NLIST, kmeans_iters=10,
+                                              residual=False, device=dev)
+    x = added_rows(chunk_fn, n_chunks, 0)
+    idx.add(x)
+    if (idx._annex or {}).get("n") != MUT_ADD:
+        raise AssertionError("the whole-row add did not fold into the annex")
+    victims = np.random.default_rng(4).choice(WHOLE_MUT_ROWS, MUT_REMOVE, replace=False)
+    n_ids = WHOLE_MUT_ROWS + MUT_ADD
+    gone = torch.zeros(n_ids, dtype=torch.bool, device=dev)
+    gone[torch.as_tensor(victims, device=dev)] = True
+    gts = exact_states(corpus_segments(chunk_fn, n_w) + [(WHOLE_MUT_ROWS, lambda: x)], q_gt,
+                       {"added": torch.ones_like(gone), "removed": ~gone})
+    out["whole"] = mut_serve(idx, queries, gts["added"],
+                             f"whole rows {WHOLE_MUT_ROWS} + {MUT_ADD} in the annex",
+                             WHOLE_ROW_RECALL_FLOOR, **kw)
+    vb, ib = idx.search(queries.cpu().numpy(), K, strategy="band")
+    check_result(vb, ib, queries.shape[0], n_ids, "whole band with the annex")
+    recall_band = recall_at_k(ib[: gt.shape[0]], gts["added"])
+    log(f"[mut] whole rows, band strategy with the annex: recall@{K} {recall_band:.4f}")
+    if recall_band < WHOLE_ROW_RECALL_FLOOR:
+        raise AssertionError(f"whole-row band recall {recall_band:.4f}")
+    n, _, rem_s = fenced(lambda: idx.remove(victims))
+    if n != MUT_REMOVE or idx.ntotal != n_ids - MUT_REMOVE:
+        raise AssertionError(f"whole-row remove: {n} removed, ntotal {idx.ntotal}")
+    log(f"[mut] {card}: whole-row remove of {MUT_REMOVE} rows (compact) in {rem_s:.3f} s")
+    out["whole removed"] = mut_serve(idx, queries, gts["removed"], "whole rows removed",
+                                     WHOLE_ROW_RECALL_FLOOR, removed=victims, **kw)
+    launches = {"K1": k1, "K1 mutated": k1 - k1_fold, "K3": band.tiles_topk.launches,
+                "K7": band.band_topk.launches}
+    del idx, gts, x
+    return dict(launches=launches, mp={"K1 mutated": out["mp"]}, report=out)
+
+
 def sift_like(dev, n: int, d: int, seed: int) -> torch.Tensor:
     """SIFT-shaped rows on the device: clustered, non-negative and
     integer-valued (1,000 centres, clipped to [0, 255])."""
@@ -2308,6 +2598,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the residual index is gone: one arena at a time
     runs.append(run_whole_row(dev, chunk_fn, n_chunks, queries, gt, card))
     torch.cuda.empty_cache()
+    runs.append(run_mutation(dev, chunk_fn, n_chunks, queries, gt, card, runs[0]["op"]))
+    torch.cuda.empty_cache()
     runs.append(run_flat(dev, chunk_fn, queries, card))
     torch.cuda.empty_cache()
     runs.append(run_pq(dev, chunk_fn, queries, card))
@@ -2335,7 +2627,10 @@ def main() -> int:
         f"{enc['rates']['naive']:,.1f}, fused {enc['rates']['fused']:,.1f}); query recall@{K} "
         f"{enc['recall']:.4f}")
 
-    launches = {k: v for r in runs for k, v in r["launches"].items()}
+    launches = {}
+    for r in runs:  # a kernel's launches over every path that ran it
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     mp = {k: v for r in runs for k, v in r["mp"].items()}
     for key in KERNELS:
         if launches.get(key, 0) <= 0:

@@ -74,8 +74,9 @@ class Index(TunableMixin, abc.ABC):
         ...
 
     @abc.abstractmethod
-    def add(self, vectors) -> None:
-        """Append vectors (N, dim); ids are assigned contiguously."""
+    def add(self, vectors, ids=None) -> None:
+        """Append vectors (N, dim); ids are assigned contiguously, or given
+        by ``ids`` where the family takes them (``BandIVFIndex``)."""
 
     @abc.abstractmethod
     def search(self, queries, k: int, **kw) -> tuple[np.ndarray, np.ndarray]:

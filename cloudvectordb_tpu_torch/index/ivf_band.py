@@ -25,10 +25,20 @@ per-row bias; scores come back as -‖q - x̂‖²), ``top2`` (K1 or K3 keep eac
 bucket's best two rows) and ``scoring='precise'`` (bf16 queries in K1's
 residual term). Whole-row arenas filter through ``filters.filtered_search``.
 
-Not ported yet (each raises or is absent): slack arenas with
-``add``/``remove``, the pending buffer and annex, ``merge_from`` and
-``build_streaming`` (ROADMAP queue 1 item 6 (b)). Without ``add`` there
-are never pending rows, so a search is the arena scan alone.
+Mutation (BASELINE config #5's incremental updates). ``add`` quantizes a
+batch under the arena's scale; on a ``slack`` arena (each list's segment
+keeps ceil(count·slack)+8 empty slots) rows land in place by one device
+scatter, otherwise, and when a list's slack is full, they append to the
+host pending buffer (index/arena.py). Past ``merge_threshold`` of the arena
+an int8 index folds the pending rows into the device annex. Searches scan
+pending and annex rows exactly (f32 products, ``torch.matmul``) and merge
+them with the arena's top-k, the filter applied before their top-k.
+``remove`` swap-removes residual rows in place (``valid_end`` retreats, the
+freed slots keep their bytes) and compacts whole rows. ``merge_pending``
+shifts a compact int8 arena's rows right in place when
+``build_device_streaming(merge_headroom=)`` left room, else re-sorts the
+union through the host. ``merge_from``, ``reconstruct`` and
+``build_streaming`` complete the surface.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cloudvectordb_tpu_torch.index.arena import PendingBuffer, normalize_remove_ids
 from cloudvectordb_tpu_torch.index.base import Index, from_numpy, to_numpy
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
 from cloudvectordb_tpu_torch.ops.assign import assign_clusters
@@ -43,8 +54,10 @@ from cloudvectordb_tpu_torch.ops.band import (
     band_topk, order_centroids, resid_row_bias, tiles_topk, tiles_topk_resid)
 from cloudvectordb_tpu_torch.ops.flat_topk import quantize_queries
 from cloudvectordb_tpu_torch.ops.pq import pq_tiles_topk
-from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const, tiled_topk, topk_stable
+from cloudvectordb_tpu_torch.ops.topk import (
+    NEG_INF, f32_const, merge_topk, tiled_topk, topk_stable, topk_stable_select)
 from cloudvectordb_tpu_torch.utils.device import DEFAULT, as_device
+from cloudvectordb_tpu_torch.utils.native import arena_sort
 
 #: max list indices one arena tile may span: bounds the per-tile window W
 #: that sizes centroid_tiles (n_tiles, W, D) and the uint8 per-row local
@@ -249,6 +262,80 @@ def _next_pow2(x: int) -> int:
     return p
 
 
+#: rows a block move of the in-place merge copies at once (~192 MB at 768-d)
+MERGE_CHUNK = 1 << 18
+
+
+def _move_rows(buf: torch.Tensor, dst: torch.Tensor, s: int, c: int) -> None:
+    """One block move of the in-place merge (``_try_merge_inplace_device``):
+    rows [s, s+c) of ``buf`` written to their destinations dst[s:s+c]. The
+    block is copied out first: the destinations may overlap the rows the
+    block reads (a shift smaller than c)."""
+    buf[dst[s:s + c]] = buf[s:s + c].clone()
+
+
+def _scan_topk(score, n: int, k: int, nq: int, allow=None):
+    """Exact top-k over ``n`` candidates scored tile by tile (``score(lo,
+    hi)`` -> (nq, hi - lo) f32), each tile's top-k merged into the running
+    one: ties go to the lower candidate, as ``lax.top_k``. ``allow`` (n,)
+    bool sets disallowed candidates to -inf before the top-k. Returns (v,
+    pos) of min(k, n) columns."""
+    tile = max(1024, (1 << 27) // max(nq, 1))  # a (nq, tile) f32 block of <= 512 MB
+    best = None
+    for lo in range(0, n, tile):
+        hi = min(n, lo + tile)
+        s = score(lo, hi)
+        if allow is not None:
+            s = torch.where(allow[None, lo:hi], s, NEG_INF)
+        v, pos = topk_stable_select(s, min(k, hi - lo))
+        best = (v, pos + lo) if best is None else merge_topk(*best, v, pos + lo, k)
+    return best
+
+
+def _pending_scan(q, rows, scale: float, *, k: int, l2: bool = False, allow=None):
+    """Exact top-k over the pending rows (reference ``_pending_scan``): f32
+    q·rows (TF32 off) times ``scale``, the arena path's dequantized ip; l2
+    gives -‖q - scale·row‖² instead."""
+    sc = f32_const(scale, q)
+    q_sq = (q * q).sum(dim=1, keepdim=True) if l2 else None
+
+    def score(lo, hi):
+        r = rows[lo:hi].float()
+        s = (q @ r.T) * sc
+        if l2:
+            s = 2.0 * s - ((sc * sc) * (r * r).sum(dim=1))[None, :] - q_sq
+        return s
+
+    return _scan_topk(score, rows.shape[0], k, q.shape[0], allow)
+
+
+def _annex_scan(q, rows8, assign, centroids, scale: float, *, k: int, resid: bool,
+                l2: bool = False, allow=None):
+    """Exact top-k over the annex's int8 rows (reference ``_annex_scan``):
+    bf16(q)·bf16(row) as f32 products summed in f32 (TF32 off; the
+    reference's bf16 dot with an f32 result) times ``scale``, plus the
+    exact f32 centroid term of residual rows; l2 gives -‖q - x̂‖²."""
+    sc = f32_const(scale, q)
+    qb = q.to(torch.bfloat16).float()
+    dots = q @ centroids.T if resid else None
+    q_sq = (q * q).sum(dim=1, keepdim=True) if l2 else None
+
+    def score(lo, hi):
+        r = rows8[lo:hi].float()  # int8 values are exact in bf16
+        ex = (qb @ r.T) * sc
+        if resid:
+            ex = ex + dots[:, assign[lo:hi]]
+        if l2:
+            x_sq = (sc * sc) * (r * r).sum(dim=1)
+            if resid:
+                ca = centroids[assign[lo:hi]]
+                x_sq = x_sq + (2.0 * sc) * (ca * r).sum(dim=1) + (ca * ca).sum(dim=1)
+            ex = 2.0 * ex - x_sq[None, :] - q_sq
+        return ex
+
+    return _scan_topk(score, rows8.shape[0], k, q.shape[0], allow)
+
+
 class BandIVFIndex(Index):
     kind = "band_ivf"
 
@@ -269,21 +356,20 @@ class BandIVFIndex(Index):
         """The reference's constructor with an explicit ``device``.
         ``residual=True`` (int8 only) stores int8 residuals and adds the
         centroid term back in the kernel; otherwise the arena holds whole
-        rows in ``dtype``. ``metric='l2'`` (residual arenas) ranks by
-        -‖q - x̂‖². What the reference refuses raises ValueError (residual
-        bf16/f32, slack on whole rows, l2 on whole rows); slack arenas, not
-        ported yet, raise NotImplementedError."""
+        rows in ``dtype``. ``slack > 0`` (residual arenas) gives each list's
+        segment ceil(count·slack)+8 empty slots that ``add`` fills in place;
+        K1 masks them through the per-tile-list valid_end table.
+        ``metric='l2'`` (residual arenas) ranks by -‖q - x̂‖². What the
+        reference refuses raises ValueError (residual bf16/f32, slack or l2
+        on whole rows)."""
         if dtype not in ("int8", "bfloat16", "float32"):
             raise ValueError(f"unknown arena dtype {dtype!r}")
         if residual and dtype != "int8":
             raise ValueError("residual is the int8 path")
         if metric not in ("ip", "l2"):
             raise ValueError(f"unknown metric {metric!r}")
-        if slack != 0.0:
-            if not residual:
-                raise ValueError("slack slots require the residual-int8 arena")
-            raise NotImplementedError(
-                "slack arenas (in-place add/remove) arrive with the mutation slice")
+        if slack != 0.0 and not residual:
+            raise ValueError("slack slots require the residual-int8 arena")
         if metric == "l2" and not residual:
             # the whole-row kernels carry no l2 bias (as the reference)
             raise ValueError("BandIVFIndex metric='l2' requires the residual-int8 arena; "
@@ -310,31 +396,52 @@ class BandIVFIndex(Index):
         self._tile_window = None  # (n_tiles, W) int32 list ids per tile
         self._scale = 1.0
         self._n = 0  # arena extent (capacity offsets[-1])
-        self._next_id = 0  # 0: derive from the id table (_gid_bound)
+        self._next_id = 0  # 0: derive from the id stores (_gid_bound)
         self._dev = None
         self._flt_cache: dict = {}  # filter masks by (filter, ids tensor, its version)
-        self._bias_cache = None  # (arena key, (N_pad,) f32 l2 row bias)
+        self._bias_cache = None  # (arena key, its tensors, (N_pad,) f32 l2 row bias)
+        # pending rows: int8 arena-scale rows, or f32 whole rows
+        self._pending = PendingBuffer(dim, np.int8 if dtype == "int8" else np.float32)
+        self._pending_dev = None  # (rows, ids, ids int32, n) on the device
+        self.merge_threshold = 0.05  # fold once pending exceeds this share of the arena
+        # device annex: int8 rows folded from pending (rows, assign on the
+        # device; ids on the host; n filled of the capacity)
+        self._annex: dict | None = None
+        self._annex_ver = 0  # bumped on every annex change (its device id copy)
 
     @property
     def _n_valid(self) -> int:
-        """Valid arena rows (the extent minus tile-span-cap holes)."""
+        """Valid arena rows: the extent minus slack and tile-span-cap holes."""
         if self._list_lens is not None:
             return int(self._list_lens.sum())
         return self._n
 
     @property
     def ntotal(self) -> int:
-        return self._n_valid
+        ax = self._annex["n"] if self._annex is not None else 0
+        return self._n_valid + self._pending.size + ax
 
     def _gid_bound(self) -> int:
-        """1 + the largest global id ever allocated."""
-        if self._next_id == 0 and self._ids is not None and len(self._ids):
-            self._next_id = int(np.asarray(self._ids).max(initial=-1)) + 1
+        """1 + the largest global id ever allocated. After a remove() the id
+        space has gaps, so this, not ntotal, sizes gid-keyed tables and
+        seeds new ids. Derived from the id stores on first use (every build
+        assigns ids from 0), then kept up to date."""
+        if self._next_id == 0:
+            hi = 0
+            if self._ids is not None and len(self._ids):
+                hi = int(np.asarray(self._ids).max(initial=-1)) + 1
+            snap = self._pending.snapshot_full()
+            if snap is not None and snap[1].size:
+                hi = max(hi, int(snap[1].max()) + 1)
+            if self._annex is not None and self._annex["n"]:
+                hi = max(hi, int(self._annex["ids"][: self._annex["n"]].max()) + 1)
+            self._next_id = hi
         return self._next_id
 
-    def add(self, vectors) -> None:
-        raise NotImplementedError(
-            "add() (pending buffer, slack arenas) arrives with the mutation slice")
+    def _alloc_ids(self, b: int) -> np.ndarray:
+        nid = self._gid_bound()
+        self._next_id = nid + b
+        return np.arange(nid, nid + b, dtype=np.int64)
 
     # -- build ------------------------------------------------------------
     @classmethod
@@ -355,8 +462,11 @@ class BandIVFIndex(Index):
         idx._populate(x)
         return idx
 
+    def _centroids_dev(self) -> torch.Tensor:
+        return torch.as_tensor(self.centroids, dtype=torch.float32, device=self.device)
+
     def _populate(self, x: torch.Tensor) -> None:
-        cdev = torch.as_tensor(self.centroids, device=self.device)
+        cdev = self._centroids_dev()
         a, _ = assign_clusters(x, cdev)
         a_np = a.cpu().numpy()
         order = np.argsort(a_np, kind="stable")
@@ -374,31 +484,72 @@ class BandIVFIndex(Index):
         else:
             scale = 1.0
             payload = xs.to(_ARENA_DTYPES[self.dtype])
-        n = int(payload.shape[0])
-        counts = np.bincount(a_np, minlength=self.nlist)
-        if self.residual:
-            # tile-span cap (_capacity_layout doc): skewed list sizes may
-            # force hole padding; the identity layout costs nothing otherwise
-            offsets, dest = self._capacity_layout(counts)
-        else:  # whole rows: no cap (the reference caps residual arenas only)
-            offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-            dest = np.arange(n, dtype=np.int64)
+        offsets, dest, lens = self._layout(np.bincount(a_np, minlength=self.nlist))
         extent = int(offsets[-1])
         n_pad = -(-extent // self.tile_n) * self.tile_n
         arena = torch.zeros((n_pad, self.dim), dtype=payload.dtype, device=self.device)
         arena[torch.as_tensor(dest, device=self.device)] = payload
-        if extent != n:
+        self._list_lens = lens
+        if lens is not None:
             ids = np.full(n_pad, -1, np.int64)
             ids[dest] = order
-            self._list_lens = counts.astype(np.int64)
         else:  # the reference keeps int64 ids for residual, int32 for whole rows
             ids = order.astype(np.int64 if self.residual else np.int32)
         self._set_arena(arena, ids, offsets, extent, scale)
 
     @classmethod
+    def build_streaming(cls, chunks, nlist: int, train_sample: int = 262_144,
+                        centroids: np.ndarray | None = None, **kw) -> "BandIVFIndex":
+        """Streaming encode→insert build (BASELINE config #5): each chunk of
+        (n_i, D) rows (numpy or tensors, e.g. an encoder's batches) is
+        assigned and quantized on the device, its int8 rows kept on the
+        host, and the arena assembled once by the native counting sort; the
+        full-precision corpus never exists in one piece. The first chunk
+        trains the quantizer (unless ``centroids`` gives it) and sets the
+        int8 scale."""
+        idx = None
+        cdev = None
+        payload_chunks: list[torch.Tensor] = []
+        assign_chunks: list[np.ndarray] = []
+        scale = 0.0
+        for chunk in chunks:
+            chunk = torch.as_tensor(chunk, dtype=torch.float32)
+            if idx is None:
+                idx = cls(int(chunk.shape[1]), nlist, **kw)
+                if idx.dtype != "int8":
+                    raise ValueError("streaming build is the int8 path")
+                chunk = chunk.to(idx.device)
+                if centroids is None:
+                    ns = min(train_sample, chunk.shape[0])
+                    c, _ = train_kmeans(chunk[:ns], nlist, iters=idx.kmeans_iters,
+                                        seed=idx.seed)
+                    c = c.cpu().numpy()
+                    centroids = c[order_centroids(c)]
+                idx.centroids = np.asarray(centroids, np.float32)
+                cdev = idx._centroids_dev()
+            chunk = chunk.to(idx.device)
+            a, _ = assign_clusters(chunk, cdev)
+            if idx.residual:
+                chunk = chunk - cdev[a]
+            if scale == 0.0:  # the first chunk sets the (residual-aware) scale
+                rms = float(torch.sqrt(torch.mean(chunk * chunk)))
+                amax = float(torch.max(torch.abs(chunk)))
+                scale = max(min(amax, 4.0 * rms) / 127.0, 1e-12)
+            q8 = torch.clamp(torch.round(chunk / f32_const(scale, chunk)), -127, 127)
+            payload_chunks.append(q8.to(torch.int8).cpu())
+            assign_chunks.append(a.cpu().numpy())
+        if idx is None:
+            raise ValueError("empty stream")
+        payload = torch.cat(payload_chunks)
+        idx._scale = scale
+        idx._assemble_compact(payload, np.arange(payload.shape[0], dtype=np.int64),
+                              np.concatenate(assign_chunks))
+        return idx
+
+    @classmethod
     def build_device_streaming(
         cls, chunk_fn, n_chunks: int, nlist: int, train_sample: int = 262_144,
-        centroids: np.ndarray | None = None, **kw,
+        merge_headroom: float = 0.0, centroids: np.ndarray | None = None, **kw,
     ) -> "BandIVFIndex":
         """Device-resident streaming build: only the (N,) assignments reach
         the host. ``chunk_fn(i) -> (n_i, D)`` f32 tensor must be
@@ -409,9 +560,10 @@ class BandIVFIndex(Index):
         given, is the final, locality-ordered quantizer and skips training.
         The first chunk sets the int8 scale (of residuals, or of whole rows
         with ``residual=False``). The arena is int8 either way, as the
-        reference's."""
-        from cloudvectordb_tpu_torch.utils.native import arena_sort
-
+        reference's. ``merge_headroom`` > 0 allocates that share of the
+        extent again as tail capacity (masked like padding), so that
+        ``merge_pending`` can shift the rows right in place: no second
+        arena, no host copy."""
         idx = None
         cdev = None
         assigns: list[np.ndarray] = []
@@ -432,7 +584,7 @@ class BandIVFIndex(Index):
                     c = c.cpu().numpy()
                     centroids = c[order_centroids(c)]
                 idx.centroids = np.asarray(centroids, np.float32)
-                cdev = torch.as_tensor(idx.centroids, device=idx.device)
+                cdev = idx._centroids_dev()
             a, _ = assign_clusters(chunk, cdev)
             if scale == 0.0:  # first chunk sets the scale
                 enc = chunk - cdev[a] if idx.residual else chunk
@@ -449,15 +601,12 @@ class BandIVFIndex(Index):
         assign_all = np.concatenate(assigns)
         n = assign_all.shape[0]
         order, offsets = arena_sort(assign_all, nlist)
-        counts = np.diff(offsets)
-        if idx.residual:  # tile-span cap, as in _populate
-            offsets, cap_dest = idx._capacity_layout(counts)
-        else:
-            cap_dest = np.arange(n, dtype=np.int64)
+        offsets, cap_dest, lens = idx._layout(np.diff(offsets))
         extent = int(offsets[-1])
         dest = np.empty(n, np.int64)
         dest[order] = cap_dest  # source row -> arena position
-        n_pad = -(-extent // idx.tile_n) * idx.tile_n
+        cap = int(np.ceil(extent * (1.0 + merge_headroom)))
+        n_pad = -(-cap // idx.tile_n) * idx.tile_n
         arena = torch.zeros((n_pad, idx.dim), dtype=torch.int8, device=idx.device)
         # the f32 value the reference divides by (its scale rides into jit
         # as a weakly typed f32 constant)
@@ -475,10 +624,10 @@ class BandIVFIndex(Index):
             arena[d] = q8
             base += sizes[ci]
             chunk = q8 = None
-        if extent != n:  # tile-span cap forced hole padding
+        idx._list_lens = lens
+        if lens is not None:  # slack slots or tile-span-cap holes
             ids = np.full(n_pad, -1, np.int64)
             ids[dest] = np.arange(n, dtype=np.int64)  # global id = source row
-            idx._list_lens = counts.astype(np.int64)
         else:
             ids = order.astype(np.int64)
         idx._set_arena(arena, ids, offsets, extent, scale)
@@ -486,6 +635,8 @@ class BandIVFIndex(Index):
 
     def _set_arena(self, arena: torch.Tensor, ids: np.ndarray,
                    offsets: np.ndarray, extent: int, scale: float) -> None:
+        """Install an arena (``_list_lens`` already set): the derived tables
+        are recomputed and the staged device state dropped."""
         self._payload = arena
         self._ids = ids
         self._offsets = np.asarray(offsets, np.int64)
@@ -496,26 +647,44 @@ class BandIVFIndex(Index):
             self._build_residual_aux()
         self._dev = None
 
-    def _capacity_layout(self, counts: np.ndarray):
-        """Capacity offsets + per-sorted-row destination, with the TILE-SPAN
-        CAP applied (each list's capacity is its count: the reference's
-        separate ``caps`` exist for slack arenas, not ported yet): no arena
-        tile may span more than ``_W_CAP`` list
-        indices. When the (W_CAP+1)-th list would begin inside the current
-        tile, the layout pads to the next tile boundary first; the holes are
-        masked like padding. Healthy data inserts no padding and the layout
-        equals the plain cumsum.
+    def _layout(self, counts: np.ndarray):
+        """(offsets, dest, list_lens) of an arena holding ``counts`` rows
+        per list: dest[i] is the arena slot of the i-th list-sorted row.
+        Residual arenas take slack slots (``_slack_layout``) and the
+        tile-span cap (``_capacity_layout``), and then list_lens; a layout
+        without holes (whole rows always) is the plain cumsum, list_lens
+        None."""
+        counts = counts.astype(np.int64)
+        n = int(counts.sum())
+        if self.slack > 0:
+            return (*self._slack_layout(counts), counts)
+        if self.residual:
+            offsets, dest = self._capacity_layout(counts, counts)
+            if int(offsets[-1]) != n:  # the tile-span cap padded holes
+                return offsets, dest, counts
+        return (np.concatenate([[0], np.cumsum(counts)]).astype(np.int64),
+                np.arange(n, dtype=np.int64), None)
+
+    def _capacity_layout(self, counts: np.ndarray, caps: np.ndarray):
+        """Capacity offsets + per-sorted-row destination for hole-bearing
+        (residual) arenas, with the TILE-SPAN CAP applied: no arena tile may
+        span more than ``_W_CAP`` list indices. When the (W_CAP+1)-th list
+        would begin inside the current tile, the layout pads to the next
+        tile boundary first; the holes are masked like slack slots. Healthy
+        data inserts no padding, and with caps == counts the layout equals
+        the plain cumsum.
 
         Returns (offsets_cap (nlist+1,), dest (n,)) where dest[i] is the
         arena position of the i-th list-sorted row (each list's rows sit at
         the start of its capacity segment)."""
         counts = counts.astype(np.int64)
+        caps = caps.astype(np.int64)
         tile_n = self.tile_n
-        starts = np.empty(len(counts), np.int64)
+        starts = np.empty(len(caps), np.int64)
         off = 0
         tile_of = -1
         in_tile = 0
-        for li, c in enumerate(counts):
+        for li, c in enumerate(caps):
             t = off // tile_n
             if t != tile_of:
                 tile_of, in_tile = t, 0
@@ -531,6 +700,42 @@ class BandIVFIndex(Index):
                 - np.repeat(start[:-1], counts)
                 + np.repeat(offsets[:-1], counts))
         return offsets, dest
+
+    def _slack_layout(self, counts: np.ndarray):
+        """Capacity layout of a slack arena: each list's rows at the start of
+        its segment, then ceil(count·slack)+8 empty slots that ``add``
+        fills in place. Tile-span-capped (``_capacity_layout``)."""
+        counts = counts.astype(np.int64)
+        caps = counts + np.ceil(counts * self.slack).astype(np.int64) + 8
+        return self._capacity_layout(counts, caps)
+
+    def _assemble_compact(self, payload: torch.Tensor, ids: np.ndarray,
+                          assigns: np.ndarray) -> None:
+        """Set the arena from quantized rows (a tensor on the host or the
+        device), their global ids and list assignments: one native
+        counting sort, then the rows written into a new arena on the
+        device in blocks. Shared by the streaming build, the host merge,
+        ``merge_from`` and the whole-row remove. A slack arena gets fresh
+        slack slots in every list."""
+        order, offsets = arena_sort(np.asarray(assigns, np.int32), self.nlist)
+        offsets, dest, lens = self._layout(np.diff(offsets))
+        extent = int(offsets[-1])
+        n_pad = -(-extent // self.tile_n) * self.tile_n
+        arena = torch.zeros((n_pad, self.dim), dtype=_ARENA_DTYPES[self.dtype],
+                            device=self.device)
+        for lo in range(0, order.shape[0], 1 << 20):
+            src = torch.as_tensor(order[lo:lo + (1 << 20)], device=payload.device)
+            arena[torch.as_tensor(dest[lo:lo + (1 << 20)], device=self.device)] = (
+                payload[src].to(device=self.device, dtype=arena.dtype))
+        ids = np.asarray(ids, np.int64)[order]
+        # a compact arena has every list full again: lens an in-place remove
+        # left behind would mask the tail of every list
+        self._list_lens = lens
+        if lens is not None:
+            ids_full = np.full(n_pad, -1, np.int64)
+            ids_full[dest] = ids
+            ids = ids_full
+        self._set_arena(arena, ids, offsets, extent, self._scale)
 
     def _build_residual_aux(self) -> None:
         """Per-row LOCAL list index within its tile window, per-tile centroid
@@ -551,9 +756,7 @@ class BandIVFIndex(Index):
         loc[0, :n] = local.astype(np.uint8)
         self._local = loc
         self._centroid_tiles = np.ascontiguousarray(self.centroids[tw]).astype(np.float32)
-        lens = (self._list_lens if self._list_lens is not None
-                else np.diff(self._offsets))
-        self._valid_end = (self._offsets[:-1][tw] + lens[tw]).astype(np.int32)
+        self._valid_end = self._valid_end_table()
 
     def _compute_tile_window(self) -> np.ndarray:
         """(n_tiles, W) list ids intersecting each arena tile (rows padded by
@@ -570,6 +773,481 @@ class BandIVFIndex(Index):
         window = fl[:, None] + np.arange(w)[None, :]
         window = np.minimum(window, ll[:, None])
         return np.clip(window, 0, self.nlist - 1).astype(np.int32)
+
+    def _valid_end_table(self) -> np.ndarray:
+        """(n_tiles, W) int32: the end of each tile-list's valid rows."""
+        tw = self._tile_window
+        lens = self._list_lens if self._list_lens is not None else np.diff(self._offsets)
+        return (self._offsets[:-1][tw] + lens[tw]).astype(np.int32)
+
+    def _writable_tables(self) -> None:
+        """Host id and list-length tables that mutation may write in place
+        (the loaded ones may be read-only or int32)."""
+        if self._ids.dtype != np.int64 or not self._ids.flags.writeable:
+            self._ids = np.array(self._ids, np.int64)
+        if self._list_lens is None:  # a compact arena: every list full
+            self._list_lens = np.diff(self._offsets).astype(np.int64)
+        elif not self._list_lens.flags.writeable:
+            self._list_lens = self._list_lens.copy()
+
+    # -- mutation ---------------------------------------------------------
+    def add(self, vectors, ids: np.ndarray | None = None) -> None:
+        """Insert (B, D) rows, searchable at once: assigned and quantized on
+        the device under the arena's scale. A slack arena writes them into
+        their lists' free slots by one in-place scatter; rows beyond a
+        list's slack, and every row of an arena without slack, append to
+        the pending buffer, which folds (``_fold_pending``) once it exceeds
+        ``merge_threshold`` of the arena. ``ids``: explicit global ids (at
+        least the current bound: ids are never reused), else allocated from
+        the bound. Host tables are written before the device scatter, so a
+        failed scatter leaves no table pointing at rows never written."""
+        x = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
+        if self._n == 0 and self._pending.size == 0:
+            if self.centroids is None:
+                raise ValueError("add() on an empty index needs build()'s quantizer")
+            if ids is not None:
+                raise ValueError("explicit ids need a populated arena")
+            self._populate(x)
+            return
+        cdev = self._centroids_dev()
+        a, _ = assign_clusters(x, cdev)
+        a_np = a.cpu().numpy()
+        b = int(x.shape[0])
+        if ids is None:
+            ids = self._alloc_ids(b)
+        else:
+            ids = np.asarray(ids, np.int64)
+            if ids.shape != (b,) or ids.min(initial=np.iinfo(np.int64).max) < self._gid_bound():
+                raise ValueError("explicit ids must be (B,) and not below the ids ever allocated")
+            self._next_id = max(self._gid_bound(), int(ids.max(initial=-1)) + 1)
+        spill = np.arange(b)
+        if self.slack > 0 and self._list_lens is not None:
+            caps = np.diff(self._offsets)
+            order = np.argsort(a_np, kind="stable")
+            a_s = a_np[order]
+            rank = np.arange(b) - np.searchsorted(a_s, np.arange(self.nlist))[a_s]
+            take = rank < caps[a_s] - self._list_lens[a_s]
+            dest = (self._offsets[:-1][a_s] + self._list_lens[a_s] + rank)[take]
+            t_idx, spill = order[take], order[~take]
+            if t_idx.size:
+                t_dev = torch.as_tensor(t_idx, device=self.device)
+                rows = self._quantize_rows(x[t_dev], a[t_dev], cdev)
+                self._writable_tables()
+                self._ids[dest] = ids[t_idx]
+                np.add.at(self._list_lens, a_np[t_idx], 1)
+                self._valid_end = self._valid_end_table()
+                dest_dev = torch.as_tensor(dest, device=self.device)
+                self._payload[dest_dev] = rows
+                if self._dev is not None:  # the staged tables, in place
+                    self._dev["ids"][dest_dev] = torch.as_tensor(
+                        ids[t_idx].astype(np.int32), device=self.device)
+                    self._dev["valid_end"].copy_(torch.as_tensor(self._valid_end))
+            if not spill.size:
+                return
+        s_dev = torch.as_tensor(spill, device=self.device)
+        rows = self._quantize_rows(x[s_dev], a[s_dev], cdev)
+        self._pending.append(rows.cpu().numpy(), ids[spill], a_np[spill])
+        self._pending_dev = None
+        arena = self._n_valid if self.slack > 0 and self._list_lens is not None else self._n
+        if self._pending.size > max(self.merge_threshold * arena, 4 * self.tile_n):
+            self._fold_pending()
+
+    def _quantize_rows(self, x: torch.Tensor, assigns: torch.Tensor,
+                       cdev: torch.Tensor) -> torch.Tensor:
+        """f32 rows -> the arena's payload type under its scale (int8 rows
+        beyond the build's clip clip, so every score stays comparable);
+        residual rows less their list centroid first."""
+        if self.residual:
+            x = x - cdev[assigns]
+        if self.dtype == "int8":
+            return torch.clamp(torch.round(x / f32_const(self._scale, x)), -127,
+                               127).to(torch.int8)
+        return x.float()
+
+    def _fold_pending(self) -> None:
+        """The threshold fold: int8 indexes fold the pending rows into the
+        device annex (an arena at 12.5M rows has no room for a second copy
+        to re-sort into), others merge them into the arena."""
+        if self.dtype == "int8":
+            self._fold_pending_annex()
+        else:
+            self.merge_pending()
+
+    def _fold_pending_annex(self) -> None:
+        if self._pending.size == 0:
+            return
+        rows8, pids, passign = self._pending.drain()
+        self._pending_dev = None
+        n_new = rows8.shape[0]
+        dev = self.device
+        if self._annex is None:
+            cap = max(_next_pow2(n_new), 8192)
+            self._annex = dict(rows=torch.zeros((cap, self.dim), dtype=torch.int8, device=dev),
+                               assign=torch.zeros(cap, dtype=torch.int64, device=dev),
+                               ids=np.full(cap, -1, np.int64), n=0)
+        ax = self._annex
+        n = ax["n"]
+        if n + n_new > ax["ids"].shape[0]:  # grow to the next power of two
+            cap = _next_pow2(n + n_new)
+            rows = torch.zeros((cap, self.dim), dtype=torch.int8, device=dev)
+            assign = torch.zeros(cap, dtype=torch.int64, device=dev)
+            rows[:n], assign[:n] = ax["rows"][:n], ax["assign"][:n]
+            ids = np.full(cap, -1, np.int64)
+            ids[:n] = ax["ids"][:n]
+            ax.update(rows=rows, assign=assign, ids=ids)
+        ax["rows"][n:n + n_new] = torch.as_tensor(rows8, device=dev)
+        ax["assign"][n:n + n_new] = torch.as_tensor(passign, device=dev)
+        ax["ids"][n:n + n_new] = pids
+        ax["n"] = n + n_new
+        self._annex_ver += 1
+
+    def merge_pending(self, chunk: int = MERGE_CHUNK) -> None:
+        """Merge the pending and annex rows into the arena (no
+        requantization: they share its scale). A compact int8 arena with
+        room left by ``merge_headroom`` shifts its rows right in place
+        (``_try_merge_inplace_device``, blocks of ``chunk`` rows); otherwise
+        the union is re-sorted through the host (the payload's one trip
+        there), with fresh slack on a slack arena."""
+        ax = self._annex if self._annex is not None and self._annex["n"] else None
+        if self._pending.size == 0 and ax is None:
+            return
+        p_np, pids, passign = self._pending.drain()
+        p = torch.as_tensor(p_np).to(self.device)
+        if ax is not None:
+            n = ax["n"]
+            p = torch.cat([p, ax["rows"][:n].to(p.dtype)])
+            pids = np.concatenate([pids, ax["ids"][:n]])
+            passign = np.concatenate([passign, ax["assign"][:n].cpu().numpy()])
+        self._annex = None
+        self._pending_dev = None
+        if self._n and self._try_merge_inplace_device(p, pids, passign, chunk):
+            return
+        if self._n:
+            cap_assign = np.repeat(np.arange(self.nlist), np.diff(self._offsets))
+            ids = np.asarray(self._ids, np.int64)[: self._n]
+            host = self._payload[: self._n].cpu()
+            if self._list_lens is not None:  # skip the holes
+                valid = np.flatnonzero(ids >= 0)
+                host, cap_assign, ids = host[torch.as_tensor(valid)], cap_assign[valid], ids[valid]
+            p = torch.cat([host, p.cpu().to(host.dtype)])
+            pids = np.concatenate([ids, pids])
+            passign = np.concatenate([cap_assign, passign])
+        self._assemble_compact(p, pids, passign)
+
+    def _try_merge_inplace_device(self, p: torch.Tensor, pids: np.ndarray,
+                                  passign: np.ndarray, chunk: int = MERGE_CHUNK) -> bool:
+        """Merge ``p`` (arena-scale int8 rows on the device) into a compact
+        int8 arena in its own buffer: no second arena, no host copy. Each
+        list's rows shift right by the rows inserted before it (prefix sums
+        of the per-list counts), so destinations grow with the source
+        position: blocks of ``chunk`` rows moved from the highest source
+        down never read a slot an earlier block wrote (``_move_rows``
+        copies each block out before writing it). Then ``p`` scatters into
+        its lists' new tail slots in one write. False (nothing changed)
+        on a slack or hole-bearing arena, a whole-row bf16/f32 one, or when
+        the merged extent exceeds the buffer: the caller re-sorts through
+        the host."""
+        if not (self.dtype == "int8" and self._list_lens is None and p.shape[0]):
+            return False
+        n_old = self._n
+        counts_old = np.diff(self._offsets)
+        passign = np.asarray(passign, np.int64)
+        offsets_new = np.concatenate(
+            [[0], np.cumsum(counts_old + np.bincount(passign, minlength=self.nlist))]
+        ).astype(np.int64)
+        n_new = int(offsets_new[-1])
+        if n_new > int(self._payload.shape[0]):
+            return False  # the headroom is spent
+        shift = offsets_new[:-1] - self._offsets[:-1]
+        dst_all = np.arange(n_old, dtype=np.int64) + np.repeat(shift, counts_old)
+        order_p = np.argsort(passign, kind="stable")
+        a_s = passign[order_p]
+        dest_p = np.empty(p.shape[0], np.int64)
+        dest_p[order_p] = (offsets_new[:-1][a_s] + counts_old[a_s]
+                           + np.arange(p.shape[0]) - np.searchsorted(a_s, a_s))
+        buf = self._payload
+        dst_dev = torch.as_tensor(dst_all, device=self.device)
+        # rows before the first shifted list stay where they are
+        src_min = (int(self._offsets[:-1][np.argmax(shift > 0)]) if (shift > 0).any()
+                   else n_old)
+        for s in list(range(src_min, n_old, chunk))[::-1]:
+            _move_rows(buf, dst_dev, s, min(chunk, n_old - s))
+        buf[torch.as_tensor(dest_p, device=self.device)] = p.to(buf.dtype)
+        ids_new = np.empty(n_new, np.int64)
+        ids_new[dst_all] = np.asarray(self._ids, np.int64)[:n_old]
+        ids_new[dest_p] = pids
+        self._set_arena(buf, ids_new, offsets_new, n_new, self._scale)
+        return True
+
+    def remove(self, ids) -> int:
+        """Delete rows by global id; returns how many were removed (unknown
+        ids are ignored; freed ids are never reused). Residual arenas
+        swap-remove in place: in each hit list the surviving tail rows move
+        into the removed slots and the list's valid_end retreats (the freed
+        slots keep their bytes; K1 never reads past valid_end), so the
+        payload never leaves its buffer and freed slots become slack that
+        ``add`` refills. Pending rows drop on the host, annex rows
+        swap-remove within the annex; whole-row arenas compact."""
+        req = normalize_remove_ids(ids)
+        if req.size == 0:
+            return 0
+        self._gid_bound()  # fixed before ids vanish: ids are never reused
+        removed = self._remove_pending(req) + self._remove_annex(req)
+        if self._n:
+            slots = np.flatnonzero(np.isin(np.asarray(self._ids[: self._n], np.int64), req))
+            if slots.size:
+                if self.residual:
+                    self._remove_arena_inplace(slots)
+                else:
+                    self._remove_arena_compact(slots)
+                removed += int(slots.size)
+        return removed
+
+    def _remove_pending(self, req: np.ndarray) -> int:
+        n_rem, _ = self._pending.remove_ids(req)
+        if n_rem:
+            self._pending_dev = None
+        return n_rem
+
+    def _remove_annex(self, req: np.ndarray) -> int:
+        ax = self._annex
+        if ax is None or ax["n"] == 0:
+            return 0
+        n = ax["n"]
+        hit = np.flatnonzero(np.isin(ax["ids"][:n], req))
+        if hit.size == 0:
+            return 0
+        new_n = n - int(hit.size)
+        head = hit[hit < new_n]  # holes to fill
+        tail = np.arange(new_n, n)
+        tail_surv = tail[~np.isin(tail, hit)]  # the survivors that fill them
+        if head.size:
+            src = torch.as_tensor(tail_surv, device=self.device)
+            dst = torch.as_tensor(head, device=self.device)
+            ax["rows"][dst] = ax["rows"][src]  # the gather copies: disjoint slots
+            ax["assign"][dst] = ax["assign"][src]
+            ax["ids"][head] = ax["ids"][tail_surv]
+        ax["ids"][new_n:n] = -1
+        ax["n"] = new_n
+        self._annex_ver += 1
+        return int(hit.size)
+
+    def _swap_remove_slots(self, slots: np.ndarray):
+        """Per-list swap-remove plan: in each hit list the survivors among
+        its last ``cnt`` valid slots move into the removed slots before
+        them, so every list stays front-packed (the valid_end invariant).
+        Decrements ``_list_lens``. Returns (src, dst, freed) arena slots:
+        src -> dst moves (disjoint), and the freed tail slots (id -1).
+        Vectorized: within a list the removed head slots and the surviving
+        tail slots are equal in number, and both come out grouped by list,
+        so they pair by position."""
+        offs = self._offsets
+        lens = self._list_lens
+        slots = np.sort(np.asarray(slots, np.int64))
+        lists = np.searchsorted(offs, slots, side="right") - 1
+        ul, cnt = np.unique(lists, return_counts=True)
+        new_lens = lens[ul] - cnt
+        cut = offs[ul] + new_lens  # each hit list's first freed slot
+        seg_start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+        freed = (np.arange(int(cnt.sum()), dtype=np.int64)
+                 - np.repeat(seg_start, cnt) + np.repeat(cut, cnt))
+        tail_surv = freed[~np.isin(freed, slots)]
+        head_holes = slots[slots < cut[np.searchsorted(ul, lists)]]
+        if head_holes.size != tail_surv.size:
+            raise AssertionError("swap-remove plan out of balance")
+        lens[ul] = new_lens
+        return tail_surv, head_holes, freed
+
+    def _remove_arena_inplace(self, slots: np.ndarray) -> None:
+        """Residual arenas: the O(batch) swap-remove (``remove``). A compact
+        arena gets its list lengths here. Host tables first, as in
+        ``add``."""
+        self._writable_tables()
+        src, dst, freed = self._swap_remove_slots(slots)
+        self._ids[dst] = self._ids[src]
+        self._ids[freed] = -1
+        self._valid_end = self._valid_end_table()
+        sd = torch.as_tensor(src, device=self.device)
+        dd = torch.as_tensor(dst, device=self.device)
+        if src.size:
+            self._payload[dd] = self._payload[sd]  # the gather copies: disjoint slots
+        if self._dev is not None:  # the staged tables, in place
+            ids_t = self._dev["ids"]
+            if src.size:
+                ids_t[dd] = ids_t[sd]
+            ids_t[torch.as_tensor(freed, device=self.device)] = -1
+            self._dev["valid_end"].copy_(torch.as_tensor(self._valid_end))
+
+    def _remove_arena_compact(self, slots: np.ndarray) -> None:
+        """Whole-row arenas (their scan masks rows past n_valid only): the
+        surviving rows re-assembled into a new compact arena."""
+        ids_arr = np.asarray(self._ids[: self._n], np.int64)
+        keep = ids_arr >= 0
+        keep[slots] = False
+        kept = np.flatnonzero(keep)
+        cap_assign = np.repeat(np.arange(self.nlist), np.diff(self._offsets))
+        payload = self._payload[torch.as_tensor(kept, device=self.device)]
+        self._assemble_compact(payload, ids_arr[kept], cap_assign[kept])
+
+    def _export_rows(self):
+        """(payload tensor, gids, assigns) of every valid arena row, after
+        the pending and annex rows merge in: ``merge_from``'s interchange
+        form (slack holes and padding drop out)."""
+        self.merge_pending()
+        ids = np.asarray(self._ids, np.int64)
+        valid = np.flatnonzero(ids >= 0)
+        payload = self._payload[torch.as_tensor(valid, device=self.device)]
+        assigns = (np.searchsorted(self._offsets, valid, side="right") - 1).astype(np.int32)
+        return payload, ids[valid], assigns
+
+    def merge_from(self, other: "BandIVFIndex", id_offset: int | None = None) -> int:
+        """Consolidate another index built with the same quantizer (the
+        FAISS ``merge_from`` surface): one re-sort of the union, no
+        re-encoding; ``other`` is left as it was. The family parameters and
+        centroids must match; int8 rows requantize from ``other``'s scale
+        to this one's. Global ids must not collide: ``id_offset`` shifts
+        ``other``'s (e.g. by this index's ``_gid_bound()``). Returns the
+        rows merged in."""
+        if (self.kind, self.dim, self.metric, self.dtype, self.residual, self.nlist) != (
+                other.kind, other.dim, other.metric, other.dtype, other.residual,
+                other.nlist):
+            raise ValueError("merge_from needs the same index family and parameters")
+        if not np.allclose(self.centroids, other.centroids, rtol=1e-7, atol=1e-6):
+            raise ValueError("merge_from needs the shared coarse quantizer (train once, "
+                             "reuse for every worker's build)")
+        p_s, id_s, a_s = self._export_rows()
+        p_o, id_o, a_o = other._export_rows()
+        p_o = p_o.to(self.device)
+        if self.dtype == "int8" and other._scale != self._scale:
+            ratio = f32_const(other._scale / self._scale, p_o)
+            p_o = torch.clamp(torch.round(p_o.float() * ratio), -127, 127).to(torch.int8)
+        if id_offset is not None:
+            id_o = id_o + int(id_offset)
+        both = np.concatenate([id_s, id_o])
+        uniq = np.unique(both)
+        if uniq.size != both.size:
+            raise ValueError(f"{both.size - uniq.size} colliding global ids: pass "
+                             "id_offset=self._gid_bound() (or any disjoint shift)")
+        self._assemble_compact(torch.cat([p_s, p_o]), both, np.concatenate([a_s, a_o]))
+        self._next_id = int(uniq[-1]) + 1 if uniq.size else 0
+        return int(id_o.shape[0])
+
+    def reconstruct(self, ids) -> np.ndarray:
+        """(len(ids), D) f32 approximate rows (the dequantized payload, plus
+        the list centroid of residual rows) for global ids in the arena,
+        the pending buffer or the annex."""
+        ids = np.asarray(ids, np.int64)
+        ids_arr = np.asarray(self._ids, np.int64)
+        valid = np.flatnonzero(ids_arr >= 0)
+        bound = max(self._gid_bound(), 1)
+        if ids.size and (ids.min() < 0 or ids.max() >= bound):
+            raise ValueError("unknown id")
+        pos = np.full(bound, -1, np.int64)
+        pos[ids_arr[valid]] = valid
+        out = np.empty((ids.shape[0], self.dim), np.float32)
+        scale = self._scale if self.dtype == "int8" else 1.0
+        in_arena = pos[ids] >= 0
+        if in_arena.any():
+            rows = pos[ids[in_arena]]
+            dec = self._payload[torch.as_tensor(rows, device=self.device)].float().cpu().numpy()
+            dec = dec * scale
+            if self.residual:
+                dec = dec + self.centroids[np.searchsorted(self._offsets, rows, "right") - 1]
+            out[in_arena] = dec
+        if (~in_arena).any():
+            p_rows = [np.zeros((0, self.dim), np.float32)]
+            p_ids, p_assign = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+            snap = self._pending.snapshot_full()
+            if snap is not None:
+                p_rows.append(snap[0].astype(np.float32))
+                p_ids.append(snap[1])
+                p_assign.append(snap[2])
+            if self._annex is not None and self._annex["n"]:
+                n = self._annex["n"]
+                p_rows.append(self._annex["rows"][:n].cpu().numpy().astype(np.float32))
+                p_ids.append(self._annex["ids"][:n])
+                p_assign.append(self._annex["assign"][:n].cpu().numpy())
+            p_rows, p_ids, p_assign = (np.concatenate(a) for a in (p_rows, p_ids, p_assign))
+            ppos = np.full(bound, -1, np.int64)
+            ppos[p_ids] = np.arange(p_ids.shape[0])
+            sel = ppos[ids[~in_arena]]
+            if (sel < 0).any():
+                raise ValueError("unknown id")
+            dec = p_rows[sel] * scale
+            if self.residual:
+                dec = dec + self.centroids[p_assign[sel]]
+            out[~in_arena] = dec
+        return out
+
+    # -- pending and annex scans ------------------------------------------
+    def _pending_device(self):
+        """(rows, ids, ids int32 on the device, n) of the pending rows,
+        staged once per pending state. Residual rows are reconstructed on
+        the host (centroid + scale·r8, as the reference) so their exact scan
+        runs on plain rows at scale 1."""
+        if self._pending_dev is None:
+            snap = self._pending.snapshot_full()
+            if snap is None:
+                return None
+            rows, pids, passign = snap
+            if self.residual:
+                rows = self.centroids[passign] + rows.astype(np.float32) * self._scale
+            self._pending_dev = (torch.as_tensor(rows, device=self.device), pids,
+                                 torch.as_tensor(pids.astype(np.int32), device=self.device),
+                                 rows.shape[0])
+        return self._pending_dev
+
+    def _pending_scan_scale(self) -> float:
+        if self.residual:
+            return 1.0  # rows already reconstructed
+        return self._scale if self.dtype == "int8" else 1.0
+
+    def _annex_ids_device(self) -> torch.Tensor:
+        """The annex's (n,) int32 ids on the device, cached per annex
+        version (folds append, removes swap; both bump it)."""
+        ax = self._annex
+        if ax.get("ids_dev_ver") != self._annex_ver:
+            ax["ids_dev"] = torch.as_tensor(ax["ids"][: ax["n"]].astype(np.int32),
+                                            device=self.device)
+            ax["ids_dev_ver"] = self._annex_ver
+        return ax["ids_dev"]
+
+    def _merge_pending_topk(self, v, gids, queries, k: int, flt=None):
+        """The arena's top-k (v, gids on the device) merged with exact scans
+        of the pending rows and the annex: one stable top-k over [arena,
+        pending, annex] (ties to the earlier), for ``search`` and
+        ``search_device`` alike. ``flt`` masks pending and annex rows before
+        their top-k, so a query keeps its best allowed rows however many
+        disallowed ones outrank them (the reference masks after the top-k
+        and can lose them); unfilled slots are (-inf, -1)."""
+        extra_v, extra_i = [], []
+        l2 = self.metric == "l2"
+        pdev = self._pending_device()
+        if pdev is not None:
+            rows, _, pids_dev, n = pdev
+            pv, pi = _pending_scan(queries, rows, self._pending_scan_scale(), k=min(k, n),
+                                   l2=l2, allow=None if flt is None else flt.allowed_dev(pids_dev))
+            extra_v.append(pv)
+            extra_i.append(pids_dev[pi])
+        ax = self._annex
+        if ax is not None and ax["n"]:
+            n = ax["n"]
+            ids_dev = self._annex_ids_device()
+            av, ap = _annex_scan(queries, ax["rows"][:n], ax["assign"][:n],
+                                 self._device_state()["centroids"], self._scale, k=min(k, n),
+                                 resid=self.residual, l2=l2,
+                                 allow=None if flt is None else flt.allowed_dev(ids_dev))
+            extra_v.append(av)
+            extra_i.append(ids_dev[ap])
+        if not extra_v:
+            return v, gids
+        all_v = torch.cat([v, *extra_v], dim=1)
+        all_i = torch.cat([gids.to(torch.int32), *extra_i], dim=1)
+        v2, pos = topk_stable(all_v, k)
+        out_i = torch.gather(all_i, 1, pos)
+        if flt is not None:
+            out_i = torch.where(v2 > NEG_INF, out_i, -1)
+        return v2, out_i
 
     # -- search -----------------------------------------------------------
     def _device_state(self) -> dict:
@@ -615,7 +1293,8 @@ class BandIVFIndex(Index):
         'precise' and int8 x int8 for 'int8'. ``where`` (residual arenas):
         an id predicate (``make_filter``), masked at score time; queries
         with fewer than k allowed hits return (-inf, -1) tails. top2 keeps
-        each bucket's best two rows (2·L candidates)."""
+        each bucket's best two rows (2·L candidates). Pending and annex rows
+        are scanned exactly and merged in (``_merge_pending_topk``)."""
         assert self._n, "empty index"
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
@@ -626,16 +1305,20 @@ class BandIVFIndex(Index):
             if flt is not None:
                 raise ValueError("filtered search: use strategy='tiles' (residual arenas) "
                                  "or index.filters.filtered_search")
-            return self._search_band(queries, k, nprobe)
-        if strategy != "tiles":
+            v, gids = self._search_band(queries, k, nprobe)
+            q = torch.as_tensor(queries, device=self.device)
+            v, gids = (torch.as_tensor(a, device=self.device) for a in (v, gids))
+        elif strategy == "tiles":
+            p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
+            q_pad = -(-nq // tq) * tq
+            qp = torch.as_tensor(queries if q_pad == nq else np.concatenate(
+                [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)]), device=self.device)
+            v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
+            q, v, gids = qp[:nq], v[:nq], gids[:nq]
+        else:
             raise ValueError(f"unknown strategy {strategy!r}")
-        p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
-        q_pad = -(-nq // tq) * tq
-        qp = queries if q_pad == nq else np.concatenate(
-            [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
-        v, gids = self._tiles_kernel_dispatch(
-            torch.as_tensor(qp, device=self.device), k, p_tiles, tq, scoring, flt, top2)
-        return v[:nq].cpu().numpy(), gids[:nq].cpu().numpy().astype(np.int64)
+        v, gids = self._merge_pending_topk(v, gids, q, k, flt)
+        return v.cpu().numpy(), gids.cpu().numpy().astype(np.int64)
 
     def search_device(self, queries, k: int, nprobe: int = 32,
                       p_tiles: int = 0, scoring: str = "hybrid",
@@ -643,7 +1326,8 @@ class BandIVFIndex(Index):
         """All-device serving path: ``queries`` is (or becomes) a (B, D) f32
         tensor on the index's device and the returned (scores (B, k) f32,
         ids (B, k) int32) stay there — no host transfer or sync in the call
-        once a filter's mask is cached. Knobs resolve as in ``search()``."""
+        once a filter's mask and the pending rows are staged. Knobs resolve
+        as in ``search()``; pending and annex rows merge in as there."""
         assert self._n, "empty index"
         flt = self.make_filter(where) if where is not None else None
         queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
@@ -653,7 +1337,7 @@ class BandIVFIndex(Index):
         qp = queries if q_pad == nq else torch.cat(
             [queries, queries[-1:].expand(q_pad - nq, -1)])
         v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
-        return v[:nq], gids[:nq]
+        return self._merge_pending_topk(v[:nq], gids[:nq], queries, k, flt)
 
     def _resolve_knobs(self, nq: int, nprobe: int, p_tiles: int, tile_q, top2=None):
         """Tuned op point for knobs left at their sentinels, then
@@ -694,14 +1378,15 @@ class BandIVFIndex(Index):
     def _arena_row_bias(self) -> torch.Tensor:
         """K1's (N_pad,) f32 l2 row bias (ops/band.py::resid_row_bias),
         cached per arena state: the payload and local-id tensors, their
-        versions and the scale."""
+        versions (an in-place add, remove or merge bumps the payload's) and
+        the scale. The entry holds the tensors, so their ids stay unique."""
         st = self._device_state()
         pay, loc = st["payload"], st["local"]
         key = (id(pay), pay._version, id(loc), loc._version, self._scale)
         if self._bias_cache is None or self._bias_cache[0] != key:
             bias = resid_row_bias(pay, loc, st["centroid_tiles"], self._scale, self.tile_n)
-            self._bias_cache = (key, bias)
-        return self._bias_cache[1]
+            self._bias_cache = (key, (pay, loc), bias)
+        return self._bias_cache[2]
 
     def _tiles_kernel_dispatch(self, qp, k, p_tiles, tq, scoring, flt=None, top2=False):
         """One device dispatch of the tiles search over the arena: qp a
@@ -866,6 +1551,7 @@ class BandIVFIndex(Index):
 
     # -- persistence ------------------------------------------------------
     def _state_arrays(self) -> dict:
+        self.merge_pending()  # one arena on disk: pending and annex rows merge first
         out = {
             "centroids": self.centroids,
             "payload": to_numpy(self._payload),

@@ -20,9 +20,10 @@ layout loads here.) Its ``_fit_tile_n_to_skew`` keeps tile_n a multiple of
 
 Not ported yet, each raising NotImplementedError (ROADMAP queue 1 item 13):
 refine tiers 'pq2', 'host' and 'pq2+host' (and ``attach_host_refine``), the
-mutation surface (``add``, ``remove``, ``merge_pending``, ``merge_from``),
-filters (``where=``), ``metric='l2'`` and anisotropic codebooks
-(``aniso_eta > 1``).
+mutation surface (``add``, ``remove``, ``merge_pending``, ``merge_from``,
+``reconstruct``; the pending buffer it inherits stays empty),
+``build_streaming``, filters (``where=``), ``metric='l2'`` and anisotropic
+codebooks (``aniso_eta > 1``).
 """
 
 from __future__ import annotations
@@ -365,6 +366,13 @@ class BandIVFPQIndex(BandIVFIndex):
 
     def merge_from(self, other, id_offset=None) -> int:
         raise NotImplementedError(f"merge_from() {_LATER}")
+
+    def reconstruct(self, ids) -> np.ndarray:
+        raise NotImplementedError(f"reconstruct() {_LATER}")
+
+    @classmethod
+    def build_streaming(cls, chunks, nlist: int, **kw) -> "BandIVFPQIndex":
+        raise NotImplementedError(f"build_streaming() {_LATER}")
 
     def attach_host_refine(self, host_chunk_fn, n_chunks: int, **kw) -> None:
         raise NotImplementedError(f"attach_host_refine() (the host refine tier) {_LATER}")

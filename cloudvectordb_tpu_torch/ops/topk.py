@@ -34,6 +34,21 @@ def topk_stable(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     return v[..., :k], pos[..., :k]
 
 
+def topk_stable_select(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``topk_stable`` of a (B, T) block, T < 2^30, by two ``torch.topk``
+    selections and a sort of k columns instead of a sort of the row: the
+    k-th largest value t first (exact, whatever order torch.topk gives
+    ties), then the positions by an int32 key that ranks every value above
+    t first and the values equal to t by lower position. For wide rows,
+    where the full sort dominates (the pending and annex scans)."""
+    t = torch.topk(values, k, dim=1).values[:, -1:]
+    pos = torch.arange(values.shape[1], 0, -1, device=values.device, dtype=torch.int32)
+    key = torch.where(values > t, pos + (1 << 30), torch.where(values == t, pos, -1))
+    sel = torch.topk(key, k, dim=1).indices.sort(dim=1).values
+    v, order = torch.sort(torch.gather(values, 1, sel), dim=1, descending=True, stable=True)
+    return v, torch.gather(sel, 1, order)
+
+
 def _score_block(q: torch.Tensor, tile: torch.Tensor, metric: str,
                  tile_sqnorm: torch.Tensor | None = None) -> torch.Tensor:
     """(Q, D) x (T, D) -> (Q, T) f32 scores, full-f32 matmul."""

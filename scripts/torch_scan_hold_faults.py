@@ -21,6 +21,8 @@ include to a temporary directory (the package's sources are not touched):
 - ``local`` (K1's epilogue): a row takes the centroid term of the next local
   list, not its own;
 - ``valid_end`` (K1's epilogue): rows past their list's valid_end are scored;
+- ``ve_plus1`` (K1's epilogue): the row at its list's valid_end is scored
+  too (one slot past the end);
 - ``mask`` (K1's epilogue): the row mask is not applied;
 - ``bias`` (K1's epilogue): the l2 key drops the row's bias;
 - ``dup`` (the top-2 merge, slot_merge.cuh): a repeated table entry's best
@@ -35,7 +37,10 @@ with a 50% row mask against ``mask``, with l2 against ``bias`` and with
 top-2 over a table that repeats entries against ``dup``) and, as
 chip_smoke.py does, over the residual index (12.5M x 768, nlist 4096) at
 (p_tiles, tile_q) = (96, 32), every fault but valid_end there (the arena has
-too few rows past a valid_end for the top-10 to see it); then the whole-row
+too few rows past a valid_end for the top-10 to see it); then, as
+chip_smoke.py's mutation phase does, over the slack arena (slack 0.05) after
+four rounds of 8,192 removes, whose freed slots keep their old bytes past
+each list's valid_end, against ``valid_end`` and ``ve_plus1``; then the whole-row
 int8 index on the same corpus and queries, holding K3 at (96, 32) with
 hybrid queries (exact f64 scores) and int8 queries (values and ids equal
 outright) and K7 at the band plan (equal outright); each at R 1 (L =
@@ -86,6 +91,9 @@ FAULTS = {
     "valid_end": {"tiles_resid.cu": [(
         "if (x.row0 + slot >= reinterpret_cast<const int32_t*>(side + at.ve)[li]) "
         "return -INFINITY;", "")]},
+    "ve_plus1": {"tiles_resid.cu": [(
+        "x.row0 + slot >= reinterpret_cast<const int32_t*>(side + at.ve)[li]",
+        "x.row0 + slot > reinterpret_cast<const int32_t*>(side + at.ve)[li]")]},
     "mask": {"tiles_resid.cu": [(
         "if (side[at.mask + static_cast<int>(x.row0 & 3) + slot] == 0) return -INFINITY;",
         ";")]},
@@ -197,6 +205,18 @@ def holds_k1(libs, dev, chunk_fn, queries) -> list[str]:
     return wrong
 
 
+def holds_k1_mutated(libs, dev, chunk_fn, queries) -> list[str]:
+    """K1 at the main plan over chip_smoke.py's mutated slack arena: every
+    list ends in freed slots that still hold the rows that were there."""
+    idx, _, _, _ = c.slack_removed(dev, chunk_fn, c.N_ROWS // c.CHUNK)
+    p_tiles, tq = c.MAIN_OP
+    args = c.k1_plan(idx, queries, p_tiles, tq)
+    return hold(libs, "tiles_resid", f"K1 mutated slack arena B{c.B} p{p_tiles} tq{tq}",
+                lambda: band.tiles_topk_resid(**args, k=c.K),
+                lambda: band.tiles_topk_resid_reference(**args, k=c.K),
+                ["valid_end", "ve_plus1"], exact=c.resid_exact(args))
+
+
 def holds_k3_k7(libs, dev, chunk_fn, queries) -> list[str]:
     idx, _ = c.build_index(dev, chunk_fn, c.N_ROWS // c.CHUNK, False)
     st = idx._device_state()
@@ -261,7 +281,7 @@ def main() -> int:
         libs = build(Path(tmp))
         chunk_fn = c.make_corpus(dev, c.CHUNK)
         queries = c.make_queries(chunk_fn, dev, c.B)
-        for holds in (holds_k1, holds_k3_k7, holds_k2):
+        for holds in (holds_k1, holds_k1_mutated, holds_k3_k7, holds_k2):
             wrong += holds(libs, dev, chunk_fn, queries)
             torch.cuda.empty_cache()
     for line in wrong:

@@ -183,11 +183,10 @@ def _assert_same_scored(t, j, q, **kw):
 
 
 def test_unported_options_raise(data, jidx, tmp_path):
-    """Slack arenas, add() and other index kinds still raise; l2, top2 and
-    'precise', which this test once refused, are held to the reference."""
+    """Other index kinds still raise; l2, top2 and 'precise', which this
+    test once refused, are held to the reference (slack arenas and add(),
+    which it also refused, are held in test_torch_band_mutation.py)."""
     db, q, gt = data
-    with pytest.raises(NotImplementedError):
-        BandIVFIndex(64, 16, residual=True, slack=0.5, device="cpu")
     meta, arrays = jidx._state_meta(), jidx._state_arrays()
     t = BandIVFIndex.from_state(meta, arrays, device="cpu")
     for kw in (dict(top2=True), dict(scoring="precise"), dict(top2=True, scoring="precise")):
@@ -200,8 +199,6 @@ def test_unported_options_raise(data, jidx, tmp_path):
     j_l2 = JaxBandIVFIndex._from_state({"dim": 64, "meta": meta, "metric": "l2"}, arrays)
     assert BandIVFIndex(64, 16, residual=True, metric="l2", device="cpu").metric == "l2"
     _assert_same_scored(t_l2, j_l2, q, p_tiles=8)
-    with pytest.raises(NotImplementedError):
-        t.add(data[0][:4])
     (tmp_path / "pq").mkdir()
     (tmp_path / "pq" / "manifest.json").write_text(json.dumps(
         {"kind": "ivf_pq", "meta": {}, "arrays": []}))

@@ -12,7 +12,8 @@ import torch
 from cloudvectordb_tpu.eval.recall import brute_force_topk as jax_brute_force_topk
 from cloudvectordb_tpu.ops.topk import tiled_topk as jax_tiled_topk
 from cloudvectordb_tpu_torch.eval.recall import brute_force_topk, recall_at_k
-from cloudvectordb_tpu_torch.ops.topk import merge_topk, tiled_topk, topk_stable
+from cloudvectordb_tpu_torch.ops.topk import (
+    merge_topk, tiled_topk, topk_stable, topk_stable_select)
 
 TOL = 1e-5
 
@@ -87,3 +88,19 @@ def test_recall_harness_is_the_reference(metric):
     np.testing.assert_array_equal(s, s_j)
     assert recall_at_k(i, i_j) == 1.0
     assert recall_at_k(i[:, ::-1], i_j, k=5) < 1.0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_topk_stable_select_is_topk_stable(seed):
+    """The selection form gives the sort's values and positions outright:
+    rows of few distinct values (ties at and across the k-th), -inf rows
+    shorter than k, and plain floats."""
+    g = torch.Generator().manual_seed(seed)
+    for b, t, k in ((5, 300, 10), (3, 40, 40), (7, 1000, 1), (2, 17, 9)):
+        x = torch.randint(-3, 4, (b, t), generator=g).float()
+        x[0, : t // 2] = float("-inf")
+        x[-1] = float("-inf")
+        for vals in (x, torch.randn(b, t, generator=g)):
+            v, pos = topk_stable_select(vals, k)
+            v_ref, pos_ref = topk_stable(vals, k)
+            assert torch.equal(v, v_ref) and torch.equal(pos, pos_ref)
