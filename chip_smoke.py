@@ -72,6 +72,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (values and ids equal outright), and hybrid top-2 (held as hybrid) at
    the tuned op point, again at (96, 32) if the tuner picked another point;
    K7 at the band plan (values and ids equal outright);
+   then K3's top-2 where the narrow tensor-core block cannot take it (the
+   CUDA-core body, ``run_top2_routes``): an f32 whole-row index over the
+   corpus's first 1M rows at (96, 32) (recall@10 >= 0.80) and a hybrid
+   int8 arena of 262,144 rows at D 3072, each one top-2 batch of 4096
+   (its K3 launches counted just around it) and K3 top-2 at that plan
+   against its plain version through exact f64 scores, timed, with its
+   bound;
 7. mutation (``run_mutation``, the launch counts of K1, K3 and K7 reset
    just before and read just after, at the residual path's op point, each
    state's recall@10 against its own exact f32 ground truth from one pass
@@ -113,6 +120,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. K6 (``pq_topk``, ``run_k6``): codebooks trained (m 64) on 65,536
    corpus rows, 1M rows encoded, the 4096 queries, k 10: recall against the
    exact scan, then K6 against its plain version as K5, both timed;
+   then the probe-scan families (no hand-written kernel): cell 10,
+   ``IVFFlatIndex`` at BASELINE config #2's shape (``run_ivf_flat``: 1M x
+   384 rows of the corpus's process, nlist 4096, 512 queries; the nprobe
+   sweep 1-64, recall not falling by more than 0.005 along it, its
+   operating point, ``tune(gt=)``, a torch.profiler split of one batch, a
+   full-probe batch equal to the exact top-10 but for near-ties, and
+   ``range_search`` at full probe equal to the exact oracle's hit sets but
+   for near-ties), and cell 11, ``IVFPQIndex`` at scripts/bench_ivf.py's
+   shape (``run_ivf_pq``: 1M x 768, 4096 queries, nlist 1024, m 64,
+   residual; sweeps of nprobe x refine_factor 16/64 and of the ADC-only
+   route, recall not falling along nprobe, ``tune(gt=)``, the full probe
+   at rf 64 within 0.01 of the method's exact oracle, 8,192 removes (no
+   removed id back, recall within 0.01), ``merge_from`` of two halves
+   (every id once, recall within 0.005) and ``reconstruct`` (cosine >=
+   0.99));
 11. K4 (mha_small_head) against its plain version, forward outputs and dq,
    dk, dv: L 128, 256 and 512, (H, d) (12, 32) and (12, 64), f32 and bf16,
    and (12, 16) bf16, ragged key padding and a fully masked sequence; each
@@ -164,16 +186,20 @@ import torch.nn.functional as F
 
 from cloudvectordb_tpu_torch.eval.qps import qps_device
 from cloudvectordb_tpu_torch.eval.recall import recall_at_k
+from cloudvectordb_tpu_torch.eval.sweep import nprobe_sweep, operating_point
 from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex, _plan_tiles
 from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
+from cloudvectordb_tpu_torch.index.ivf_flat import IVFFlatIndex
+from cloudvectordb_tpu_torch.index.ivf_pq import IVFPQIndex
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
 from cloudvectordb_tpu_torch.index.pq import pq_decode, pq_encode, train_pq
 from cloudvectordb_tpu_torch.models.embed import encode_corpus_streaming, make_encode_fn
 from cloudvectordb_tpu_torch.models.encoder import Encoder
 from cloudvectordb_tpu_torch.models.presets import get_preset
 from cloudvectordb_tpu_torch.ops import attn, band, flat_topk as flat, pq
-from cloudvectordb_tpu_torch.ops.topk import merge_topk, tiled_topk
+from cloudvectordb_tpu_torch.ops.topk import (
+    merge_topk, tiled_topk, topk_stable, topk_stable_select)
 from cloudvectordb_tpu_torch.train.trainer import Trainer
 from cloudvectordb_tpu_torch.utils.checkpoint import restore_checkpoint
 from cloudvectordb_tpu_torch.utils.config import TrainConfig
@@ -249,12 +275,13 @@ KERNELS["K1b"] = {"name": "resid_row_bias", "route": "cuda",
 #: its own in the kernels line: K1 over config #3's refine arena (cell 7),
 #: K2 over int8 rows (cell 4) and over the encoded passages (cell 6); K1's
 #: 'precise', filtered (row_mask), l2 and top-2 searches and K3's top-2
-#: (cells 1 and 2); K1 over the slack arena after its removes (cell 9)
+#: (cells 1 and 2); K1 over the slack arena after its removes (cell 9); K3's
+#: top-2 on the CUDA-core body over f32 rows and deep hybrid rows
 SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2", "K1 precise": "K1",
                  "K1 masked": "K1", "K1 l2": "K1", "K1 top2": "K1", "K3 top2": "K3",
-                 "K1 mutated": "K1"}
+                 "K1 mutated": "K1", "K3 top2 f32": "K3", "K3 top2 deep": "K3"}
 KERNELS.update({key: dict(KERNELS[base], **({"name": f"{KERNELS[base]['name']} "
-                                                     f"{key.split()[1]}"}
+                                                     f"{' '.join(key.split()[1:])}"}
                                             if key.split()[1] in VARIANTS else {}))
                 for key, base in SHAPE_RECORDS.items()})
 WRAPPERS = {"K1": band.tiles_topk_resid, "K2": flat.flat_topk,
@@ -325,10 +352,22 @@ def ptxas_instances(out: str, label) -> list[str]:
     return lines
 
 
+#: the CUDA-core body's (query, row) types, as mangled in its symbols
+CC_PAIRS = {"aa": "int8", "13__nv_bfloat16a": "hybrid", "13__nv_bfloat16S": "bf16",
+            "ff": "f32", "f13__nv_bfloat16": "f32 x bf16"}
+
+
 def tc_top2_label(sym: str) -> str | None:
-    """A tiles_scan.cu top-2 instantiation's label, else None."""
+    """A tiles_scan.cu top-2 instantiation's label (the narrow tensor-core
+    block, or the CUDA-core body), else None."""
     m = re.search(r"tiles_tc_kernelILi(\d)ELi(\d)E.*ELb1E", sym)
-    return f"TABLE {SCAN_TC_PAIRS[m.group(2)][0]} top2" if m else None
+    if m:
+        return f"TABLE {SCAN_TC_PAIRS[m.group(2)][0]} top2"
+    m = re.search(r"tiles_scan_kernelILi1E(\w+?)Lb1E", sym)
+    if m:
+        pair = next((v for k, v in CC_PAIRS.items() if m.group(1).startswith(k)), m.group(1))
+        return f"TABLE {pair} top2 (CUDA-core)"
+    return None
 
 
 #: tensor-core instructions in SASS: HMMA and IMMA (mma.sync), HGMMA and
@@ -829,18 +868,53 @@ def table_checks(dev) -> float:
             err3 = max(err3, compare(
                 f"K3 {tag}", lambda: band.tiles_topk(db, q, table, K, **kw),
                 lambda: band.tiles_topk_reference(db, q, table, K, **kw), quiet=True, **hold))
-            if qt != torch.float32:  # top-2 (the tensor-core pairs), k above L at R > 1
-                k2 = 2 * lb if lb else K
-                err3 = max(err3, compare(
-                    f"K3 top2 {tag}", lambda: band.tiles_topk(db, q, table, k2, top2=True, **kw),
-                    lambda: band.tiles_topk_reference(db, q, table, k2, top2=True, **kw),
-                    quiet=True, **hold))
+            # top-2 (k above L at R > 1): the tensor-core pairs on the
+            # narrow block, the f32 pair on the CUDA-core body
+            k2 = 2 * lb if lb else K
+            err3 = max(err3, compare(
+                f"K3 top2 {tag}", lambda: band.tiles_topk(db, q, table, k2, top2=True, **kw),
+                lambda: band.tiles_topk_reference(db, q, table, k2, top2=True, **kw),
+                quiet=True, **hold))
             starts = torch.tensor([1, n_tiles - 3], dtype=torch.int32, device=dev)
             err7 = max(err7, compare(
                 f"K7 {tag}", lambda: band.band_topk(db, q, starts, K, 3, **kw),
                 lambda: band.band_topk_reference(db, q, starts, K, 3, **kw), quiet=True,
                 **hold))
-    return err3, err7
+    return max(err3, deep_top2_checks(dev)), err7
+
+
+#: K3 top-2 on the CUDA-core body's other routes (int8, D, l_buckets,
+#: tile_q): tensor-core pairs too deep for resident queries (hybrid and bf16
+#: past D 2,752, int8 past 5,504), f32 x bf16 rows, and a hybrid state too
+#: large for the narrow block at R 8
+DEEP_TOP2_CASES = (("hybrid", torch.bfloat16, torch.int8, 3072, 512, 64),
+                   (False, torch.bfloat16, torch.bfloat16, 2900, 0, 48),
+                   (True, torch.int8, torch.int8, 5600, 256, 32),
+                   (False, torch.float32, torch.bfloat16, 768, 256, 64),
+                   ("hybrid", torch.bfloat16, torch.int8, 2600, 256, 32))
+
+
+def deep_top2_checks(dev) -> float:
+    err = 0.0
+    for seed, (int8, qt, rt, d, lb, tile_q) in enumerate(DEEP_TOP2_CASES):
+        rng = np.random.default_rng(300 + seed)
+        n_tiles, tile_n, nq = 4, 2048, 2 * tile_q
+        db = random_rows(rng, n_tiles * tile_n, d, rt, dev)
+        q = random_rows(rng, nq, d, qt, dev)
+        table = rng.integers(0, n_tiles, size=(2, 4)).astype(np.int32)
+        table[:, -1] = table[:, 0]
+        table = torch.as_tensor(table, device=dev)
+        kw = dict(tile_n=tile_n, tile_q=tile_q, l_buckets=lb, int8=int8,
+                  n_valid=n_tiles * tile_n - 700, top2=True)
+        hold = (dict(equal=True) if int8 is True else
+                dict(exact=wholerow_exact(db, q), tie=None) if qt == torch.bfloat16 else {})
+        k2 = 2 * lb if lb else K
+        err = max(err, compare(
+            f"K3 top2 {int8!r} {qt} x {rt} L{lb or tile_n} D{d} tq{tile_q} "
+            f"({scan_body(q, db, tile_q, tile_n // (lb or tile_n))})",
+            lambda: band.tiles_topk(db, q, table, k2, **kw),
+            lambda: band.tiles_topk_reference(db, q, table, k2, **kw), **hold))
+    return err
 
 
 def random_pq_inputs(seed, dev, *, m=64, nbits=8, dsub=12, tile_n=1024, n_tiles=5,
@@ -1061,13 +1135,13 @@ def kmeans_determinism(chunk_fn) -> None:
 
 
 # -- the corpus ---------------------------------------------------------------
-def make_corpus(dev, chunk: int):
+def make_corpus(dev, chunk: int, d: int = D):
     """Deterministic chunk_fn on the device: the generating process of
-    bench.py (latent 32, 256 centres, noise 0.3/sqrt(32), L2-normalised),
-    drawn from torch.Generators."""
+    bench.py (latent 32, 256 centres, noise 0.3/sqrt(32), L2-normalised, at
+    width ``d``), drawn from torch.Generators."""
     g = torch.Generator(device=dev)
     g.manual_seed(1000)
-    w = torch.randn((LATENT, D), generator=g, device=dev) / LATENT ** 0.5
+    w = torch.randn((LATENT, d), generator=g, device=dev) / LATENT ** 0.5
     centers = torch.randn((NCENTERS, LATENT), generator=g, device=dev)
     centers = centers / centers.norm(dim=1, keepdim=True)
 
@@ -1097,8 +1171,9 @@ def make_queries(chunk_fn, dev, batch: int) -> torch.Tensor:
     g = torch.Generator(device=dev)
     g.manual_seed(7777)
     base = chunk_fn(0)
+    d = base.shape[1]
     sel = torch.randint(0, base.shape[0], (batch,), generator=g, device=dev)
-    q = base[sel] + (0.15 / D ** 0.5) * torch.randn((batch, D), generator=g, device=dev)
+    q = base[sel] + (0.15 / d ** 0.5) * torch.randn((batch, d), generator=g, device=dev)
     return q / q.norm(dim=1, keepdim=True)
 
 
@@ -1136,17 +1211,19 @@ def build_and_tune(dev, chunk_fn, n_chunks, queries, residual: bool):
     return idx, report, build_s
 
 
-def tune_logged(idx, queries, label: str) -> dict:
+def tune_logged(idx, queries, label: str, gt=None) -> dict:
     """``tune(k=10, target_recall=0.95)`` against the index's own max-effort
-    reference, logged in one line: the op point, the candidates walked and
-    skipped by the cost proxy, and each finalist's host-API QPS."""
+    reference (or the exact ground truth ``gt``), logged in one line: the op
+    point, the candidates walked and skipped by the cost proxy, and each
+    finalist's host-API QPS."""
     t0 = time.perf_counter()
-    report = idx.tune(queries.cpu().numpy(), k=K, target_recall=0.95)
+    report = idx.tune(queries.cpu().numpy(), k=K, target_recall=0.95, gt=gt)
     tried = report["tried"]
     skipped = sum("skipped" in r for r in tried)
     finals = ", ".join(f"{f['op']}: {f['qps']:.0f}" for f in report["finalists"])
     log(f"[{label}] tuned in {time.perf_counter() - t0:.1f} s: op {report['op']}, met "
-        f"{report['met']}, self-relative recall {report['recall']:.4f}; walked "
+        f"{report['met']}, {'self-relative' if gt is None else 'exact'} recall "
+        f"{report['recall']:.4f}; walked "
         f"{len(tried) - skipped}, skipped {skipped}; finalists (qps) {finals}")
     return report
 
@@ -1547,38 +1624,147 @@ def k3_holds(idx, queries, p_tiles: int, tq: int, reps: int,
     bound: hybrid (held to the exact scores) and int8 (values and ids equal
     outright); hybrid top-2 (held as hybrid) at the plan ``main_op`` (the
     tuned one)."""
-    st = idx._device_state()
     q_s, table = k3_plan(idx, queries, p_tiles, tq)
     q_bf = q_s.to(torch.bfloat16)
     q8, _ = flat.quantize_queries(q_s)
-    batch = queries.shape[0]
-    used, macs = table_work(table, tq, idx.tile_n, D)
-    ops = 2.0 * batch * p_tiles * idx.tile_n * D
     mp = {}
     for key, label, qk, int8, kind in (("K3", "hybrid", q_bf, "hybrid", "bf16"),
                                        ("K3 int8", "int8", q8, True, "int8"),
                                        ("K3 top2", "hybrid top2", q_bf, "hybrid", "bf16")):
         if key == "K3 top2" and (p_tiles, tq) != main_op:
             continue
-        kw = dict(tile_n=idx.tile_n, tile_q=tq, int8=int8, n_valid=idx._n,
-                  top2=key == "K3 top2")
-        hold = (dict(exact=wholerow_exact(st["payload"], q_bf), tie=None)
-                if int8 == "hybrid" else dict(equal=True))
-        r = main_shape_check(
-            "K3", f"{label} B{batch} p{p_tiles} tq{tq}",
-            lambda: band.tiles_topk(st["payload"], qk, table, K, **kw),
-            lambda: band.tiles_topk_reference(st["payload"], qk, table, K, **kw),
-            reps=reps, plain_reps=2, **hold)
-        r.update(bound(used * idx.tile_n * D + nbytes(qk, table) + batch * K * 8,
-                       2.0 * macs, kind))
-        pairs = table.numel() * idx.tile_n * D  # every (query tile, entry) reads its tile
-        log(f"[kernel] {key} p{p_tiles} tq{tq}: {ops / r['ms'] / 1e9:.1f} T {kind} ops/s; "
-            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}): {used} of "
-            f"{idx._tune_n_tiles()} tiles read once ({used * idx.tile_n * D / 1e9:.2f} GB); "
-            f"{table.numel()} (query tile, entry) pairs read {pairs / 1e9:.2f} GB, "
-            f"{pairs / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
-        mp[key] = r
+        mp[key] = k3_hold(key, label, idx, qk, table, int8, kind, p_tiles, tq, reps,
+                          top2=key == "K3 top2")
     return mp
+
+
+def k3_hold(key: str, label: str, idx, qk, table, int8, kind: str, p_tiles: int, tq: int,
+            reps: int, top2: bool, plain_reps: int = 2, l_buckets: int = 0) -> dict:
+    """K3 on sorted queries ``qk`` and a tile table against its plain
+    version, timed, with its bound: the float pairs held to the exact f64
+    scores (as EXACT_TIE says, the tie from the run), int8 x int8 equal
+    outright. ``l_buckets`` 0 is the main path's L = tile_n (R 1)."""
+    st = idx._device_state()
+    batch, d = qk.shape
+    used, macs = table_work(table, tq, idx.tile_n, d)
+    ops = 2.0 * batch * p_tiles * idx.tile_n * d
+    kw = dict(tile_n=idx.tile_n, tile_q=tq, int8=int8, n_valid=idx._n, top2=top2,
+              l_buckets=l_buckets)
+    hold = (dict(equal=True) if int8 is True
+            else dict(exact=wholerow_exact(st["payload"], qk), tie=None))
+    r = main_shape_check(
+        "K3", f"{label} B{batch} p{p_tiles} tq{tq} R{idx.tile_n // (l_buckets or idx.tile_n)}",
+        lambda: band.tiles_topk(st["payload"], qk, table, K, **kw),
+        lambda: band.tiles_topk_reference(st["payload"], qk, table, K, **kw),
+        reps=reps, plain_reps=plain_reps, **hold)
+    row_bytes = d * st["payload"].element_size()
+    r.update(bound(used * idx.tile_n * row_bytes + nbytes(qk, table) + batch * K * 8,
+                   2.0 * macs, kind))
+    pairs = table.numel() * idx.tile_n * row_bytes  # every (query tile, entry) reads its tile
+    log(f"[kernel] {key} p{p_tiles} tq{tq}: {ops / r['ms'] / 1e9:.1f} T {kind} ops/s; "
+        f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}): {used} of "
+        f"{idx._tune_n_tiles()} tiles read once ({used * idx.tile_n * row_bytes / 1e9:.2f} GB); "
+        f"{table.numel()} (query tile, entry) pairs read {pairs / 1e9:.2f} GB, "
+        f"{pairs / HBM_BYTES_PER_S * 1e3:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    return r
+
+
+#: K3's top-2 where the tensor-core block cannot take it (the CUDA-core
+#: body): f32 whole rows over the first TOP2_F32_ROWS rows of the corpus,
+#: and a hybrid int8 arena of DEEP_ROWS rows at DEEP_D (text-embedding-3-
+#: large's width), too deep for resident bf16 queries, at plan DEEP_OP
+TOP2_F32_ROWS = 1_000_000
+DEEP_D, DEEP_ROWS, DEEP_NLIST, DEEP_OP = 3072, 262_144, 256, (16, 32)
+DEEP_R4_BUCKETS = 512
+
+
+def scan_body(qk, db, tq: int, r_per_tile: int = 1) -> str:
+    """The tiles_scan.cu body a K3 top-2 call at these shapes takes."""
+    from cloudvectordb_tpu_torch.ops import _cuda
+
+    smem = _cuda._load("tiles_scan").cvdb_tiles_scan_smem_bytes(
+        1, _cuda._ELEM[qk.dtype], _cuda._ELEM[db.dtype], tq, db.shape[1], 0, 1, r_per_tile)
+    return "CUDA-core" if smem == 0 else "tensor-core narrow" if smem > 0 else "none"
+
+
+def top2_route(idx, queries, gt, p_tiles: int, tq: int, label: str, qk_of, int8, kind: str,
+               reps: int):
+    """One top-2 batch through ``search_device`` (K3's launches counted just
+    around it; recall@10 against ``gt``), then K3 top-2 at that plan against
+    its plain version through the exact f64 scores, timed, with its bound.
+    Returns (launches, record, recall)."""
+    (v, ids), n = counted(lambda: idx.search_device(queries, K, p_tiles=p_tiles, tile_q=tq,
+                                                    top2=True))
+    v, ids = v.cpu().numpy(), ids.cpu().numpy()
+    check_result(v, ids, queries.shape[0], idx.ntotal, label)
+    recall = recall_at_k(ids[: gt.shape[0]], gt)
+    q_s, table = k3_plan(idx, queries, p_tiles, tq)
+    qk = qk_of(q_s)
+    body = scan_body(qk, idx._device_state()["payload"], tq)
+    log(f"[top2] {label}: {idx.ntotal} x {qk.shape[1]}, p{p_tiles} tq{tq}, B {queries.shape[0]}: "
+        f"recall@{K} {recall:.4f} against exact on {gt.shape[0]} queries; K3 launches {n['K3']}; "
+        f"body {body}")
+    if body != "CUDA-core":
+        raise AssertionError(f"{label}: K3 top-2 took the {body} body")
+    r = k3_hold("K3", f"{label} top2", idx, qk, table, int8, kind, p_tiles, tq, reps,
+                top2=True, plain_reps=1)
+    return n["K3"], r, recall
+
+
+def build_f32_rows(dev, chunk_fn):
+    """The f32 whole-row BandIVFIndex over the corpus's first TOP2_F32_ROWS
+    rows (nlist NLIST)."""
+    x = torch.cat([chunk_fn(i) for i in range(TOP2_F32_ROWS // CHUNK)])
+    t0 = time.perf_counter()
+    idx = BandIVFIndex.build(x, NLIST, dtype="float32", residual=False, kmeans_iters=10,
+                             device=dev)
+    sync()
+    log(f"[top2] f32 whole rows: built {idx.ntotal} x {D}, nlist {NLIST} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return idx
+
+
+def build_deep(dev):
+    """(index, chunk_fn, queries) of the deep hybrid arena: DEEP_ROWS unit rows
+    of the corpus's process at DEEP_D, int8 whole rows (nlist DEEP_NLIST),
+    and B noisy copies of its rows."""
+    deep_fn = make_corpus(dev, DEEP_ROWS, d=DEEP_D)
+    t0 = time.perf_counter()
+    idx = BandIVFIndex.build_device_streaming(deep_fn, 1, nlist=DEEP_NLIST, kmeans_iters=10,
+                                              residual=False, device=dev)
+    sync()
+    log(f"[top2] deep hybrid: built {idx.ntotal} x {DEEP_D} int8, nlist {DEEP_NLIST} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return idx, deep_fn, make_queries(deep_fn, dev, B)
+
+
+def run_top2_routes(dev, chunk_fn, queries, card, reps: int = 3) -> dict:
+    """K3's top-2 on the routes the narrow tensor-core block cannot take:
+    f32 whole rows (``build_f32_rows``, the main op point, recall@10 >=
+    WHOLE_ROW_RECALL_FLOOR) and the deep hybrid arena (``build_deep``); each
+    batch's launches, and K3 top-2 held at its plan."""
+    launches, mp = {}, {}
+    idx = build_f32_rows(dev, chunk_fn)
+    gt = exact_gt(chunk_fn, TOP2_F32_ROWS // CHUNK, CHUNK, queries[:NQ_GT])
+    launches["K3 top2 f32"], mp["K3 top2 f32"], recall = top2_route(
+        idx, queries, gt, *MAIN_OP, "f32", lambda q: q, False, "f32", reps)
+    if recall < WHOLE_ROW_RECALL_FLOOR:
+        raise AssertionError(f"f32 top-2 recall {recall:.4f} < {WHOLE_ROW_RECALL_FLOOR}")
+    del idx
+    torch.cuda.empty_cache()
+    idx, deep_fn, qd = build_deep(dev)
+    gtd = exact_gt(deep_fn, 1, DEEP_ROWS, qd[:NQ_GT])
+    launches["K3 top2 deep"], mp["K3 top2 deep"], _ = top2_route(
+        idx, qd, gtd, *DEEP_OP, f"hybrid D{DEEP_D}", lambda q: q.to(torch.bfloat16),
+        "hybrid", "bf16", reps)
+    # slot 2 never reaches the deep arena's top-10 at R 1 (each bucket holds
+    # one row a tile), so a slot-2 fault shows only at R > 1: held at R 4 too
+    q_s, table = k3_plan(idx, qd, *DEEP_OP)
+    k3_hold("K3", f"hybrid D{DEEP_D} top2", idx, q_s.to(torch.bfloat16), table, "hybrid",
+            "bf16", *DEEP_OP, reps=1, top2=True, plain_reps=1, l_buckets=DEEP_R4_BUCKETS)
+    log(f"[top2] {card}: f32 top-2 {mp['K3 top2 f32']['ms']:.3f} ms, deep hybrid top-2 "
+        f"{mp['K3 top2 deep']['ms']:.3f} ms (CUDA-core body)")
+    return dict(launches=launches, mp=mp)
 
 
 def k7_plan(idx, queries):
@@ -2159,6 +2345,267 @@ def run_k6(dev, chunk_fn, queries, card) -> dict:
     return dict(launches={"K6": launches}, mp={"K6": mp})
 
 
+# -- the probe-scan families (cells 10 and 11) --------------------------------
+#: cell 10, BASELINE config #2 (scripts/bench_config2.py:26,38-66): 1M x 384
+#: rows of the corpus's process, 512 queries, IVF-Flat nlist 4096, k-means 10
+C2_ROWS, C2_D, C2_NLIST, C2_NQ = 1_000_000, 384, 4096, 512
+#: cell 11, the reference's on-chip IVF-PQ shape (scripts/bench_ivf.py:18,31-60):
+#: 1M x 768 rows about 256 centres, 4096 queries, nlist 1024, m 64, nbits 8
+C3_ROWS, C3_D, C3_NLIST, C3_M, C3_NQ = 1_000_000, 768, 1024, 64, 4096
+NPROBES = (1, 4, 8, 16, 32, 64)
+PROBE_BATCH = 256
+#: recall may not fall by more than this from one nprobe to the next
+RECALL_STEP_DROP = 0.005
+#: exact scores this close to a cut (the 10th score, a radius) may fall
+#: either side of it in f32
+CUT_TIE = 1e-5
+#: cell 11: the refine route at full probe (rf 64) against the method's own
+#: exact oracle (``ivfpq_oracle``): recall@10 within this of it
+IVFPQ_ORACLE_TOL = 0.01
+IVFPQ_REMOVE = 8192
+#: cell 11 tunes on the first C3_TUNE_Q queries, and its sweeps time one
+#: pass of the 4096 queries an nprobe
+C3_TUNE_Q, C3_TIME_ITERS = 512, 1
+
+
+def direct_corpus(dev, n: int, d: int, nq: int, seed: int = 0):
+    """(rows, queries) of scripts/bench_ivf.py's process on the device: unit
+    rows about 256 unit centres (noise 0.3/sqrt(d)), and noisy copies of
+    random rows (noise 0.1/sqrt(d)), drawn from a seeded torch.Generator."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    centers = torch.randn((NCENTERS, d), generator=g, device=dev)
+    centers = centers / centers.norm(dim=1, keepdim=True)
+    a = torch.randint(0, NCENTERS, (n,), generator=g, device=dev)
+    x = centers[a] + (0.3 / d ** 0.5) * torch.randn((n, d), generator=g, device=dev)
+    x = x / x.norm(dim=1, keepdim=True)
+    sel = torch.randint(0, n, (nq,), generator=g, device=dev)
+    q = x[sel] + (0.1 / d ** 0.5) * torch.randn((nq, d), generator=g, device=dev)
+    return x, q / q.norm(dim=1, keepdim=True)
+
+
+def check_sweep(rows: list, label: str) -> None:
+    """Log an nprobe sweep; fail if recall falls by more than
+    RECALL_STEP_DROP from one nprobe to the next."""
+    for r in rows:
+        log(f"[{label}] nprobe {r['nprobe']:3d}: recall@{K} {r['recall']:.4f}, "
+            f"{r['qps']:,.1f} QPS, {r['latency_ms']:.3f} ms a batch of {PROBE_BATCH}")
+    for a, b in zip(rows, rows[1:]):
+        if b["recall"] < a["recall"] - RECALL_STEP_DROP:
+            raise AssertionError(f"{label}: recall falls from {a['recall']:.4f} at nprobe "
+                                 f"{a['nprobe']} to {b['recall']:.4f} at {b['nprobe']}")
+
+
+def exact_scores(x: torch.Tensor, q: torch.Tensor, keep=None) -> torch.Tensor:
+    """(Q, N) f32 inner products, TF32 off; rows outside ``keep`` -inf."""
+    s = q @ x.T
+    return s if keep is None else s.masked_fill(~keep[None, :], float("-inf"))
+
+
+def exact_topk(x, q, keep=None):
+    """Exact f32 top-K (scores, ids) of q over x (stable ties), in blocks of
+    512 queries."""
+    out = [topk_stable_select(exact_scores(x, q[s:s + 512], keep), K)
+           for s in range(0, q.shape[0], 512)]
+    return torch.cat([v for v, _ in out]), torch.cat([i for _, i in out])
+
+
+def check_full_probe(ids: np.ndarray, s_exact: torch.Tensor, gt_v: torch.Tensor,
+                     label: str) -> None:
+    """Ids at nprobe = nlist must be the exact top-K's, except ids whose
+    exact score lies within CUT_TIE of the exact K-th: a missing exact id
+    there, or a returned id scoring there."""
+    ids_t = torch.as_tensor(ids, device=s_exact.device)
+    kth = gt_v[:, -1:]
+    got = torch.gather(s_exact, 1, ids_t.clamp_min(0))
+    in_top = s_exact >= kth  # the exact top-K and its ties at the K-th
+    bad_got = (ids_t < 0) | (got < kth - CUT_TIE)
+    found = torch.zeros_like(in_top)
+    found.scatter_(1, ids_t.clamp_min(0), ids_t >= 0)
+    bad_miss = in_top & ~found & (s_exact > kth + CUT_TIE)
+    n_bad = int(bad_got.sum()) + int(bad_miss.sum())
+    log(f"[{label}] full probe: {ids.shape[0]} queries, ids equal to the exact top-{K} but "
+        f"for near-ties: {n_bad == 0} ({n_bad} differences beyond {CUT_TIE})")
+    if n_bad:
+        raise AssertionError(f"{label}: the full probe is not the exact top-{K}")
+
+
+def check_range(lims, ids, s_exact: torch.Tensor, radius: float, label: str) -> None:
+    """range_search's hit sets against the exact oracle (score >= radius),
+    ids whose exact score lies within CUT_TIE of the radius aside."""
+    hits = s_exact >= radius
+    found = torch.zeros_like(hits)
+    qi = torch.as_tensor(np.repeat(np.arange(len(lims) - 1), np.diff(lims)), device=hits.device)
+    found[qi, torch.as_tensor(ids, device=hits.device)] = True
+    differ = (hits != found) & ((s_exact - radius).abs() > CUT_TIE)
+    log(f"[{label}] range search at radius {radius:.6f}: {int(found.sum())} hits over "
+        f"{hits.shape[0]} queries ({int(hits.sum(1).min())}-{int(hits.sum(1).max())} a query "
+        f"exactly), {int(differ.sum())} differences from the exact oracle beyond {CUT_TIE}")
+    if int(differ.sum()):
+        raise AssertionError(f"{label}: range search hit sets differ from the exact oracle")
+
+
+def run_ivf_flat(dev, card) -> dict:
+    """Cell 10: IVF-Flat at BASELINE config #2's shape. The nprobe sweep
+    against the exact f32 top-K (recall must not fall along nprobe), its
+    operating point at 0.95, ``tune(gt=)``, one batch at nprobe = nlist
+    (the exact top-K but for near-ties), and ``range_search`` at full probe
+    against the exact oracle, at the median exact K-th score."""
+    fn = make_corpus(dev, C2_ROWS, d=C2_D)
+    x = fn(0)
+    q = make_queries(fn, dev, C2_NQ)
+    gt_v, gt_i = exact_topk(x, q)
+    gt = gt_i.cpu().numpy()
+    t0 = time.perf_counter()
+    idx = IVFFlatIndex.build(x, C2_NLIST, metric="ip", kmeans_iters=10, device=dev)
+    sync()
+    lens = idx._arena.list_lens
+    log(f"[ivf_flat] built {idx.ntotal} x {C2_D}, nlist {C2_NLIST} in "
+        f"{time.perf_counter() - t0:.1f} s; list lengths {lens.min()}-{lens.max()} "
+        f"(mean {lens.mean():.1f})")
+    qn = q.cpu().numpy()
+    sweep = nprobe_sweep(idx, None, qn, k=K, nprobes=NPROBES, batch=PROBE_BATCH, gt_ids=gt)
+    check_sweep(sweep, "ivf_flat")
+    op = operating_point(sweep, 0.95)
+    report = tune_logged(idx, q, "ivf_flat", gt=gt)
+    device_profile(lambda: idx.search(qn[:PROBE_BATCH], K, nprobe=report["op"]["nprobe"]),
+                   f"ivf_flat one batch of {PROBE_BATCH} at nprobe {report['op']['nprobe']}",
+                   groups=PROBE_GROUPS)
+    qb = qn[:PROBE_BATCH]
+    t0 = time.perf_counter()
+    _, ids = idx.search(qb, K, nprobe=C2_NLIST)
+    full_s = time.perf_counter() - t0
+    s_exact = exact_scores(x, q[:PROBE_BATCH])
+    check_full_probe(ids, s_exact, gt_v[:PROBE_BATCH], "ivf_flat")
+    radius = float(gt_v[:PROBE_BATCH, -1].median())
+    t0 = time.perf_counter()
+    lims, _, rids = idx.range_search(qb, radius, k_start=512, k_max=C2_ROWS,
+                                     nprobe=C2_NLIST)
+    range_s = time.perf_counter() - t0
+    check_range(lims, rids, s_exact, radius, "ivf_flat")
+    log(f"[ivf_flat] {card}: operating point at 0.95 {op and op['nprobe']} "
+        f"({op and round(op['qps'], 1)} QPS); tuned {report['op']} (recall "
+        f"{report['recall']:.4f}); a full-probe batch {full_s:.2f} s, the range search "
+        f"{range_s:.2f} s host clock")
+    return dict(launches={}, mp={})
+
+
+def ivfpq_oracle(idx, x: torch.Tensor, q: torch.Tensor, gt: np.ndarray, rf: int):
+    """Recall@K of IVF-PQ's own semantics at full probe, computed plainly:
+    every row's ADC score as q . (its list centroid + its decoded code), one
+    f32 product (TF32 off), the top K*rf rows kept, rescored from the int8
+    refine store (the method's oracle), and from the rows themselves (the
+    candidates' ceiling). Returns (oracle recall, ceiling recall)."""
+    st = idx._device_state()
+    lists = torch.repeat_interleave(torch.arange(idx.nlist, device=x.device), st["lens"])
+    xhat = st["centroids"][lists] + pq_decode(st["codes"], st["codebooks"])
+    _, pos = topk_stable_select(q @ xhat.T, K * rf)
+    del xhat
+    gid = st["ids"][pos]
+    r8 = st["refine"][gid].float() * idx._refine_scale + st["centroids"][lists[pos]]
+    out = []
+    for rows in (r8, x[gid]):
+        _, top = topk_stable(torch.bmm(rows, q[:, :, None])[:, :, 0], K)
+        out.append(recall_at_k(torch.gather(gid, 1, top).cpu().numpy(), gt))
+    return tuple(out)
+
+
+def ivfpq_recall(idx, q: np.ndarray, gt: np.ndarray, label: str, **kw) -> float:
+    _, ids = idx.search(q, K, **kw)
+    r = recall_at_k(ids, gt)
+    log(f"[ivf_pq] {label}: recall@{K} {r:.4f}")
+    return r
+
+
+def run_ivf_pq(dev, card) -> dict:
+    """Cell 11: IVF-PQ at the reference's on-chip shape, residual, two
+    builds on one quantizer: refine 'int8' (the nprobe x refine_factor
+    sweep, ``tune(gt=)``, full probe at rf 64 against its exact oracle) and
+    'none' (the ADC route's sweep: recall must not fall along nprobe); then
+    on the refine build ``remove`` of IVFPQ_REMOVE random ids (none comes
+    back; recall against the new exact top-K within 0.01 of before),
+    ``merge_from`` of two halves (every id once; recall within 0.005 of the
+    whole build's) and ``reconstruct`` (cosine >= 0.99)."""
+    x, q = direct_corpus(dev, C3_ROWS, C3_D, C3_NQ)
+    gt_v, gt_i = exact_topk(x, q)
+    gt = gt_i.cpu().numpy()
+    qn = q.cpu().numpy()
+    kw = dict(m=C3_M, nbits=8, metric="ip", residual=True, kmeans_iters=10, pq_train_iters=6,
+              device=dev)
+    t0 = time.perf_counter()
+    idx = IVFPQIndex.build(x, C3_NLIST, refine="int8", **kw)
+    sync()
+    lens = idx._arena.list_lens
+    log(f"[ivf_pq] built {idx.ntotal} x {C3_D}, nlist {C3_NLIST}, m {C3_M}, refine int8 in "
+        f"{time.perf_counter() - t0:.1f} s (k-means, PQ training, encode); list lengths "
+        f"{lens.min()}-{lens.max()} (mean {lens.mean():.1f})")
+    quant = dict(centroids=idx.centroids, codebooks=idx.codebooks)
+    sweep = dict(k=K, nprobes=NPROBES, batch=PROBE_BATCH, time_iters=C3_TIME_ITERS, gt_ids=gt)
+    for rf in (16, 64):
+        check_sweep(nprobe_sweep(idx, None, qn, refine_factor=rf, **sweep),
+                    f"ivf_pq refine rf {rf}")
+    report = tune_logged(idx, q[:C3_TUNE_Q], "ivf_pq", gt=gt[:C3_TUNE_Q])
+    op = report["op"]
+    device_profile(lambda: idx.search(qn[:PROBE_BATCH], K, **op),
+                   f"ivf_pq one batch of {PROBE_BATCH} at {op}", groups=PROBE_GROUPS)
+    full = ivfpq_recall(idx, qn[:PROBE_BATCH], gt[:PROBE_BATCH],
+                        f"full probe, rf 64, {PROBE_BATCH} queries", nprobe=C3_NLIST,
+                        refine_factor=64)
+    oracle, ceiling = ivfpq_oracle(idx, x, q[:PROBE_BATCH], gt[:PROBE_BATCH], 64)
+    log(f"[ivf_pq] the method's exact oracle at full probe, rf 64: recall@{K} {oracle:.4f} "
+        f"(the int8 store), {ceiling:.4f} (exact rows: the candidates' ceiling)")
+    if abs(full - oracle) > IVFPQ_ORACLE_TOL:
+        raise AssertionError(f"IVF-PQ refine at full probe: recall {full:.4f}, its exact "
+                             f"oracle {oracle:.4f}")
+    t0 = time.perf_counter()
+    adc = IVFPQIndex.build(x, C3_NLIST, refine="none", **kw, **quant)
+    sync()
+    log(f"[ivf_pq] ADC-only build on the same quantizers: {time.perf_counter() - t0:.1f} s")
+    check_sweep(nprobe_sweep(adc, None, qn, **sweep), "ivf_pq ADC only")
+    del adc
+
+    before = ivfpq_recall(idx, qn, gt, f"at the tuned {op}")
+    victims = np.random.default_rng(11).choice(C3_ROWS, IVFPQ_REMOVE, replace=False)
+    n, _, rem_s = fenced(lambda: idx.remove(victims))
+    if n != IVFPQ_REMOVE or idx.ntotal != C3_ROWS - IVFPQ_REMOVE:
+        raise AssertionError(f"IVF-PQ remove: {n} removed, ntotal {idx.ntotal}")
+    keep = torch.ones(C3_ROWS, dtype=torch.bool, device=dev)
+    keep[torch.as_tensor(victims, device=dev)] = False
+    _, ids = idx.search(qn, K)
+    if np.isin(ids, victims).any():
+        raise AssertionError("IVF-PQ: a removed id came back")
+    after = recall_at_k(ids, exact_topk(x, q, keep)[1].cpu().numpy())
+    log(f"[ivf_pq] {card}: remove of {IVFPQ_REMOVE} ids {rem_s:.3f} s; no removed id "
+        f"returned; recall@{K} against the new exact top-{K} {after:.4f} (before {before:.4f})")
+    if after < before - 0.01:
+        raise AssertionError(f"IVF-PQ recall after remove {after:.4f} < {before:.4f} - 0.01")
+    del idx
+    torch.cuda.empty_cache()
+
+    half = C3_ROWS // 2
+    t0 = time.perf_counter()
+    merged = IVFPQIndex.build(x[:half], C3_NLIST, refine="int8", **kw, **quant)
+    other = IVFPQIndex.build(x[half:], C3_NLIST, refine="int8", **kw, **quant)
+    n = merged.merge_from(other, id_offset=half)
+    sync()
+    ids_all = np.sort(merged._arena.ids)
+    if n != half or not np.array_equal(ids_all, np.arange(C3_ROWS)):
+        raise AssertionError("IVF-PQ merge_from: ids are not each row once")
+    merged._op_point = op
+    r_merged = ivfpq_recall(merged, qn, gt, f"merge_from of two halves at {op}")
+    log(f"[ivf_pq] merge_from: two builds of {half} and the merge {time.perf_counter() - t0:.1f} s")
+    if abs(r_merged - before) > 0.005:
+        raise AssertionError(f"IVF-PQ merge_from recall {r_merged:.4f} vs {before:.4f}")
+    sel = np.random.default_rng(12).choice(C3_ROWS, PROBE_BATCH, replace=False)
+    rec = torch.as_tensor(merged.reconstruct(sel), device=dev)
+    cos = F.cosine_similarity(rec, x[torch.as_tensor(sel, device=dev)], dim=1)
+    log(f"[ivf_pq] reconstruct of {PROBE_BATCH} ids through the refine store: cosine "
+        f"{float(cos.min()):.5f}-{float(cos.max()):.5f}")
+    if float(cos.min()) < 0.99:
+        raise AssertionError(f"IVF-PQ reconstruct cosine {float(cos.min()):.5f} < 0.99")
+    return dict(launches={}, mp={})
+
+
 # -- the encoder path: training, encoding, search --------------------------------
 ENC_PRESET = "minilm-l6-384"
 ENC_LEN, QUERY_LEN = 128, 32
@@ -2218,28 +2665,40 @@ def step_ms(trainer: Trainer, state, batches, reps: int) -> float:
     return float(np.median(times[1:]))
 
 
-def device_profile(fn, label: str, top: int = 8) -> dict:
+#: device_profile's kernel groups (by substrings of the kernel's name): the
+#: encoder's, and the probe scans'
+ENCODER_GROUPS = {"K4": ("mha_",), "GEMM": ("gemm", "nvjet", "xmma", "cutlass", "sm90_"),
+                  "optimizer": ("multi_tensor",)}
+PROBE_GROUPS = {"gather": ("index", "gather"),
+                "GEMM": ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_", "dot_kernel"),
+                "sort": ("sort", "radix", "scan"), "reduce": ("reduce",)}
+
+
+def device_profile(fn, label: str, top: int = 8, groups: dict = ENCODER_GROUPS) -> dict:
     """torch.profiler over one call of fn: the card's time by kernel, summed
-    into K4, GEMMs, the optimizer's multi-tensor kernels and the rest
-    (elementwise and reductions: LayerNorm, gelu, casts, dropout, losses)."""
+    into ``groups`` and the rest (for the encoder: K4, GEMMs, the
+    optimizer's multi-tensor kernels, and elementwise and reductions:
+    LayerNorm, gelu, casts, dropout, losses), and the call's host clock;
+    its card-busy share is the kernel time over that clock."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         sync()
+        wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     time_of = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     total = sum(time_of(e) for e in kernels) or 1.0
-    groups = {"K4": ("mha_",), "GEMM": ("gemm", "nvjet", "xmma", "cutlass", "sm90_"),
-              "optimizer": ("multi_tensor",)}
     share = {name: 0.0 for name in (*groups, "other")}
     for e in kernels:
         name = next((g for g, keys in groups.items()
                      if any(k in e.key.lower() for k in keys)), "other")
         share[name] += time_of(e)
-    log(f"[profile] {label}: {total / 1e3:.3f} ms of kernel time; "
+    log(f"[profile] {label}: {total / 1e3:.3f} ms of kernel time in {wall * 1e3:.3f} ms "
+        f"host clock (profiled; card busy {total / 1e6 / wall:.1%}); "
         + ", ".join(f"{k} {v / total:.1%}" for k, v in share.items()))
     for e in sorted(kernels, key=time_of, reverse=True)[:top]:
         log(f"[profile]   {time_of(e) / 1e3:8.3f} ms x{e.count:<4} {e.key[:110]}")
@@ -2598,6 +3057,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the residual index is gone: one arena at a time
     runs.append(run_whole_row(dev, chunk_fn, n_chunks, queries, gt, card))
     torch.cuda.empty_cache()
+    runs.append(run_top2_routes(dev, chunk_fn, queries, card))
+    torch.cuda.empty_cache()
     runs.append(run_mutation(dev, chunk_fn, n_chunks, queries, gt, card, runs[0]["op"]))
     torch.cuda.empty_cache()
     runs.append(run_flat(dev, chunk_fn, queries, card))
@@ -2606,6 +3067,10 @@ def main() -> int:
     torch.cuda.empty_cache()  # the 10M PQ index is gone before the encoder phases
     runs.append(run_k6(dev, chunk_fn, queries, card))
     del queries, gt
+    torch.cuda.empty_cache()
+    runs.append(run_ivf_flat(dev, card))
+    torch.cuda.empty_cache()
+    runs.append(run_ivf_pq(dev, card))
     torch.cuda.empty_cache()
 
     err["K4"] = err["K4 bwd"] = attn_checks(dev)

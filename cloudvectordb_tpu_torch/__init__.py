@@ -5,8 +5,10 @@ names its counterpart. Ported so far:
 - ``index/``: ``BandIVFIndex`` over residual-int8 and whole-row arenas
   (k-means, device-streaming build, device planner, tiles and band
   searches, tuning), ``BandIVFPQIndex`` (PQ and OPQ training, the PQ-tiles
-  and refine serving routes) and ``FlatIndex``; ``eval/``: recall, device
-  QPS, the tuner;
+  and refine serving routes), ``FlatIndex``, the probe-scan families
+  ``IVFFlatIndex`` and ``IVFPQIndex`` (plain torch ops over a host list
+  arena) and ``range_search`` on every index; ``eval/``: recall, device
+  QPS, the tuner, the nprobe sweep;
 - ``models/``: ``encoder`` (the post-LN BERT encoder and its attention
   dispatch), ``presets``, ``hf_import`` (HF BERT and flax state dicts),
   ``embed`` (batch and streaming encode); ``data/tokenize``;

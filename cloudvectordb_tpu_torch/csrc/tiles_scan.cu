@@ -21,14 +21,18 @@
 //   (bf16, bf16)   products exact in f32, summed in f32;
 //   (f32, f32)     f32 FMA (no TF32, no tensor cores);
 //   (f32, bf16)    f32 queries against a bf16 store, rows widened to f32.
+// (The CUDA-core body's top-2 sums the bf16 pairs in f64, one rounding to
+// f32 at the end: closer to the exact score than an f32 sum, never
+// farther.)
 // With sqnorm (the flat index's l2) the score is 2 s - sqnorm[g]. Rows with
 // g >= n_valid score -inf and are never read, so a ragged database needs no
 // padded copy. Each query keeps L = l_buckets slots, merged as
 // csrc/slot_merge.cuh says; with top2 (source TABLE, the reference's
-// tiles_topk_pallas(top2=True)) two a slot, its best two distinct rows, on
-// the tensor-core body's narrow block (tc_scan.cuh's TOP2; the f32 and
-// CUDA-core bodies have no top-2). The final top-k over the slots is the
-// caller's.
+// tiles_topk_pallas(top2=True)) two a slot, its best two distinct rows:
+// on the tensor-core body's narrow block (tc_scan.cuh's TOP2) where its
+// state fits shared memory, else on the CUDA-core body (the f32 pairs, and
+// tensor-core pairs too deep for resident queries). The final top-k over
+// the slots is the caller's.
 //
 // Three bodies. The TPU walks the steps as a sequential grid axis and
 // carries the slots in VMEM; here one block owns some queries of one query
@@ -71,9 +75,19 @@
 //
 // The CUDA-core body (tiles_scan_kernel) takes what neither takes: a
 // tensor-core pair whose resident queries would not fit in shared memory (D
-// above 2,752 for bf16 queries, 5,504 for int8). 256 threads over 32
-// queries x 64 slots stage rows and queries in chunks and score with dp4a or
-// f32 FMAs.
+// above 2,752 for bf16 queries, 5,504 for int8), and every top-2 call the
+// narrow block cannot take: the f32 pairs (f32 FMA, no TF32, as their top-1
+// body), the deep tensor-core pairs, and a tile state too large at the
+// given tile_n / l_buckets. 256 threads over 32 queries x 64 slots stage
+// rows and queries in chunks and score with dp4a (exact int32) or FMAs:
+// f32 for top-1 and for the f32 pairs (their contract), f64 for the bf16
+// pairs' top-2 (exact products and sums, one rounding to f32: the hybrid
+// pair's raw scores reach the thousands at D 3072, where an f32 chain
+// drifts past the exact score by 3.8e-3, and the top-2 holds compare with
+// the exact score); with TOP2 each
+// thread's 8 (query, slot) pairs keep the tile's best and runner-up in
+// registers (tile_take2) and merge them into both slots (slot_merge2) after
+// the tile's last r. It is right, not fast (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,6 +123,7 @@ constexpr int SPT = SB / TX;      // slots per thread
 constexpr int KC = 64;            // 32-bit words per staged row chunk
 constexpr int STRIDE = KC + 1;    // odd word stride: conflict-free columns
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
@@ -124,8 +139,9 @@ __device__ __forceinline__ int32_t load_i8x4(const int8_t* p, int e, int e_end,
 }
 
 // Dot products of the block's queries with the SB rows row0 .. row0+SB-1,
-// accumulated into acc over the whole row width in chunks.
-template <typename QT, typename RT>
+// accumulated into acc over the whole row width in chunks; the float pairs
+// in f64 when F64, else in f32.
+template <typename QT, typename RT, bool F64>
 __device__ __forceinline__ void score_rows(const QT* __restrict__ q, const RT* __restrict__ db,
                                            uint32_t* smem, int q_lo, int nq_blk,
                                            long long row0, int n_rows_blk, int d,
@@ -170,9 +186,12 @@ __device__ __forceinline__ void score_rows(const QT* __restrict__ q, const RT* _
 #pragma unroll
       for (int j = 0; j < SPT; ++j) out[i][j] = __int2float_rn(acc[i][j]);
   } else {
+    // with F64 every bf16 and int8 product is exact and so is the sum, to
+    // one rounding to f32
+    using Acc = typename std::conditional<F64, double, float>::type;
     float* q_s = reinterpret_cast<float*>(smem);  // QB x STRIDE
     float* r_s = q_s + QB * STRIDE;               // SB x STRIDE
-    float acc[QPT][SPT] = {};
+    Acc acc[QPT][SPT] = {};
     for (int e0 = 0; e0 < d; e0 += KC) {
       const int kn = min(KC, d - e0);
       __syncthreads();
@@ -188,7 +207,7 @@ __device__ __forceinline__ void score_rows(const QT* __restrict__ q, const RT* _
       }
       __syncthreads();
       for (int k = 0; k < kn; ++k) {
-        float a[QPT], b[SPT];
+        Acc a[QPT], b[SPT];
 #pragma unroll
         for (int i = 0; i < QPT; ++i) a[i] = q_s[(ty + TY * i) * STRIDE + k];
 #pragma unroll
@@ -196,17 +215,20 @@ __device__ __forceinline__ void score_rows(const QT* __restrict__ q, const RT* _
 #pragma unroll
         for (int i = 0; i < QPT; ++i)
 #pragma unroll
-          for (int j = 0; j < SPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < SPT; ++j) {
+            if constexpr (F64) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+            else acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          }
       }
     }
 #pragma unroll
     for (int i = 0; i < QPT; ++i)
 #pragma unroll
-      for (int j = 0; j < SPT; ++j) out[i][j] = acc[i][j];
+      for (int j = 0; j < SPT; ++j) out[i][j] = static_cast<float>(acc[i][j]);
   }
 }
 
-template <int SRC, typename QT, typename RT>
+template <int SRC, typename QT, typename RT, bool TOP2>
 __global__ void __launch_bounds__(THREADS)
 tiles_scan_kernel(const RT* __restrict__ db,         // (N, D) rows
                   const QT* __restrict__ q,          // (Q, D) queries
@@ -214,6 +236,8 @@ tiles_scan_kernel(const RT* __restrict__ db,         // (N, D) rows
                   const float* __restrict__ sqnorm,   // (N,) or null: l2 bias
                   float* __restrict__ out_v,          // (Q, L)
                   int32_t* __restrict__ out_i,        // (Q, L)
+                  float* __restrict__ out_v2,         // top-2: (Q, L) slot 2
+                  int32_t* __restrict__ out_i2,
                   int tile_q, int steps, int tile_n, int l_buckets, int d,
                   int n_valid) {
   __shared__ __align__(16) uint32_t smem[(QB + SB) * STRIDE];
@@ -226,18 +250,22 @@ tiles_scan_kernel(const RT* __restrict__ db,         // (N, D) rows
   const int nq_blk = min(QB, (qt + 1) * tile_q - q_lo);
   const int b0 = blockIdx.x * SB;
   const int r_per = tile_n / l_buckets;
+  constexpr int K2 = TOP2 ? 2 : 1;  // slot ranks kept
+  constexpr bool F64 = TOP2 && !std::is_same<QT, float>::value;  // see the header
 
-  float best_v[QPT][SPT];
-  int best_i[QPT][SPT];
+  float best_v[K2][QPT][SPT];
+  int best_i[K2][QPT][SPT];
 #pragma unroll
-  for (int i = 0; i < QPT; ++i)
+  for (int k = 0; k < K2; ++k)
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) slot_init(best_v[i][j], best_i[i][j]);
+    for (int i = 0; i < QPT; ++i)
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) slot_init(best_v[k][i][j], best_i[k][i][j]);
 
   for (int j = 0; j < steps; ++j) {
     const long long base = (long long)step_tile<SRC>(table, qt, steps, j) * tile_n;
-    float tmx[QPT][SPT];
-    int tr[QPT][SPT];
+    float tmx[K2][QPT][SPT];  // the tile's best (and runner-up) value
+    int tr[K2][QPT][SPT];     // and its r
     for (int r = 0; r < r_per; ++r) {
       const long long row0 = base + (long long)r * l_buckets + b0;
       // rows of this block that exist and are live: slots below L, rows in
@@ -245,7 +273,7 @@ tiles_scan_kernel(const RT* __restrict__ db,         // (N, D) rows
       const long long live_hi = min((long long)min(SB, l_buckets - b0), (long long)n_valid - row0);
       const int n_rows_blk = row0 < 0 ? 0 : (int)max(0LL, live_hi);
       float s[QPT][SPT];
-      score_rows<QT, RT>(q, db, smem, q_lo, nq_blk, row0, n_rows_blk, d, s);
+      score_rows<QT, RT, F64>(q, db, smem, q_lo, nq_blk, row0, n_rows_blk, d, s);
 #pragma unroll
       for (int i = 0; i < QPT; ++i)
 #pragma unroll
@@ -256,15 +284,25 @@ tiles_scan_kernel(const RT* __restrict__ db,         // (N, D) rows
             sc = s[i][jj];
             if (sqnorm != nullptr) sc = __fsub_rn(2.f * sc, sqnorm[row0 + sj]);
           }
-          tile_take(sc, r, tmx[i][jj], tr[i][jj]);
+          if constexpr (TOP2)
+            tile_take2(sc, r, tmx[0][i][jj], tr[0][i][jj], tmx[1][i][jj], tr[1][i][jj]);
+          else
+            tile_take(sc, r, tmx[0][i][jj], tr[0][i][jj]);
         }
     }
 #pragma unroll
     for (int i = 0; i < QPT; ++i)
 #pragma unroll
-      for (int jj = 0; jj < SPT; ++jj)
-        slot_merge(tmx[i][jj], base + (long long)tr[i][jj] * l_buckets + b0 + tx + TX * jj,
-                   best_v[i][jj], best_i[i][jj]);
+      for (int jj = 0; jj < SPT; ++jj) {
+        const long long slot_row = base + b0 + tx + TX * jj;
+        const long long row = slot_row + (long long)tr[0][i][jj] * l_buckets;
+        if constexpr (TOP2)
+          slot_merge2(tmx[0][i][jj], row, tmx[1][i][jj],
+                      slot_row + (long long)tr[1][i][jj] * l_buckets, best_v[0][i][jj],
+                      best_i[0][i][jj], best_v[1][i][jj], best_i[1][i][jj]);
+        else
+          slot_merge(tmx[0][i][jj], row, best_v[0][i][jj], best_i[0][i][jj]);
+      }
   }
 
 #pragma unroll
@@ -273,34 +311,41 @@ tiles_scan_kernel(const RT* __restrict__ db,         // (N, D) rows
     for (int jj = 0; jj < SPT; ++jj) {
       const int qi = ty + TY * i, b = b0 + tx + TX * jj;
       if (qi < nq_blk && b < l_buckets) {
-        out_v[(size_t)(q_lo + qi) * l_buckets + b] = best_v[i][jj];
-        out_i[(size_t)(q_lo + qi) * l_buckets + b] = best_i[i][jj];
+        const size_t o = (size_t)(q_lo + qi) * l_buckets + b;
+        out_v[o] = best_v[0][i][jj];
+        out_i[o] = best_i[0][i][jj];
+        if constexpr (TOP2) {
+          out_v2[o] = best_v[1][i][jj];
+          out_i2[o] = best_i[1][i][jj];
+        }
       }
     }
 }
 
-template <int SRC, typename QT, typename RT>
+template <int SRC, typename QT, typename RT, bool TOP2 = false>
 cudaError_t launch(const void* db, const void* q, const void* table, const void* sqnorm,
-                   void* out_v, void* out_i, int n_qt, int tile_q, int steps, int tile_n,
-                   int l_buckets, int d, int n_valid, cudaStream_t stream) {
+                   void* out_v, void* out_i, void* out_v2, void* out_i2, int n_qt,
+                   int tile_q, int steps, int tile_n, int l_buckets, int d, int n_valid,
+                   cudaStream_t stream) {
   const int qblocks = (tile_q + QB - 1) / QB;
   const dim3 grid((l_buckets + SB - 1) / SB, n_qt * qblocks);
-  tiles_scan_kernel<SRC, QT, RT><<<grid, THREADS, 0, stream>>>(
+  tiles_scan_kernel<SRC, QT, RT, TOP2><<<grid, THREADS, 0, stream>>>(
       static_cast<const RT*>(db), static_cast<const QT*>(q),
       static_cast<const int32_t*>(table), static_cast<const float*>(sqnorm),
-      static_cast<float*>(out_v), static_cast<int32_t*>(out_i), tile_q, steps, tile_n,
-      l_buckets, d, n_valid);
+      static_cast<float*>(out_v), static_cast<int32_t*>(out_i), static_cast<float*>(out_v2),
+      static_cast<int32_t*>(out_i2), tile_q, steps, tile_n, l_buckets, d, n_valid);
   return cudaGetLastError();
 }
 
+// The CUDA-core body's top-1 scans: the tensor-core pairs, every source.
 template <int SRC>
 cudaError_t launch_types(int qtype, int rtype, const void* db, const void* q,
                          const void* table, const void* sqnorm, void* out_v, void* out_i,
                          int n_qt, int tile_q, int steps, int tile_n, int l_buckets, int d,
                          int n_valid, cudaStream_t stream) {
 #define CVDB_SCAN(QT, RT) \
-  launch<SRC, QT, RT>(db, q, table, sqnorm, out_v, out_i, n_qt, tile_q, steps, tile_n, \
-                      l_buckets, d, n_valid, stream)
+  launch<SRC, QT, RT>(db, q, table, sqnorm, out_v, out_i, nullptr, nullptr, n_qt, tile_q, \
+                      steps, tile_n, l_buckets, d, n_valid, stream)
   if (qtype == I8 && rtype == I8) return CVDB_SCAN(int8_t, int8_t);
   if (qtype == BF16 && rtype == I8) return CVDB_SCAN(__nv_bfloat16, int8_t);
   if (qtype == BF16 && rtype == BF16) return CVDB_SCAN(__nv_bfloat16, __nv_bfloat16);
@@ -308,6 +353,23 @@ cudaError_t launch_types(int qtype, int rtype, const void* db, const void* q,
   return cudaErrorInvalidValue;
 }
 
+// The CUDA-core body's top-2 scans (K3: source TABLE), every pair K3 takes.
+cudaError_t launch_types_top2(int qtype, int rtype, const void* db, const void* q,
+                              const void* table, const void* sqnorm, void* out_v, void* out_i,
+                              void* out_v2, void* out_i2, int n_qt, int tile_q, int steps,
+                              int tile_n, int l_buckets, int d, int n_valid,
+                              cudaStream_t stream) {
+#define CVDB_SCAN2(QT, RT) \
+  launch<TABLE, QT, RT, true>(db, q, table, sqnorm, out_v, out_i, out_v2, out_i2, n_qt, \
+                              tile_q, steps, tile_n, l_buckets, d, n_valid, stream)
+  if (qtype == I8 && rtype == I8) return CVDB_SCAN2(int8_t, int8_t);
+  if (qtype == BF16 && rtype == I8) return CVDB_SCAN2(__nv_bfloat16, int8_t);
+  if (qtype == BF16 && rtype == BF16) return CVDB_SCAN2(__nv_bfloat16, __nv_bfloat16);
+  if (qtype == F32 && rtype == F32) return CVDB_SCAN2(float, float);
+  if (qtype == F32 && rtype == BF16) return CVDB_SCAN2(float, __nv_bfloat16);
+#undef CVDB_SCAN2
+  return cudaErrorInvalidValue;
+}
 
 // ---- the rows a (step, r) reads, for the tensor-core and f32 bodies ----
 
@@ -597,18 +659,20 @@ inline int tc_pair(int qtype, int rtype) {
 // pairs; for the tensor-core pairs the wide block at int8 tile_q >= 128, else
 // the narrow one, unless the resident queries overflow shared memory: then
 // the CUDA-core body; -1 for a pair no body takes. Top-2 (r_per_tile rows a
-// slot in a tile) takes the narrow block alone, if its state fits.
+// slot in a tile) takes the narrow block if its pair is a tensor-core one
+// and its state fits, else the CUDA-core body.
 enum Body { CUDA_CORE = 0, NARROW = 1, WIDE = 2, F32_BODY = 3 };
 
 inline int body_of(int qtype, int rtype, int tile_q, int d, int top2 = 0, int r_per_tile = 1) {
+  const bool f32_pair = qtype == F32 && (rtype == F32 || rtype == BF16);
   if (top2) {
     const int pair = tc_pair(qtype, rtype);
-    return pair >= 0 && tc_layout<Narrow>(pair, d, 0, tc_top2_bytes<Narrow>(true, r_per_tile))
-                                .total <= SMEM_MAX
-               ? NARROW
-               : -1;
+    if (pair >= 0 && tc_layout<Narrow>(pair, d, 0, tc_top2_bytes<Narrow>(true, r_per_tile))
+                             .total <= SMEM_MAX)
+      return NARROW;
+    return pair >= 0 || f32_pair ? CUDA_CORE : -1;
   }
-  if (qtype == F32) return rtype == F32 || rtype == BF16 ? F32_BODY : -1;
+  if (qtype == F32) return f32_pair ? F32_BODY : -1;
   const int pair = tc_pair(qtype, rtype);
   if (pair < 0) return -1;
   if (tc_layout<Narrow>(pair, d).total > SMEM_MAX) return CUDA_CORE;
@@ -672,8 +736,8 @@ const char* cvdb_cuda_error_string(int code) {
 
 // Dynamic shared memory of the body a call takes: 0 for the CUDA-core body
 // (static shared memory, grid y = query blocks of 32), -1 where no body
-// takes the call (a pair without a scan, or top-2 outside the tensor-core
-// body); the tensor-core and f32 bodies put their query blocks on grid x.
+// takes the call (a pair without a scan); the tensor-core and f32 bodies put
+// their query blocks on grid x.
 // The body does not depend on the source or on l2; both stay in the
 // signature, so that every build of this interface binds alike
 // (scripts/torch_pq_scan_ab.py times variants).
@@ -700,8 +764,8 @@ int cvdb_tiles_scan_block_queries(int, int qtype, int rtype, int tile_q, int d, 
 
 // Launches the scan on `stream`; returns the launch's cudaGetLastError()
 // (cudaErrorInvalidValue for an unknown source or type pair, or top-2
-// outside source TABLE's tensor-core body). out_v2/out_i2 (null: top-1) take
-// slot 2's (Q, L) values and rows.
+// outside source TABLE). out_v2/out_i2 (null: top-1) take slot 2's (Q, L)
+// values and rows.
 int cvdb_tiles_scan(int source, int qtype, int rtype, const void* db, const void* q,
                     const void* table, const void* sqnorm, void* out_v, void* out_i,
                     void* out_v2, void* out_i2, int n_qt, int tile_q, int steps, int tile_n,
@@ -735,6 +799,9 @@ int cvdb_tiles_scan(int source, int qtype, int rtype, const void* db, const void
           : source == ALL   ? launch_tc_pair<ALL>(body, pair, a, n_qt, s)
           : source == TABLE ? launch_tc_pair<TABLE>(body, pair, a, n_qt, s)
                             : launch_tc_pair<BAND>(body, pair, a, n_qt, s);
+  } else if (body == CUDA_CORE && top2) {
+    err = launch_types_top2(qtype, rtype, db, q, table, sqnorm, out_v, out_i, out_v2, out_i2,
+                            n_qt, tile_q, steps, tile_n, l_buckets, d, n_valid, s);
   } else if (body == CUDA_CORE) {
     err = source == ALL ? launch_types<ALL>(qtype, rtype, db, q, table, sqnorm, out_v, out_i,
                                             n_qt, tile_q, steps, tile_n, l_buckets, d, n_valid, s)

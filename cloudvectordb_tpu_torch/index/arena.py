@@ -1,17 +1,20 @@
 """Shared helpers of the index families (counterpart of
 cloudvectordb_tpu/index/arena.py): the remove() request contract
-(``normalize_remove_ids``) and the LSM pending buffer (``PendingBuffer``)
-that ``BandIVFIndex.add`` appends to. Rows in the buffer are scanned
-exactly at query time; the index folds them into its device annex or
-merges them into the arena once the buffer outgrows a fraction of the
-arena, so ``add`` stays O(batch) amortized. (The reference's host
-``ListArena`` and ``grow_scatter_gid`` come with the probe-scan and
-PQ-tiles families.)
+(``normalize_remove_ids``), the gid-keyed table growth of ``merge_from``
+(``grow_scatter_gid``), the host list arena of the probe-scan families
+(``ListArena``: rows sorted by list, (nlist + 1,) offsets) and the LSM
+pending buffer (``PendingBuffer``) that ``add`` appends to. Rows in the
+buffer are scanned exactly at query time; the index folds them into its
+device annex or merges them into the arena once the buffer outgrows a
+fraction of the arena, so ``add`` stays O(batch) amortized. All of it is
+host numpy, as in the reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from cloudvectordb_tpu_torch.utils.native import arena_sort, gather_rows
 
 
 def normalize_remove_ids(ids) -> np.ndarray:
@@ -20,6 +23,80 @@ def normalize_remove_ids(ids) -> np.ndarray:
     the hole marker value, are dropped)."""
     req = np.unique(np.asarray(ids, np.int64).ravel())
     return req[req >= 0]
+
+
+def grow_scatter_gid(base: np.ndarray, rows: np.ndarray, gids: np.ndarray) -> np.ndarray:
+    """A copy of the gid-keyed table ``base`` grown to cover ``gids``
+    (zero-filling any id-space gaps), with ``rows`` scattered at those
+    keys: how ``merge_from`` consolidates a gid-keyed side store (the int8
+    refine rows)."""
+    base = np.asarray(base)
+    hi = max(int(gids.max(initial=-1)) + 1, base.shape[0])
+    out = np.zeros((hi, *base.shape[1:]), base.dtype)
+    out[: base.shape[0]] = base
+    out[gids] = rows
+    return out
+
+
+class ListArena:
+    """Host container of list-sorted payload rows and their global ids:
+    list l's rows are ``payload[offsets[l]:offsets[l + 1]]``."""
+
+    def __init__(self, nlist: int, payload_width: int, payload_dtype):
+        self.nlist = nlist
+        self.payload = np.zeros((0, payload_width), payload_dtype)
+        self.ids = np.zeros((0,), np.int64)
+        self.offsets = np.zeros((nlist + 1,), np.int64)
+
+    @property
+    def size(self) -> int:
+        return self.payload.shape[0]
+
+    @property
+    def list_lens(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+    @property
+    def max_list_len(self) -> int:
+        return int(self.list_lens.max()) if self.size else 0
+
+    def rebuild(self, payload: np.ndarray, ids: np.ndarray, assignments: np.ndarray) -> None:
+        """Replace the contents with the rows sorted by list assignment
+        (stable), through the native counting sort (utils/native.py)."""
+        order, offsets = arena_sort(np.asarray(assignments), self.nlist)
+        self.payload = gather_rows(np.asarray(payload), order)
+        self.ids = np.asarray(ids)[order]
+        self.offsets = offsets
+
+    def merge(self, payload: np.ndarray, ids: np.ndarray, assignments: np.ndarray) -> None:
+        """Merge new rows in: one re-sort of the union."""
+        if self.size == 0:
+            self.rebuild(payload, ids, assignments)
+            return
+        old_assign = np.repeat(np.arange(self.nlist), self.list_lens)
+        self.rebuild(
+            np.concatenate([self.payload, payload.astype(self.payload.dtype)]),
+            np.concatenate([self.ids, ids]),
+            np.concatenate([old_assign, assignments]))
+
+    def remove_ids(self, req: np.ndarray) -> int:
+        """Drop the rows whose id is in ``req`` (sorted unique int64) by one
+        boolean-mask compaction; rows stay list-sorted, so only the offsets
+        are recomputed. Returns the number removed; unknown ids are
+        ignored."""
+        if self.size == 0:
+            return 0
+        keep = ~np.isin(self.ids, req)
+        n_rem = int(self.size - keep.sum())
+        if n_rem == 0:
+            return 0
+        assign = np.repeat(np.arange(self.nlist), self.list_lens)[keep]
+        # fancy indexing copies: safe on read-only memory-mapped arrays too
+        self.payload = np.asarray(self.payload)[keep]
+        self.ids = np.asarray(self.ids)[keep]
+        counts = np.bincount(assign, minlength=self.nlist)
+        self.offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        return n_rem
 
 
 class PendingBuffer:

@@ -5,8 +5,9 @@ Every index saves as a directory in the reference's on-disk format:
 tuned op point, array names) plus one ``.npy`` per array, written to a
 temporary directory and swapped in atomically. An artifact saved by either
 package loads in the other; bf16 arrays are stored as the two-byte void
-dtype the reference's ml_dtypes arrays save as (``to_numpy``/``from_numpy``). (The reference's ``RangeSearchMixin`` is not
-ported in this slice.)
+dtype the reference's ml_dtypes arrays save as (``to_numpy``/``from_numpy``).
+Every family gets ``tune()`` from eval/tune.py and ``range_search()`` from
+index/range.py.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from cloudvectordb_tpu_torch.eval.tune import TunableMixin
+from cloudvectordb_tpu_torch.index.range import RangeSearchMixin
 from cloudvectordb_tpu_torch.utils.device import DEFAULT
 
 MANIFEST = "manifest.json"
@@ -60,9 +62,10 @@ def replace_dir_atomic(tmp: Path, path: Path, old_prefix: str) -> None:
         shutil.rmtree(old.parent, ignore_errors=True)
 
 
-class Index(TunableMixin, abc.ABC):
+class Index(TunableMixin, RangeSearchMixin, abc.ABC):
     """Build/search/save/load surface; tuning (``tune()``/``_op_point``)
-    comes from eval/tune.py's TunableMixin."""
+    comes from eval/tune.py's TunableMixin, radius queries from
+    index/range.py's RangeSearchMixin."""
 
     kind: str = "abstract"
     metric: str = "ip"

@@ -1,10 +1,10 @@
 """Polymorphic load (counterpart of cloudvectordb_tpu/index/registry.py).
 
 Reads a directory in the shared on-disk format (index/base.py), saved by
-either package, onto an explicit device. The port loads the ``flat``,
-``band_ivf`` (residual-int8 and whole-row arenas) and ``band_ivf_pq`` kinds
-(code-major or row-major codes); every other kind raises and names the
-slice it waits for.
+either package, onto an explicit device: the ``flat``, ``ivf_flat``,
+``ivf_pq``, ``band_ivf`` (residual-int8 and whole-row arenas) and
+``band_ivf_pq`` kinds (code-major or row-major codes). Sharded artifacts
+raise and name the slice they wait for.
 """
 
 from __future__ import annotations
@@ -17,13 +17,12 @@ from cloudvectordb_tpu_torch.index.base import MANIFEST, Index
 from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
 from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
+from cloudvectordb_tpu_torch.index.ivf_flat import IVFFlatIndex
+from cloudvectordb_tpu_torch.index.ivf_pq import IVFPQIndex
 from cloudvectordb_tpu_torch.utils.device import DEFAULT
 
-_KINDS = {"flat": FlatIndex, "band_ivf": BandIVFIndex, "band_ivf_pq": BandIVFPQIndex}
-_LATER = {
-    "ivf_flat": "the probe-scan families slice",
-    "ivf_pq": "the probe-scan families slice",
-}
+_KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
+          "band_ivf": BandIVFIndex, "band_ivf_pq": BandIVFPQIndex}
 
 
 def load_index(path: str | Path, device: str | torch.device = DEFAULT,
@@ -38,8 +37,7 @@ def load_index(path: str | Path, device: str | torch.device = DEFAULT,
     manifest = Index.read_manifest(path)
     kind = manifest["kind"]
     if kind not in _KINDS:
-        raise NotImplementedError(
-            f"index kind {kind!r} arrives with {_LATER.get(kind, 'a later slice')}")
+        raise ValueError(f"unknown index kind {kind!r}")
     idx = _KINDS[kind]._from_state(manifest, Index.load_arrays(path, mmap=mmap),
                                    device=device)
     if manifest.get("op_point"):  # tuned serving knobs (eval/tune.py)

@@ -255,9 +255,9 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
     rows (top2: (Q, 2·L), slot 1's buckets then slot 2's), on the tensors' device and
     PyTorch's current stream. ``table`` is None (ALL), the (n_qt, steps)
     tile table (TABLE) or the (n_qt,) band starts (BAND); ``sqnorm`` is
-    None or the (N,) f32 l2 bias. top2 is K3's (TABLE) on the tensor-core
-    pairs; elsewhere it raises. Shapes are checked by the callers; this
-    checks what the kernel reads raw."""
+    None or the (N,) f32 l2 bias. top2 is K3's (source TABLE), on every
+    pair the scan takes. Shapes are checked by the callers; this checks
+    what the kernel reads raw."""
     dev = db.device
     if db.dtype not in _ELEM or q.dtype not in _ELEM:
         raise TypeError(f"no scan for {q.dtype} queries x {db.dtype} rows")
@@ -277,10 +277,6 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
     body = (source, _ELEM[q.dtype], _ELEM[db.dtype], tile_q, d, int(sqnorm is not None),
             int(top2), tile_n // l_buckets)
     smem = lib.cvdb_tiles_scan_smem_bytes(*body)
-    if top2 and (source != 1 or smem < 0):  # 1: ops/band.py's SCAN_TABLE
-        raise NotImplementedError(
-            f"top2 runs on K3's tensor-core body only (int8, hybrid, bf16 queries at a D "
-            f"whose state fits shared memory), not {q.dtype} x {db.dtype} at D={d}")
     q_blocks = n_qt * -(-tile_q // lib.cvdb_tiles_scan_block_queries(*body))
     if q_blocks > (65535 if smem == 0 else 2**31 - 1):
         raise ValueError(f"{n_qt} query tiles of {tile_q} exceed the launch grid")

@@ -3,7 +3,9 @@
 at the 12.5M x 768 residual index's (96, 32) plan, K3 hybrid and int8 at
 the whole-row index's, K7 at its band plan, K2 f32 l2 and int8 at the flat
 cells' shapes (chip_smoke.py's corpus, queries and helpers, from that
-checkout). Prints one line: ``GUARD <root> {kernel: ms}``.
+checkout), and K3 hybrid on rows too deep for resident queries (the
+CUDA-core body: random int8 rows, 262,144 x 3072, 16 steps a query tile of
+32, B 4096). Prints one line: ``GUARD <root> {kernel: ms}``.
 
 Run from any directory, a checkout's root as the argument::
 
@@ -36,7 +38,7 @@ def times(root: str) -> dict:
     _cuda.build(["tiles_resid", "tiles_scan"])
     chunk_fn = c.make_corpus(dev, c.CHUNK)
     q = c.make_queries(chunk_fn, dev, c.B)
-    out = {}
+    out = {"K3 hybrid D3072": deep_k3(dev, band, c)}
     idx, _ = c.build_index(dev, chunk_fn, c.N_ROWS // c.CHUNK, True)
     a = c.k1_plan(idx, q, 96, 32)
     out["K1"] = c.time_ms(lambda: band.tiles_topk_resid(**a, k=c.K), 20)
@@ -67,6 +69,21 @@ def times(root: str) -> dict:
     q8f, _ = flat.quantize_queries(q)
     out["K2 int8"] = c.time_ms(lambda: flat.flat_topk(flat8._vecs, q8f, c.K), 10)
     return out
+
+
+def deep_k3(dev, band, c) -> float:
+    """Median ms of top-1 K3 with bf16 queries over int8 rows at D 3072."""
+    import torch
+
+    n, d, tile_n, tq, steps = 262_144, 3072, 2048, 32, 16
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    rows = torch.randint(-127, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+    q = torch.randn((c.B, d), generator=g, device=dev).to(torch.bfloat16)
+    table = torch.randint(0, n // tile_n, (c.B // tq, steps), generator=g, device=dev,
+                          dtype=torch.int32)
+    kw = dict(tile_n=tile_n, tile_q=tq, int8="hybrid", n_valid=n)
+    return c.time_ms(lambda: band.tiles_topk(rows, q, table, c.K, **kw), 5)
 
 
 def main() -> int:

@@ -27,6 +27,10 @@ include to a temporary directory (the package's sources are not touched):
 - ``bias`` (K1's epilogue): the l2 key drops the row's bias;
 - ``dup`` (the top-2 merge, slot_merge.cuh): a repeated table entry's best
   row, already in slot 1, races for slot 2 too;
+- ``cc_slot2_row`` (the CUDA-core body's top-2): slot 2 reports slot 1's
+  row beside its own value;
+- ``cc_runner_up`` (the CUDA-core body's top-2): a tile's runner-up never
+  reaches slot 2; only a plan with R > 1 has runner-ups;
 - ``sqnorm`` (the f32 body): the l2 bias drops |x|^2 (scores 2 q.x);
 - ``last_tile`` (the rows of a flat scan): the ragged last tile is never
   scored.
@@ -47,9 +51,20 @@ outright) and K7 at the band plan (equal outright); each at R 1 (L =
 tile_n, the main path) and R 4 (l_buckets 512).
 Then K2 at the flat cells' shapes, equal outright: f32 l2 over 1M x 128
 SIFT-like integer rows against 10,000 such queries, int8 over 1M x 768 of
-the corpus against the 4096 queries. One line per (shape, build): passed,
-or the criteria it failed. Exits 1 unless the package's kernels pass every
-hold and each faulted build fails every hold it applies to.
+the corpus against the 4096 queries. Then K3's top-2 on the CUDA-core body
+as chip_smoke.py's ``run_top2_routes`` holds it (exact f64 scores): f32
+whole rows over the corpus's first 1M rows at (96, 32), and the deep
+hybrid arena (D 3072) at its plan, each at R 1 and R 4 (the deep arena's
+slot 2 reaches a top-10 only at R 4, measured: there the R 1 hold takes
+no fault). One line per
+(shape, build): passed, or the criteria it failed. Exits 1 unless the
+package's kernels pass every hold and each faulted build fails every hold
+it applies to.
+
+Arguments name the groups of holds to run (k1, k1_mutated, k3_k7, k2,
+k3_top2); none runs them all, e.g.::
+
+    python3 scripts/torch_scan_hold_faults.py k3_top2
 """
 
 from __future__ import annotations
@@ -102,6 +117,10 @@ FAULTS = {
         "[slot]);", "if constexpr (L2) return s;")]},
     "dup": {"slot_merge.cuh": [("const bool dup = !use_t && ni == i1;",
                                 "const bool dup = false;")]},
+    "cc_slot2_row": {"tiles_scan.cu": [("out_i2[o] = best_i[1][i][jj];",
+                                        "out_i2[o] = best_i[0][i][jj];")]},
+    "cc_runner_up": {"tiles_scan.cu": [("slot_merge2(tmx[0][i][jj], row, tmx[1][i][jj],",
+                                        "slot_merge2(tmx[0][i][jj], row, -INFINITY,")]},
     "sqnorm": {"tiles_scan.cu": [("__fsub_rn(2.f * acc[i][jj], bias)", "2.f * acc[i][jj]")]},
     "last_tile": {"tiles_scan.cu": [(
         "x.n_rows = x.row0 < 0 ? 0 : (int)max(0LL, hi);",
@@ -269,10 +288,57 @@ def holds_k2(libs, dev, chunk_fn, queries) -> list[str]:
     return wrong
 
 
+def holds_k3_top2(libs, dev, chunk_fn, queries) -> list[str]:
+    """K3 top-2 on the CUDA-core body: f32 whole rows and the deep hybrid
+    arena, each at its plan with R 1 and R 4."""
+    wrong = []
+    idx = c.build_f32_rows(dev, chunk_fn)
+    q_s, table = c.k3_plan(idx, queries, *c.MAIN_OP)
+    wrong += holds_top2(libs, idx, q_s, table, False, c.MAIN_OP[1],
+                        f"K3 f32 top2 B{c.B} {c.MAIN_OP}")
+    del idx, q_s, table
+    torch.cuda.empty_cache()
+    idx, _, qd = c.build_deep(dev)
+    q_s, table = c.k3_plan(idx, qd, *c.DEEP_OP)
+    return wrong + holds_top2(libs, idx, q_s.to(torch.bfloat16), table, "hybrid", c.DEEP_OP[1],
+                              f"K3 hybrid D{c.DEEP_D} top2 B{c.B} {c.DEEP_OP}",
+                              slot2_at_r1=False)
+
+
+def holds_top2(libs, idx, qk, table, int8, tq: int, label: str,
+               slot2_at_r1: bool = True) -> list[str]:
+    """K3 top-2 at R 1 and R 4 against the top-2 faults; ``slot2_at_r1``
+    False where slot 2 never reaches a top-K at R 1 (each bucket holds one
+    row a tile, and a query's neighbours fill one or two tiles), so that
+    only R 4's hold can see a slot-2 fault."""
+    st = idx._device_state()
+    exact = c.wholerow_exact(st["payload"], qk)
+    wrong = []
+    for lb in (0, 512):
+        r_blocks = idx.tile_n // (lb or idx.tile_n)
+        kw = dict(tile_n=idx.tile_n, tile_q=tq, int8=int8, n_valid=idx._n,
+                  l_buckets=lb, top2=True)
+        wrong += hold(libs, "tiles_scan", f"{label} R{r_blocks}",
+                      lambda: band.tiles_topk(st["payload"], qk, table, c.K, **kw),
+                      lambda: band.tiles_topk_reference(st["payload"], qk, table, c.K, **kw),
+                      (["cc_slot2_row"] if r_blocks > 1 or slot2_at_r1 else [])
+                      + (["cc_runner_up"] if r_blocks > 1 else []),
+                      exact=exact, tie=None)
+    return wrong
+
+
+HOLDS = {"k1": holds_k1, "k1_mutated": holds_k1_mutated, "k3_k7": holds_k3_k7,
+         "k2": holds_k2, "k3_top2": holds_k3_top2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_scan_hold_faults: no CUDA device", file=sys.stderr)
         return 1
+    names = sys.argv[1:] or list(HOLDS)
+    if any(n not in HOLDS for n in names):
+        print(f"torch_scan_hold_faults: holds are {', '.join(HOLDS)}", file=sys.stderr)
+        return 2
     dev = torch.device("cuda", 0)
     card = c.card_line()
     c.log(f"[env] card: {card}")
@@ -281,8 +347,8 @@ def main() -> int:
         libs = build(Path(tmp))
         chunk_fn = c.make_corpus(dev, c.CHUNK)
         queries = c.make_queries(chunk_fn, dev, c.B)
-        for holds in (holds_k1, holds_k1_mutated, holds_k3_k7, holds_k2):
-            wrong += holds(libs, dev, chunk_fn, queries)
+        for name in names:
+            wrong += HOLDS[name](libs, dev, chunk_fn, queries)
             torch.cuda.empty_cache()
     for line in wrong:
         c.log(f"[fault] WRONG: {line}")

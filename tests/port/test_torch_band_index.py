@@ -24,6 +24,7 @@ import torch
 from cloudvectordb_tpu.data.synthetic import clustered_vectors, queries_from
 from cloudvectordb_tpu.index import load_index as jax_load_index
 from cloudvectordb_tpu.index.ivf_band import BandIVFIndex as JaxBandIVFIndex
+from cloudvectordb_tpu.index.ivf_pq import IVFPQIndex as JaxIVFPQIndex
 from cloudvectordb_tpu.utils import native as jax_native
 from cloudvectordb_tpu_torch.eval.recall import brute_force_topk, recall_at_k
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
@@ -183,9 +184,10 @@ def _assert_same_scored(t, j, q, **kw):
 
 
 def test_unported_options_raise(data, jidx, tmp_path):
-    """Other index kinds still raise; l2, top2 and 'precise', which this
-    test once refused, are held to the reference (slack arenas and add(),
-    which it also refused, are held in test_torch_band_mutation.py)."""
+    """What this test once refused: l2, top2 and 'precise' are held to the
+    reference, and an ivf_pq artifact the reference saved loads (slack
+    arenas and add(), which it also refused, are held in
+    test_torch_band_mutation.py)."""
     db, q, gt = data
     meta, arrays = jidx._state_meta(), jidx._state_arrays()
     t = BandIVFIndex.from_state(meta, arrays, device="cpu")
@@ -199,11 +201,12 @@ def test_unported_options_raise(data, jidx, tmp_path):
     j_l2 = JaxBandIVFIndex._from_state({"dim": 64, "meta": meta, "metric": "l2"}, arrays)
     assert BandIVFIndex(64, 16, residual=True, metric="l2", device="cpu").metric == "l2"
     _assert_same_scored(t_l2, j_l2, q, p_tiles=8)
-    (tmp_path / "pq").mkdir()
-    (tmp_path / "pq" / "manifest.json").write_text(json.dumps(
-        {"kind": "ivf_pq", "meta": {}, "arrays": []}))
-    with pytest.raises(NotImplementedError):
-        load_index(tmp_path / "pq", device="cpu")
+    # the ivf_pq kind, refused here until the probe-scan families were
+    # ported, now loads (held to the reference in test_torch_ivf_pq.py)
+    JaxIVFPQIndex.build(db, nlist=16, m=8, nbits=6, kmeans_iters=2,
+                        pq_train_iters=2).save(tmp_path / "pq")
+    loaded = load_index(tmp_path / "pq", device="cpu")
+    assert loaded.kind == "ivf_pq" and loaded.ntotal == db.shape[0]
 
 
 def test_native_arena_sort_matches_reference_loader():

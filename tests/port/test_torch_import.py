@@ -1,6 +1,7 @@
 """The port stands alone: importing it, and running its paths on CPU tensors
 (residual and whole-row tiles search, the band strategy, the fused flat
-scan, the PQ-tiles index with OPQ on both serving routes, the full PQ scan,
+scan, the PQ-tiles index with OPQ on both serving routes, the probe-scan
+IVF-Flat and IVF-PQ indexes, the full PQ scan,
 an encoder forward, K4's plain forward and backward, a training step),
 loads no JAX, Flax, Triton or reference package, and never reaches
 the CUDA binding (ops/_cuda.py): CPU tensors go to the plain versions.
@@ -22,12 +23,13 @@ import json, sys
 import numpy as np
 import torch
 import cloudvectordb_tpu_torch
-from cloudvectordb_tpu_torch.eval import qps, recall, tune
+from cloudvectordb_tpu_torch.eval import qps, recall, sweep, tune
 from cloudvectordb_tpu_torch.index import (
-    arena, base, flat, ivf_band, ivf_band_pq, kmeans, opq, pq as pq_index, registry)
+    arena, base, flat, ivf_band, ivf_band_pq, ivf_flat, ivf_pq, kmeans, opq, pq as pq_index,
+    range as range_search, registry)
 from cloudvectordb_tpu_torch.data import tokenize
 from cloudvectordb_tpu_torch.models import embed, encoder, hf_import, presets
-from cloudvectordb_tpu_torch.ops import assign, attn, band, flat_topk, pq, topk
+from cloudvectordb_tpu_torch.ops import adc, assign, attn, band, flat_topk, pq, topk
 from cloudvectordb_tpu_torch.train import losses, trainer
 from cloudvectordb_tpu_torch.utils import checkpoint, config, device, metrics, native
 
@@ -44,6 +46,11 @@ pqi = ivf_band_pq.BandIVFPQIndex.build(db, nlist=8, m=8, nbits=5, opq=True, kmea
                                        pq_train_iters=3, tile_n=128, tile_q=16, device="cpu")
 for route in ("pq", "refine"):
     hits.append(pqi.search(db[:20], 5, serve_from=route, refine_factor=8)[1][:, 0])
+hits.append(ivf_flat.IVFFlatIndex.build(db, 8, kmeans_iters=3, device="cpu")
+            .search(db[:20], 5, nprobe=2)[1][:, 0])
+hits.append(ivf_pq.IVFPQIndex.build(db, 8, m=8, nbits=5, kmeans_iters=3, pq_train_iters=3,
+                                    refine="int8", device="cpu")
+            .search(db[:20], 5, nprobe=2)[1][:, 0])
 codes_cm = pqi._codes[:1000].T.contiguous()
 hits.append(pq.pq_topk(codes_cm, torch.from_numpy(pqi.codebooks),
                        torch.from_numpy(db[:20] @ pqi.opq_matrix.T), 5)[1][:, 0].numpy())
@@ -92,6 +99,8 @@ def test_entry_points_default_to_the_card(tmp_path):
     from cloudvectordb_tpu_torch.index.flat import FlatIndex
     from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
     from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
+    from cloudvectordb_tpu_torch.index.ivf_flat import IVFFlatIndex
+    from cloudvectordb_tpu_torch.index.ivf_pq import IVFPQIndex
     from cloudvectordb_tpu_torch.index.registry import load_index
     from cloudvectordb_tpu_torch.models.embed import make_encode_fn
     from cloudvectordb_tpu_torch.models.encoder import init_encoder
@@ -105,6 +114,10 @@ def test_entry_points_default_to_the_card(tmp_path):
         BandIVFIndex(8, 4)
     with pytest.raises(no_card):
         BandIVFPQIndex(64, 4, m=8)
+    with pytest.raises(no_card):
+        IVFFlatIndex(8, 4)
+    with pytest.raises(no_card):
+        IVFPQIndex(64, 4, m=8)
     FlatIndex.build(np.eye(8, dtype=np.float32), device="cpu").save(tmp_path / "flat")
     with pytest.raises(no_card):
         load_index(tmp_path / "flat")
