@@ -161,7 +161,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward) against its plain version (with SDPA's own distance to it, and
    the backward bit-identical in two runs, at B 1536), timed beside torch's
    scaled_dot_product_attention (K4 and SDPA as the mean of 20 calls back to
-   back, each repetition).
+   back, each repetition);
+15. cell 12, the pipeline from raw text (``run_pipeline``), driven through
+   the CLI entry point in this process (``cli.main(["pipeline", ...])``)
+   on a temporary workdir: 1,000,000 synthetic passages, 100,000 inbatch
+   triplets, MiniLM-L6-384 at full width (bf16, max_len 128, dropout 0.1,
+   no probs dropout, 'packed': K4 forward and backward in training, K4 in
+   encoding), 200 steps of 512 triplets, every passage encoded, a
+   residual-int8 band_ivf index (nlist 4096), tune, eval; the stage table
+   from metrics.jsonl (host tokenization, tokenizer training and corpus
+   synthesis split out; kernel launches per stage); every stage's marker
+   and artifact, a finite falling loss, 1M x 384 finite unit-norm
+   embeddings (within 1e-3), K4 forward and backward in train, K4 in
+   encode and K1 in tune and eval launched, eval recall@10 >= 0.90 against
+   the exact f64 ground truth; a second ``pipeline`` on the workdir must
+   skip every stage (the same eval.json, no K4); ``search`` from text must
+   print 10 passages; then hard mining (a second workdir with copies of
+   the passages, tokenizer.json and checkpoints; 16,384 anchors, each
+   negative a filled candidate of its anchor's top 100 through K2 from
+   another document) and the text -> results split (tokenization, the L
+   32 query encode, ``search_device``) at B 1, 64 and 4096.
 
 Then one JSON line with every kernel's record (times, bound, library
 time), the card's line and, as the last line,
@@ -170,10 +189,13 @@ time), the card's line and, as the last line,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -184,9 +206,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cloudvectordb_tpu_torch import cli
+from cloudvectordb_tpu_torch.data.tokenize import TextTokenizer
+from cloudvectordb_tpu_torch.data.triplets import Triplets
 from cloudvectordb_tpu_torch.eval.qps import qps_device
 from cloudvectordb_tpu_torch.eval.recall import recall_at_k
 from cloudvectordb_tpu_torch.eval.sweep import nprobe_sweep, operating_point
+from cloudvectordb_tpu_torch.index import ivf_band as ivf_band_module
 from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex, _plan_tiles
 from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
@@ -194,15 +220,19 @@ from cloudvectordb_tpu_torch.index.ivf_flat import IVFFlatIndex
 from cloudvectordb_tpu_torch.index.ivf_pq import IVFPQIndex
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
 from cloudvectordb_tpu_torch.index.pq import pq_decode, pq_encode, train_pq
+from cloudvectordb_tpu_torch.index.registry import load_index
 from cloudvectordb_tpu_torch.models.embed import encode_corpus_streaming, make_encode_fn
 from cloudvectordb_tpu_torch.models.encoder import Encoder
 from cloudvectordb_tpu_torch.models.presets import get_preset
 from cloudvectordb_tpu_torch.ops import attn, band, flat_topk as flat, pq
+from cloudvectordb_tpu_torch.pipeline import run as pipeline_run
+from cloudvectordb_tpu_torch.pipeline.run import Pipeline
 from cloudvectordb_tpu_torch.ops.topk import (
     merge_topk, tiled_topk, topk_stable, topk_stable_select)
 from cloudvectordb_tpu_torch.train.trainer import Trainer
 from cloudvectordb_tpu_torch.utils.checkpoint import restore_checkpoint
-from cloudvectordb_tpu_torch.utils.config import TrainConfig
+from cloudvectordb_tpu_torch.utils.config import (
+    DataConfig, IndexConfig, MiningConfig, PipelineConfig, TrainConfig)
 from cloudvectordb_tpu_torch.utils.metrics import MetricsWriter
 
 D, K, B, LATENT, NCENTERS = 768, 10, 4096, 32, 256
@@ -3016,6 +3046,389 @@ def k4_main_shapes(dev) -> dict:
     return out
 
 
+# -- cell 12: the pipeline from raw text, through the CLI ------------------------
+PIPE_DOCS, PIPE_TRIPLETS, PIPE_STEPS = 1_000_000, 100_000, 200
+PIPE_STAGES = ("mine", "train", "encode", "build", "tune", "eval")
+PIPE_ARTIFACTS = ("passages.jsonl", "tokenizer.json", "triplets.jsonl", "ckpt",
+                  "embeddings.npy", "index", "eval.json")
+PIPE_RECALL_FLOOR, PIPE_NORM_TOL = 0.90, 1e-3
+#: the index's recall at full coverage against its plain version's, and the
+#: tuned op point's against full coverage
+PIPE_METHOD_TOL = 0.01
+HARD_ANCHORS, HARD_TOPK = 16_384, 100
+SPLIT_BATCHES, SPLIT_REPS = (1, 64, 4096), 5
+SEARCH_QUERY = "the telescope and the galaxy relate to orbit through the nebula."
+
+
+def pipeline_config(workdir: Path) -> PipelineConfig:
+    """Cell 12: BASELINE config #2's encoder (MiniLM-L6, 384-d) at full
+    width over 1M synthetic passages (the one cut: Wikipedia's text cannot
+    be had offline), the residual-int8 band_ivf index. Fields set directly
+    with no preset (a preset would replace them); attn_dropout 0 so that
+    training takes K4, attn_impl 'packed' so that encoding does too ('auto'
+    takes the naive path in a deterministic forward at L 128)."""
+    enc = dataclasses.replace(get_preset(ENC_PRESET), max_len=ENC_LEN, dtype="bfloat16",
+                              dropout=0.1, attn_dropout=0.0, attn_impl="packed")
+    return PipelineConfig(
+        workdir=str(workdir),
+        data=DataConfig(corpus="synthetic", num_docs=PIPE_DOCS),
+        mining=MiningConfig(strategy="inbatch", num_triplets=PIPE_TRIPLETS),
+        train=TrainConfig(encoder=enc, encoder_preset="", batch_size=TRIPLETS, lr=1e-4,
+                          warmup_steps=20, total_steps=PIPE_STEPS, ckpt_every=100),
+        index=IndexConfig(kind="band_ivf", metric="ip", nlist=NLIST, residual=True,
+                          dtype="int8", train_sample=262_144),
+        encode_batch=ENC_BATCH, eval_k=K, eval_queries=1024, stages=PIPE_STAGES)
+
+
+def kernel_counts() -> dict:
+    return {"K4": attn.mha_small_head.launches, "K4 bwd": attn.mha_small_head.bwd_launches,
+            "K1": band.tiles_topk_resid.launches, "K2": flat.flat_topk.launches}
+
+
+class StageProbe:
+    """Instrumentation of one pipeline run, outside the package: each
+    ``Pipeline.stage_*`` wrapped to record its kernel launches, and the
+    host seconds of tokenization (``TextTokenizer.encode_batch``), tokenizer
+    training and corpus synthesis spent inside it."""
+
+    TIMED = ((TextTokenizer, "encode_batch", "tokenize"), (TextTokenizer, "train", "tok_train"),
+             (pipeline_run, "load_passages", "corpus"))
+
+    def __init__(self):
+        self.host = {"tokenize": 0.0, "tok_train": 0.0, "corpus": 0.0}
+        self.stages: dict[str, dict] = {}
+        self._saved = []
+
+    def _timed(self, fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.host[key] += time.perf_counter() - t0
+        return wrapped
+
+    def _stage(self, fn, name):
+        def wrapped(pipe, *a, **kw):
+            before, host = kernel_counts(), dict(self.host)
+            out = fn(pipe, *a, **kw)
+            rec = self.stages.setdefault(name, {})
+            for k, v in kernel_counts().items():
+                rec[k] = rec.get(k, 0) + v - before[k]
+            for k, v in self.host.items():
+                rec[k] = rec.get(k, 0.0) + v - host[k]
+            return out
+        return wrapped
+
+    def __enter__(self):
+        targets = [(owner, attr, self._timed(getattr(owner, attr), key))
+                   for owner, attr, key in self.TIMED]
+        targets += [(Pipeline, f"stage_{s}", self._stage(getattr(Pipeline, f"stage_{s}"), s))
+                    for s in PIPE_STAGES]
+        for owner, attr, fn in targets:
+            self._saved.append((owner, attr, owner.__dict__[attr]))
+            setattr(owner, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self._saved):
+            setattr(owner, attr, orig)
+
+
+def cli_run(argv: list[str]) -> tuple[list[str], float]:
+    """cli.main(argv) in this process: the lines it printed, host seconds."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return out.getvalue().strip().splitlines(), secs
+
+
+def events(workdir: Path, name: str) -> list[dict]:
+    lines = (workdir / "metrics.jsonl").read_text().splitlines()
+    return [r for r in map(json.loads, lines) if r["event"] == name]
+
+
+def check_embeddings(path: Path, n: int, d: int) -> float:
+    """(n, d), finite, unit-norm within PIPE_NORM_TOL; the largest |norm - 1|."""
+    emb = np.load(path, mmap_mode="r")
+    if emb.shape != (n, d):
+        raise AssertionError(f"embeddings {emb.shape}, expected {(n, d)}")
+    worst = 0.0
+    for s in range(0, n, 131_072):
+        block = np.asarray(emb[s:s + 131_072], np.float64)
+        if not np.isfinite(block).all():
+            raise AssertionError("non-finite embeddings")
+        worst = max(worst, float(np.abs(np.linalg.norm(block, axis=1) - 1.0).max()))
+    if worst > PIPE_NORM_TOL:
+        raise AssertionError(f"embedding norms off 1 by {worst:.3g} > {PIPE_NORM_TOL}")
+    return worst
+
+
+def stage_table(workdir: Path, probe: StageProbe, card) -> None:
+    """Log each stage's seconds (StageTimer), its host work and launches."""
+    secs = {e["stage"]: e["wall_s"] for e in events(workdir, "stage_done")}
+    total = sum(secs.values())
+    parts = []
+    for s in PIPE_STAGES:
+        rec = probe.stages.get(s, {})
+        host = ", ".join(f"{k} {rec[k]:.1f} s" for k in ("corpus", "tok_train", "tokenize")
+                         if rec.get(k, 0.0) >= 0.05)
+        launches = ", ".join(f"{k} {rec[k]}" for k in ("K4", "K4 bwd", "K1", "K2") if rec.get(k))
+        if s == "encode":
+            host += f", device and copies {secs[s] - rec.get('tokenize', 0.0):.1f} s"
+        parts.append(f"{s} {secs[s]:.2f} s" + (f" ({host})" if host else "")
+                     + (f" [{launches}]" if launches else ""))
+    log(f"[pipeline] {card}: stages: " + "; ".join(parts)
+        + f"; raw text to a tuned index {total - secs['eval']:.2f} s, with eval {total:.2f} s")
+
+
+def hard_mining(dev, src: Path, tmp: Path, card) -> dict:
+    """Hard mining over the trained encoder: a second workdir with copies of
+    the first's passages, tokenizer.json (copied: WordPiece training is not
+    deterministic from run to run) and checkpoints; the whole corpus
+    re-encoded (K4) into FlatIndex, each anchor's negative from its top
+    HARD_TOPK (K2). Every negative must be a filled candidate of its
+    anchor's search from another document."""
+    work = tmp / "hard"
+    work.mkdir()
+    for name in ("passages.jsonl", "tokenizer.json"):
+        shutil.copy(src / name, work / name)
+    shutil.copytree(src / "ckpt", work / "ckpt")
+    cfg = pipeline_config(work)
+    cfg.mining = MiningConfig(strategy="hard", num_triplets=HARD_ANCHORS, hard_topk=HARD_TOPK)
+    cfg.stages = ("mine",)
+    cfg.save(tmp / "hard.json")
+    found = []
+    search = FlatIndex.search
+
+    def recording(index, q, k, **kw):
+        out = search(index, q, k, **kw)
+        found.append(out)
+        return out
+
+    FlatIndex.search = recording
+    reset_launches()
+    try:
+        _, secs = cli_run(["pipeline", "--config", str(tmp / "hard.json"), "--device", str(dev)])
+    finally:
+        FlatIndex.search = search
+    launches = kernel_counts()
+    passages = [json.loads(line)["text"] for line in (work / "passages.jsonl").open()]
+    row = {p: i for i, p in enumerate(passages)}
+    trip = Triplets.load(work / "triplets.jsonl")
+    picks = np.random.default_rng(cfg.mining.seed).integers(0, len(passages), size=HARD_ANCHORS)
+    scores = np.concatenate([s for s, _ in found])
+    ids = np.concatenate([i for _, i in found])
+    unfilled = int((ids < 0).sum())
+    topic = lambda i: passages[i].split(" about ", 1)[1].split(":", 1)[0]  # noqa: E731
+    same_topic = 0
+    for t, neg in enumerate(trip.negatives):
+        j = row.get(neg)
+        cand = {int(c) for s, c in zip(scores[t, 1:], ids[t, 1:]) if np.isfinite(s) and c >= 0}
+        if j is None or j == picks[t] or j not in cand:
+            raise AssertionError(f"hard negative {t}: {neg!r} is not a filled candidate of "
+                                 f"anchor {picks[t]} from another document")
+        same_topic += topic(j) == topic(int(picks[t]))
+    share = same_topic / len(trip)
+    log(f"[pipeline] {card}: hard mining, {HARD_ANCHORS:,} anchors, top {HARD_TOPK} of "
+        f"{len(passages):,}: {secs:.2f} s (re-encode included); negatives sharing the "
+        f"anchor's topic {share:.4f} (inbatch: ~1/8); unfilled slots returned {unfilled}; "
+        f"K4 {launches['K4']}, K2 {launches['K2']}")
+    if launches["K4"] <= 0 or launches["K2"] <= 0:
+        raise AssertionError(f"hard mining launches {launches}")
+    return dict(launches=launches, secs=secs, share=share)
+
+
+def text_split(dev, workdir: Path, card) -> dict:
+    """scripts/bench_text_serving.py's split on the pipeline's own index:
+    text queries (passage prefixes) at B 1, 64 and 4096, three legs each,
+    the median of SPLIT_REPS: host tokenization at L 32, the query encode
+    ('auto' -> packed_batch where 128 / 32 divides B), search_device at the
+    tuned op point; each leg fenced by a synchronise."""
+    pipe = Pipeline(PipelineConfig.load(workdir / "pipeline_config.json"), device=dev)
+    model = with_impl(pipe._load_params(), "auto", dev)
+    encode = make_encode_fn(model, device=dev)
+    tok = TextTokenizer.load(workdir / "tokenizer.json", QUERY_LEN)
+    index = load_index(workdir / "index", device=dev)
+    passages = pipe.passages
+    rng = np.random.default_rng(77)
+    out = {}
+    for b in SPLIT_BATCHES:
+        legs = {"tokenize": [], "encode": [], "search": []}
+        for rep in range(SPLIT_REPS + 1):
+            texts = [" ".join(passages[i].split()[:8])
+                     for i in rng.integers(0, len(passages), size=b)]
+            sync()
+            t0 = time.perf_counter()
+            ids, mask = tok.encode_batch(texts, QUERY_LEN)
+            t1 = time.perf_counter()
+            q = encode(ids, mask)
+            sync()
+            t2 = time.perf_counter()
+            index.search_device(q, K)
+            sync()
+            t3 = time.perf_counter()
+            if rep:  # the first is a warm-up
+                for leg, dt in zip(legs, (t1 - t0, t2 - t1, t3 - t2)):
+                    legs[leg].append(dt * 1e3)
+        out[b] = {leg: float(np.median(v)) for leg, v in legs.items()}
+    log(f"[pipeline] {card}: text -> results at L {QUERY_LEN}, median of {SPLIT_REPS} ms "
+        "(tokenize / encode / search_device): " + "; ".join(
+            f"B {b} {r['tokenize']:.3f} / {r['encode']:.3f} / {r['search']:.3f}"
+            for b, r in out.items()))
+    return out
+
+
+def recall_witness(dev, workdir: Path, card) -> dict:
+    """What caps the pipeline index's recall, on the eval's own queries and
+    exact f64 ground truth (``Pipeline._eval_queries``): the exact f32
+    search over the embeddings; the index at full tile coverage through K1
+    (int8 and 'precise' bf16 queries) and through K1's plain version; the
+    ceiling of the int8 rows alone, an exact f32 search over the index's
+    own rows (``reconstruct``); the median spread of the true top-10's
+    scores against the median score error at the true neighbours of the
+    int8 rows and of K1's scores (bf16 queries and centroids, the
+    reference's contract); how many true neighbours share the source
+    passage's template (its text but for the document number)."""
+    pipe = Pipeline(PipelineConfig.load(workdir / "pipeline_config.json"), device=dev)
+    emb = np.load(workdir / "embeddings.npy")
+    q, gt = pipe._eval_queries(emb)
+    src = np.random.default_rng(0).choice(emb.shape[0], q.shape[0], replace=False)
+    x = torch.from_numpy(emb).to(dev)
+    qt = torch.from_numpy(q).to(dev)
+    index = load_index(workdir / "index", device=dev)
+    full = index._tune_n_tiles()
+    s_k1, i_k1 = index.search(q, K, p_tiles=full)
+    out = {"exact f32": recall_at_k(tiled_topk(x, qt, K)[1].cpu().numpy(), gt),
+           "K1 full coverage": recall_at_k(i_k1, gt),
+           "K1 full, precise": recall_at_k(
+               index.search(q, K, p_tiles=full, scoring="precise")[1], gt)}
+    kernel = ivf_band_module.tiles_topk_resid
+    ivf_band_module.tiles_topk_resid = band.tiles_topk_resid_reference
+    try:
+        out["plain full coverage"] = recall_at_k(index.search(q, K, p_tiles=full)[1], gt)
+    finally:
+        ivf_band_module.tiles_topk_resid = kernel
+    rows = torch.from_numpy(index.reconstruct(np.arange(emb.shape[0]))).to(dev)
+    out["int8 rows, exact"] = recall_at_k(tiled_topk(rows, qt, K)[1].cpu().numpy(), gt)
+    g = torch.from_numpy(gt).to(dev)
+    s_true = (x[g] * qt[:, None]).sum(-1)
+    err = float(((rows[g] * qt[:, None]).sum(-1) - s_true).abs().median())
+    found = torch.from_numpy(i_k1).to(dev)
+    k1_err = float((torch.from_numpy(s_k1).to(dev)
+                    - (x[found] * qt[:, None]).sum(-1)).abs().median())
+    spread = float((s_true[:, 0] - s_true[:, -1]).median())
+    template = [p.split(" ", 2)[2] for p in pipe.passages]
+    sizes = {}
+    for t in template:
+        sizes[t] = sizes.get(t, 0) + 1
+    mates = float(np.mean([[template[j] == template[i] for j in row]
+                           for i, row in zip(src, gt)]))
+    log(f"[pipeline] {card}: recall@{K} witness: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()) + f"; the true top-{K}'s score spread "
+        f"{spread:.3g} (median) against the score error of the int8 rows {err:.3g} and "
+        f"of K1 {k1_err:.3g}; {mates:.4f} of the true neighbours share the source's "
+        f"template ({np.mean([sizes[template[i]] for i in src]):.1f} passages a template)")
+    del x, rows, qt, index
+    torch.cuda.empty_cache()
+    return dict(out, spread=spread, err=err, k1_err=k1_err, mates=mates)
+
+
+def run_pipeline(dev, card) -> dict:
+    """Cell 12: the port's pipeline from raw text to a served index, through
+    the CLI entry point in this process: the six stages and their table,
+    the recall witness (the index held to its plain version at full
+    coverage; the 0.90 floor reported), a no-op resume, a search from text,
+    hard mining, the text -> results split. Returns the path's kernel
+    launches."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        workdir = tmp / "run"
+        cfg_path = tmp / "cell12.json"
+        pipeline_config(workdir).save(cfg_path)
+        argv = ["pipeline", "--config", str(cfg_path), "--device", str(dev)]
+        reset_launches()
+        with StageProbe() as probe:
+            printed, _ = cli_run(argv)
+        launches = kernel_counts()
+        result = json.loads(printed[-1])
+        stage_table(workdir, probe, card)
+        for s in PIPE_STAGES:
+            if not (workdir / f".done_{s}").exists():
+                raise AssertionError(f"stage {s} left no marker")
+        for name in PIPE_ARTIFACTS:
+            if not (workdir / name).exists():
+                raise AssertionError(f"no artifact {name}")
+        losses = [e["loss"] for e in events(workdir, "train_step")]
+        (enc_ev,), tuned = events(workdir, "encoded"), events(workdir, "tuned")
+        worst = check_embeddings(workdir / "embeddings.npy", PIPE_DOCS, 384)
+        stages = probe.stages
+        log(f"[pipeline] {card}: loss {losses[0]:.4f} -> {losses[-1]:.4f} ({len(losses)} logged "
+            f"of {PIPE_STEPS} steps); embeddings {PIPE_DOCS:,} x 384, max |norm - 1| "
+            f"{worst:.3g}, mean pairwise cosine {enc_ev['mean_sim']:.4f}; tune op "
+            f"{tuned[-1]['op']} recall {tuned[-1]['recall']:.4f} vs exact, met "
+            f"{tuned[-1]['met']}; eval recall@{K} {result['recall_at_k']:.4f}, "
+            f"{result['qps']:,.1f} QPS (host clock, {result['nq']} queries); K4 forward / "
+            f"backward in train {stages['train']['K4']} / {stages['train']['K4 bwd']}, K4 in "
+            f"encode {stages['encode']['K4']}, K1 in tune {stages['tune']['K1']}, in eval "
+            f"{stages['eval']['K1']}")
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"training loss not finite and falling: {losses}")
+        if min(stages["train"]["K4"], stages["train"]["K4 bwd"], stages["encode"]["K4"],
+               stages["tune"]["K1"], stages["eval"]["K1"]) <= 0:
+            raise AssertionError(f"a kernel of the pipeline never launched: {stages}")
+        witness = recall_witness(dev, workdir, card)
+        if witness["exact f32"] < FLAT_RECALL_FLOOR:
+            raise AssertionError(f"exact f32 recall@{K} {witness['exact f32']:.4f} < "
+                                 f"{FLAT_RECALL_FLOOR}: the eval's ground truth is not the "
+                                 "embeddings' own")
+        gap = abs(witness["K1 full coverage"] - witness["plain full coverage"])
+        if gap > PIPE_METHOD_TOL or result["recall_at_k"] < witness["K1 full coverage"] - \
+                PIPE_METHOD_TOL:
+            raise AssertionError(f"the index departs from its method: eval "
+                                 f"{result['recall_at_k']:.4f}, {witness}")
+        if result["recall_at_k"] < PIPE_RECALL_FLOOR:
+            log(f"[pipeline] {card}: UNMET: eval recall@{K} {result['recall_at_k']:.4f} < the "
+                f"{PIPE_RECALL_FLOOR} floor, equal to K1's plain version at full coverage "
+                f"({witness['plain full coverage']:.4f}); the int8 rows alone reach "
+                f"{witness['int8 rows, exact']:.4f} (mean cosine {enc_ev['mean_sim']:.4f})")
+
+        n_done = len(events(workdir, "stage_done"))
+        reset_launches()
+        again, secs = cli_run(argv)
+        if (json.loads(again[-1]) != result or kernel_counts()["K4"] != 0
+                or len(events(workdir, "stage_done")) != n_done):
+            raise AssertionError(f"the resume re-ran a stage: {again[-1]}, {kernel_counts()}")
+        log(f"[pipeline] {card}: resume: every stage skipped in {secs:.2f} s, the same "
+            "eval.json")
+
+        reset_launches()
+        hits, secs = cli_run(["search", "--workdir", str(workdir), "--device", str(dev),
+                              "--query", SEARCH_QUERY, "-k", str(K)])
+        search_launches = kernel_counts()
+        log(f"[pipeline] {card}: search {SEARCH_QUERY!r}: {len(hits)} passages in {secs:.2f} s (model, "
+            f"index and passages loaded); K4 {search_launches['K4']}, K1 "
+            f"{search_launches['K1']}; top: {hits[0] if hits else None}")
+        if len(hits) != K or search_launches["K4"] <= 0 or search_launches["K1"] <= 0:
+            raise AssertionError(f"search printed {len(hits)} lines, launches {search_launches}")
+        for k, v in search_launches.items():
+            launches[k] += v
+
+        hard = hard_mining(dev, workdir, tmp, card)
+        reset_launches()
+        split = text_split(dev, workdir, card)
+        for k, v in hard["launches"].items():
+            launches[k] += v + kernel_counts()[k]
+    log(f"[pipeline] {card}: cell 12 in {time.perf_counter() - t_phase:.1f} s; its launches "
+        f"{launches}")
+    return dict(launches=launches, result=result, split=split)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -3080,6 +3493,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k4 = k4_main_shapes(dev)
     k4_err = max(r["err"] for r in k4.values())
+    torch.cuda.empty_cache()
+    runs.append(dict(launches=run_pipeline(dev, card)["launches"], mp={}))
     runs.append(dict(
         launches={"K4": train["launches"][0] + enc["launches"],
                   "K4 bwd": train["launches"][1], "K2 ip": enc["k2_launches"]},

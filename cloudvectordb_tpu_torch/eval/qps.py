@@ -1,19 +1,49 @@
-"""Device-resident query throughput (counterpart of cloudvectordb_tpu/eval/qps.py).
+"""Query throughput (counterpart of cloudvectordb_tpu/eval/qps.py).
 
-Timed with CUDA events around each repetition of a device-level search
-function. Each repetition gets distinct inputs (the queries plus a small
-per-repetition offset, made before the start event), as the reference's
-bench does, and the reported rate is the median repetition's. There is no
-relay round trip to subtract, and no CPU fallback: a measurement without a
-card raises.
+``qps_device`` times a device-level search function with CUDA events around
+each repetition; the reported rate is the median repetition's, and a
+measurement without a card raises. ``qps_bench`` is the reference's
+host-clock protocol for a search that returns numpy (``index.search``):
+that return is the fence (the copy to the host waits for the card), so it
+runs on any device, the CPU included. Each
+repetition of either gets distinct inputs (the queries plus a small
+per-repetition offset), as the reference's bench does. There is no relay
+round trip to subtract.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
+import numpy as np
 import torch
+
+
+def qps_bench(search_fn: Callable, queries, *, batch: int | None = None,
+              warmup: int = 1, iters: int = 3) -> dict:
+    """Steady-state queries/second of ``search_fn(queries_batch)``, which
+    returns host arrays, (scores, ids) or scores alone: host clock over
+    ``iters`` passes over the queries in batches of ``batch``, each pass
+    with distinct inputs. Returns ``{"qps", "latency_ms", "batch"}``."""
+    queries = np.asarray(queries, np.float32)
+    nq = queries.shape[0]
+    batch = batch or nq
+
+    def run_once(noise: float) -> None:
+        for s in range(0, nq, batch):
+            out = search_fn(queries[s : s + batch] + np.float32(noise))
+            np.asarray(out[0] if isinstance(out, (tuple, list)) else out)
+
+    for _ in range(warmup):
+        run_once(0.0)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        run_once(1e-4 * (i + 1))
+    dt = time.perf_counter() - t0
+    return {"qps": nq * iters / dt, "latency_ms": 1000.0 * dt / (iters * -(-nq // batch)),
+            "batch": batch}
 
 
 def qps_device(search_fn: Callable, queries: torch.Tensor, *, reps: int = 5,

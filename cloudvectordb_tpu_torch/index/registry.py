@@ -1,16 +1,20 @@
-"""Polymorphic load (counterpart of cloudvectordb_tpu/index/registry.py).
+"""Index factory and polymorphic load (counterpart of
+cloudvectordb_tpu/index/registry.py).
 
-Reads a directory in the shared on-disk format (index/base.py), saved by
+``build_index`` builds every single-card kind from vectors and an
+``IndexConfig`` with the reference's arguments and clamps; ``load_index``
+reads a directory in the shared on-disk format (index/base.py), saved by
 either package, onto an explicit device: the ``flat``, ``ivf_flat``,
 ``ivf_pq``, ``band_ivf`` (residual-int8 and whole-row arenas) and
-``band_ivf_pq`` kinds (code-major or row-major codes). Sharded artifacts
-raise and name the slice they wait for.
+``band_ivf_pq`` kinds (code-major or row-major codes). Sharded configs and
+artifacts raise and name the slice they wait for (distribution).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from cloudvectordb_tpu_torch.index.base import MANIFEST, Index
@@ -19,10 +23,49 @@ from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
 from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
 from cloudvectordb_tpu_torch.index.ivf_flat import IVFFlatIndex
 from cloudvectordb_tpu_torch.index.ivf_pq import IVFPQIndex
+from cloudvectordb_tpu_torch.index.opq import train_opq
+from cloudvectordb_tpu_torch.utils.config import IndexConfig
 from cloudvectordb_tpu_torch.utils.device import DEFAULT
 
 _KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
           "band_ivf": BandIVFIndex, "band_ivf_pq": BandIVFPQIndex}
+
+
+def build_index(vectors, cfg: IndexConfig, device: str | torch.device = DEFAULT) -> Index:
+    """Build any single-card index kind from (N, D) vectors and ``cfg``,
+    training its quantizers inline, on ``device``."""
+    if cfg.nshards > 0:
+        raise NotImplementedError(
+            f"nshards={cfg.nshards}: sharded indexes arrive with the distribution "
+            "slice (ROADMAP item 14)")
+    vectors = np.asarray(vectors, np.float32)
+    if cfg.kind == "flat":
+        return FlatIndex.build(vectors, metric=cfg.metric, dtype=cfg.dtype, device=device)
+    nlist = min(cfg.nlist, max(1, vectors.shape[0] // 4))
+    common = dict(train_sample=cfg.train_sample, kmeans_iters=cfg.kmeans_iters,
+                  seed=cfg.seed, metric=cfg.metric, device=device)
+    if cfg.kind == "band_ivf":
+        dtype = cfg.dtype if cfg.dtype != "float32" else "int8"
+        resid = cfg.residual and dtype == "int8"
+        return BandIVFIndex.build(vectors, nlist, dtype=dtype, residual=resid,
+                                  slack=(cfg.slack if resid else 0.0), **common)
+    if cfg.kind == "band_ivf_pq":
+        return BandIVFPQIndex.build(
+            vectors, nlist, m=cfg.m, nbits=cfg.nbits, refine=cfg.refine, opq=cfg.opq,
+            aniso_eta=cfg.aniso_eta, pq_train_iters=cfg.pq_train_iters, **common)
+    if cfg.kind == "ivf_flat":
+        return IVFFlatIndex.build(vectors, nlist, dtype=cfg.dtype, **common)
+    if cfg.kind == "ivf_pq":
+        opq_matrix = None
+        if cfg.opq:
+            ns = min(cfg.train_sample, vectors.shape[0], 65536)
+            rs = np.random.default_rng(cfg.seed).choice(vectors.shape[0], ns, replace=False)
+            opq_matrix, _ = train_opq(vectors[rs], cfg.m, cfg.nbits, seed=cfg.seed,
+                                      device=device)
+        return IVFPQIndex.build(
+            vectors, nlist, m=cfg.m, nbits=cfg.nbits, pq_train_iters=cfg.pq_train_iters,
+            opq_matrix=opq_matrix, refine=cfg.refine, **common)
+    raise ValueError(f"unknown index kind {cfg.kind!r}")
 
 
 def load_index(path: str | Path, device: str | torch.device = DEFAULT,

@@ -1,11 +1,12 @@
-"""The port stands alone: importing it, and running its paths on CPU tensors
-(residual and whole-row tiles search, the band strategy, the fused flat
-scan, the PQ-tiles index with OPQ on both serving routes, the probe-scan
-IVF-Flat and IVF-PQ indexes, the full PQ scan,
-an encoder forward, K4's plain forward and backward, a training step),
-loads no JAX, Flax, Triton or reference package, and never reaches
-the CUDA binding (ops/_cuda.py): CPU tensors go to the plain versions.
-Entry points default to the card: without one they raise."""
+"""The port stands alone: importing it (the data layer, the pipeline, the
+CLI and ``python -m``'s ``__main__`` included), and running its paths on CPU
+tensors (residual and whole-row tiles search, the band strategy, the fused
+flat scan, the PQ-tiles index with OPQ on both serving routes, the
+probe-scan IVF-Flat and IVF-PQ indexes, the full PQ scan, an encoder
+forward, K4's plain forward and backward, a training step, inbatch mining),
+loads no JAX, Flax, Triton or reference package, and never reaches the CUDA
+binding (ops/_cuda.py): CPU tensors go to the plain versions. Entry points
+default to the card: without one they raise."""
 
 import json
 import subprocess
@@ -27,7 +28,9 @@ from cloudvectordb_tpu_torch.eval import qps, recall, sweep, tune
 from cloudvectordb_tpu_torch.index import (
     arena, base, flat, ivf_band, ivf_band_pq, ivf_flat, ivf_pq, kmeans, opq, pq as pq_index,
     range as range_search, registry)
-from cloudvectordb_tpu_torch.data import tokenize
+from cloudvectordb_tpu_torch import cli
+from cloudvectordb_tpu_torch.data import corpus, synthetic, tokenize, triplets
+from cloudvectordb_tpu_torch.pipeline import run
 from cloudvectordb_tpu_torch.models import embed, encoder, hf_import, presets
 from cloudvectordb_tpu_torch.ops import adc, assign, attn, band, flat_topk, pq, topk
 from cloudvectordb_tpu_torch.train import losses, trainer
@@ -66,6 +69,15 @@ tr = trainer.Trainer(tcfg, device="cpu")
 batch = tr.place_batch({f"{leg}_{x}": (ids if x == "ids" else mask)
                         for leg in ("anchor", "pos", "neg") for x in ("ids", "mask")})
 _, m = tr.step_fn(tr.init_state(), batch)
+passages, doc_ids = corpus.load_passages(config.DataConfig(num_docs=30))
+mined = triplets.mine_triplets(passages, doc_ids, config.MiningConfig(num_triplets=8))
+import contextlib, io, runpy
+sys.argv = ["cloudvectordb_tpu_torch", "--help"]
+with contextlib.redirect_stdout(io.StringIO()) as helped:
+    try:
+        runpy.run_module("cloudvectordb_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0
 print(json.dumps({
     "loaded": sorted(m for m in ("jax", "flax", "triton", "cloudvectordb_tpu",
                                  "cloudvectordb_tpu_torch.ops._cuda")
@@ -78,6 +90,7 @@ print(json.dumps({
                  attn.mha_small_head.launches, attn.mha_small_head.bwd_launches],
     "finite": bool(torch.isfinite(emb).all() and torch.isfinite(q.grad).all()
                    and torch.isfinite(m["loss"])),
+    "mined": len(mined), "helped": "pipeline" in helped.getvalue(),
 }))
 """
 
@@ -89,6 +102,7 @@ def test_import_and_cpu_path_pull_in_no_jax_and_no_cuda_binding():
     assert res["loaded"] == []
     assert res["launches"] == [0] * 8
     assert res["self_hit"] >= 0.9 and res["finite"] and res["pq_scan_ran"]
+    assert res["mined"] == 8 and res["helped"]
 
 
 def test_entry_points_default_to_the_card(tmp_path):
@@ -103,9 +117,11 @@ def test_entry_points_default_to_the_card(tmp_path):
     from cloudvectordb_tpu_torch.index.ivf_pq import IVFPQIndex
     from cloudvectordb_tpu_torch.index.registry import load_index
     from cloudvectordb_tpu_torch.models.embed import make_encode_fn
+    from cloudvectordb_tpu_torch.cli import main as cli_main
     from cloudvectordb_tpu_torch.models.encoder import init_encoder
+    from cloudvectordb_tpu_torch.pipeline.run import Pipeline
     from cloudvectordb_tpu_torch.train.trainer import Trainer
-    from cloudvectordb_tpu_torch.utils.config import EncoderConfig, TrainConfig
+    from cloudvectordb_tpu_torch.utils.config import EncoderConfig, PipelineConfig, TrainConfig
 
     no_card = (AssertionError, RuntimeError)  # torch's "not compiled with CUDA"
     with pytest.raises(no_card):
@@ -130,6 +146,11 @@ def test_entry_points_default_to_the_card(tmp_path):
         make_encode_fn(init_encoder(enc, device="cpu"))
     with pytest.raises(no_card):
         Trainer(TrainConfig(encoder=enc))
+    with pytest.raises(no_card):
+        Pipeline(PipelineConfig(workdir=str(tmp_path / "run")))
+    assert not (tmp_path / "run").exists()  # raised before touching the workdir
+    with pytest.raises(no_card):
+        cli_main(["eval", "--workdir", str(tmp_path / "run")])
 
 
 def test_device_measurement_refuses_the_cpu():
