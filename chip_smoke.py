@@ -120,6 +120,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. K6 (``pq_topk``, ``run_k6``): codebooks trained (m 64) on 65,536
    corpus rows, 1M rows encoded, the 4096 queries, k 10: recall against the
    exact scan, then K6 against its plain version as K5, both timed;
+   then cell 13, BASELINE config #5 at its per-card share (``run_config5``):
+   125M x 768 rows (chunks 0-249 of the corpus) through
+   ``BandIVFPQIndex.build_device_streaming`` (nlist 16384, m 64, OPQ,
+   refine 'pq2' m2 32, tile_n 1024), ``tune(gt=)`` at B 4096 against the
+   exact f32 top-10, recall@10 and device QPS at the op point beside the
+   same plan's recall without the pq2 rescore (the run fails if pq2 reads
+   more than 0.005 below it), the random 10% and correlated filters (no
+   disallowed id, (-inf, -1) unfilled slots), 131,072 added rows pending
+   (plain and filtered batches; the allowed pending rows find themselves),
+   ``merge_pending``, 8,192 removes (no removed id back), 1,024
+   ``reconstruct`` calls (equal to the decode, cosine >= 0.8 to their
+   source rows), each timed; then K5 at the op plan against its plain
+   version plain, masked (10%), masked with top-2 and l2, through exact
+   f64 scores, each timed, with its bound; then its smaller checks
+   (``c5_small_checks``): (a) l2 at 1M rows with row norms in [0.5, 3.0]
+   (pq2 and int8 builds, both routes, against the exact l2 truth; K5's l2
+   bias kernel against its plain version and the exact f64 bias), (b) the
+   pq2+host cascade on cell 7's first 10M rows at host_factor 32 and 102
+   (``attach_host_refine`` from host copies of the rotated chunks), (c)
+   anisotropic codebooks (aniso_eta 4) beside the plain ones at 1M, full
+   coverage, (d) ``build_streaming`` at 2M equal to
+   ``build_device_streaming`` given its quantizers, and ``merge_from`` of two
+   1M halves equal to one build (recall within 0.005);
    then the probe-scan families (no hand-written kernel): cell 10,
    ``IVFFlatIndex`` at BASELINE config #2's shape (``run_ivf_flat``: 1M x
    384 rows of the corpus's process, nlist 4096, 512 queries; the nprobe
@@ -164,14 +187,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    back, each repetition);
 15. cell 12, the pipeline from raw text (``run_pipeline``), driven through
    the CLI entry point in this process (``cli.main(["pipeline", ...])``)
-   on a temporary workdir: 1,000,000 synthetic passages, 100,000 inbatch
-   triplets, MiniLM-L6-384 at full width (bf16, max_len 128, dropout 0.1,
-   no probs dropout, 'packed': K4 forward and backward in training, K4 in
-   encoding), 200 steps of 512 triplets, every passage encoded, a
+   on a temporary workdir: 250,000 synthetic passages, 50,000 inbatch
+   triplets (cut from 1M and 100,000 to keep the run in its time limit),
+   MiniLM-L6-384 at full width (bf16, max_len 128, dropout 0.1, no probs
+   dropout, 'packed': K4 forward and backward in training, K4 in
+   encoding), 60 steps of 512 triplets, every passage encoded, a
    residual-int8 band_ivf index (nlist 4096), tune, eval; the stage table
    from metrics.jsonl (host tokenization, tokenizer training and corpus
    synthesis split out; kernel launches per stage); every stage's marker
-   and artifact, a finite falling loss, 1M x 384 finite unit-norm
+   and artifact, a finite falling loss, 250,000 x 384 finite unit-norm
    embeddings (within 1e-3), K4 forward and backward in train, K4 in
    encode and K1 in tune and eval launched, eval recall@10 >= 0.90 against
    the exact f64 ground truth; a second ``pipeline`` on the workdir must
@@ -228,7 +252,7 @@ from cloudvectordb_tpu_torch.ops import attn, band, flat_topk as flat, pq
 from cloudvectordb_tpu_torch.pipeline import run as pipeline_run
 from cloudvectordb_tpu_torch.pipeline.run import Pipeline
 from cloudvectordb_tpu_torch.ops.topk import (
-    merge_topk, tiled_topk, topk_stable, topk_stable_select)
+    _score_block, merge_topk, tiled_topk, topk_stable, topk_stable_select)
 from cloudvectordb_tpu_torch.train.trainer import Trainer
 from cloudvectordb_tpu_torch.utils.checkpoint import restore_checkpoint
 from cloudvectordb_tpu_torch.utils.config import (
@@ -301,22 +325,28 @@ KERNELS["K4 bwd"] = {"name": "mha_small_head_bwd", **_ATTN}
 KERNELS["K1b"] = {"name": "resid_row_bias", "route": "cuda",
                   "source": "cloudvectordb_tpu_torch/csrc/tiles_resid.cu",
                   "replaces": "cloudvectordb_tpu/ops/pallas_band.py:518"}
+#: K5's l2 bias (a kernel of its own in pq_scan.cu: the l2 part of the
+#: reference's K5 body)
+KERNELS["K5b"] = {"name": "pq_row_bias", "route": "cuda", "source": _PQ,
+                  "replaces": "cloudvectordb_tpu/ops/pallas_pq.py:205"}
 #: a kernel's other main-path shapes and contract variants, each a record of
 #: its own in the kernels line: K1 over config #3's refine arena (cell 7),
 #: K2 over int8 rows (cell 4) and over the encoded passages (cell 6); K1's
 #: 'precise', filtered (row_mask), l2 and top-2 searches and K3's top-2
 #: (cells 1 and 2); K1 over the slack arena after its removes (cell 9); K3's
-#: top-2 on the CUDA-core body over f32 rows and deep hybrid rows
+#: top-2 on the CUDA-core body over f32 rows and deep hybrid rows; K5's
+#: filtered and l2 searches (cell 13)
 SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2", "K1 precise": "K1",
                  "K1 masked": "K1", "K1 l2": "K1", "K1 top2": "K1", "K3 top2": "K3",
-                 "K1 mutated": "K1", "K3 top2 f32": "K3", "K3 top2 deep": "K3"}
+                 "K1 mutated": "K1", "K3 top2 f32": "K3", "K3 top2 deep": "K3",
+                 "K5 masked": "K5", "K5 l2": "K5"}
 KERNELS.update({key: dict(KERNELS[base], **({"name": f"{KERNELS[base]['name']} "
                                                      f"{' '.join(key.split()[1:])}"}
                                             if key.split()[1] in VARIANTS else {}))
                 for key, base in SHAPE_RECORDS.items()})
 WRAPPERS = {"K1": band.tiles_topk_resid, "K2": flat.flat_topk,
             "K3": band.tiles_topk, "K7": band.band_topk, "K5": pq.pq_tiles_topk,
-            "K6": pq.pq_topk, "K1b": band.resid_row_bias}
+            "K6": pq.pq_topk, "K1b": band.resid_row_bias, "K5b": pq.pq_row_bias}
 #: the least time the card could take (NVIDIA's H100 SXM data sheet, dense
 #: rates): bytes over the memory rate against
 #: operations over the peak rate of their type
@@ -458,18 +488,20 @@ def k4_tensor_core_check(lib: Path) -> None:
         raise AssertionError(f"bf16 K4 kernels without tensor-core instructions: {by_name}")
 
 
-#: pq_scan.cu's instantiations: (source, residual, top2) for TABLE x 4, ALL x 1
-PQ_INSTANCES = 5
+#: pq_scan.cu's scan instantiations: (source, residual, top2, mask, l2) for
+#: TABLE x 16, ALL x 1 (its l2 bias kernel, f64 sums, is not counted)
+PQ_INSTANCES = 17
 
 
 def pq_tensor_core_check(lib: Path) -> None:
-    """Every K5/K6 kernel instantiation (pq_scan.cu) must run tensor-core
+    """Every K5/K6 scan instantiation (pq_scan.cu) must run tensor-core
     instructions; one line with the counts."""
     counts = {sym: n for sym, n in tensor_core_ops(lib).items()
               if kernel_name(sym) == "pq_scan_kernel"}
     def label(sym: str) -> str:
-        src, resid, top2 = re.search(r"ILi(\d)ELb(\d)ELb(\d)E", sym).groups()
-        return f"{'TABLE' if src == '1' else 'ALL'} resid={resid} top2={top2}"
+        src, *flags = re.search(r"ILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", sym).groups()
+        return (f"{'TABLE' if src == '1' else 'ALL'}" + "".join(
+            f" {o}" for o, f in zip(("resid", "top2", "mask", "l2"), flags) if f == "1"))
 
     log("[build] pq_scan tensor-core instructions of all (cuobjdump --dump-sass): "
         + "; ".join(f"{label(sym)}: {h} of {n}" for sym, (h, n) in sorted(counts.items())))
@@ -606,7 +638,8 @@ CHECKS: dict[str, list] = {}
 
 
 def compare(name: str, kernel, plain, quiet: bool = False, exact=None,
-            tie: float | None = EXACT_TIE, equal: bool = False) -> float:
+            tie: float | None = EXACT_TIE, equal: bool = False, allow=None,
+            id_floor: float = EXACT_ID_FLOOR) -> float:
     """kernel() against plain(), both returning (values, ids), on the same
     inputs; returns max |Δscore| over the filled slots. The wrapper named
     by the first word of ``name`` must count a launch in kernel() and none
@@ -614,7 +647,9 @@ def compare(name: str, kernel, plain, quiet: bool = False, exact=None,
     With ``exact`` (query indices, ids) -> f64 scores, the kernel's ids are
     held to the plain version's as EXACT_TIE says (``tie`` in its place;
     None: twice the two versions' largest distances from the exact scores);
-    the kernel's score of each id must be its exact score within SCORE_TOL,
+    ``id_floor`` (EXACT_ID_FLOOR unless said) of the ids must be equal by
+    position; the kernel's score of each id must be its exact score within
+    SCORE_TOL,
     and the plain version's within SCORE_TOL plus the plain version's own
     largest distance from the exact scores (both sum the same products in
     f32 in different orders; where scores reach the hundreds, as the
@@ -622,7 +657,8 @@ def compare(name: str, kernel, plain, quiet: bool = False, exact=None,
     SCORE_TOL). ``equal``: values and ids must be the plain version's
     outright (exact scores: int8 x int8). Apart from K5 (whose pools may
     hold one row twice), no id may repeat among a query's filled slots.
-    Every failed criterion is named in the error."""
+    ``allow`` (N,) allow bits: no filled slot of either version may hold a
+    disallowed row. Every failed criterion is named in the error."""
     wrapper = WRAPPERS[name.split()[0]]
     before = wrapper.launches
     v_ref, i_ref = plain()
@@ -659,8 +695,8 @@ def compare(name: str, kernel, plain, quiet: bool = False, exact=None,
         if own[0] > SCORE_TOL:
             faults.append(f"the kernel's scores are not its ids' exact scores (max |f32 - "
                           f"exact| {own[0]:.3g})")
-        if positional < EXACT_ID_FLOOR:
-            faults.append(f"ids {positional:.5f} equal by position < {EXACT_ID_FLOOR}")
+        if positional < id_floor:
+            faults.append(f"ids {positional:.5f} equal by position < {id_floor}")
         if total < -tie:
             faults.append(f"the exact scores of its ids sum {total:.3g} below the plain's")
     match = float(same.mean())
@@ -675,6 +711,11 @@ def compare(name: str, kernel, plain, quiet: bool = False, exact=None,
         ids = np.sort(np.where(live, i, -1 - np.arange(i.shape[1])), axis=1)
         if (np.diff(ids, axis=1) == 0).any():
             faults.append("an id repeats within a query's results")
+    if allow is not None:
+        ok = allow.reshape(-1).cpu().numpy() != 0
+        for who, ids in (("kernel", i), ("plain version", i_ref)):
+            if not ok[ids[live]].all():
+                faults.append(f"the {who} returned a disallowed row")
     if equal and not (np.array_equal(v, v_ref) and np.array_equal(i, i_ref)):
         faults.append(f"values and ids not equal outright ({int((v != v_ref).sum())} values, "
                       f"{int((i != i_ref).sum())} ids differ)")
@@ -819,6 +860,47 @@ def bias_compare(label: str, db, local, ct, scale: float, tile_n: int) -> float:
     err = float((kern - plain).abs().max())
     log(f"[kernel] K1b {label}: max |kernel - plain| {err:.3g}; relative distance from the "
         f"exact f64 bias: kernel {off[0]:.3g}, plain {off[1]:.3g} (tolerance {BIAS_TOL})")
+    return err
+
+
+def pq_bias_exact(codes, local, cb, ct, tile_n: int, rows: torch.Tensor) -> torch.Tensor:
+    """f64 -|x|^2/2 of arena rows ``rows``: x the bf16 codewords plus the
+    bf16 centroid row of the row's local byte (ct None: no centroid term),
+    exactly."""
+    cbd = cb.to(torch.bfloat16).double()
+    x = cbd[torch.arange(cbd.shape[0], device=cbd.device), codes[rows].long()].reshape(
+        rows.numel(), -1)
+    if ct is not None:
+        x = x + ct.to(torch.bfloat16).double()[rows // tile_n, local.reshape(-1)[rows].long()]
+    return -0.5 * (x * x).sum(1)
+
+
+def pq_bias_compare(label: str, codes, local, cb, ct, tile_n: int, quiet: bool = False) -> float:
+    """K5's l2 bias kernel (pq_row_bias) against its plain version and the
+    exact f64 bias: each within BIAS_TOL x max(1, |exact|) of it; the kernel
+    must count a launch. Returns max |kernel - plain|."""
+    before = pq.pq_row_bias.launches
+    plain = pq.pq_row_bias_reference(codes, local, cb, ct, tile_n)
+    kern = pq.pq_row_bias(codes, local, cb, ct, tile_n)
+    sync()
+    if pq.pq_row_bias.launches != before + 1:
+        raise AssertionError(f"K5b {label}: the kernel was not launched once")
+    n = codes.shape[0]
+    exact = torch.cat([pq_bias_exact(codes, local, cb, ct, tile_n,
+                                     torch.arange(s0, min(s0 + (1 << 16), n), device=codes.device))
+                       for s0 in range(0, n, 1 << 16)])
+    off = [float(((x.double() - exact).abs() / exact.abs().clamp_min(1.0)).max())
+           for x in (kern, plain)]
+    if max(off) > BIAS_TOL:
+        raise AssertionError(f"K5b {label}: relative distance from the exact bias: kernel "
+                             f"{off[0]:.3g}, plain {off[1]:.3g} > {BIAS_TOL}")
+    err = float((kern - plain).abs().max())
+    c = CHECKS.setdefault("K5b", [0, 1.0, 0.0, 0.0, 0.0])
+    c[0], c[2], c[3], c[4] = c[0] + 1, max(c[2], err), max(c[3], off[0]), max(c[4], off[1])
+    if not quiet:
+        log(f"[kernel] K5b {label}: max |kernel - plain| {err:.3g}; relative distance from "
+            f"the exact f64 bias: kernel {off[0]:.3g}, plain {off[1]:.3g} (tolerance "
+            f"{BIAS_TOL})")
     return err
 
 
@@ -981,19 +1063,40 @@ def pq_checks(dev) -> tuple[float, float]:
     centroid rows of a width not a multiple of 4) and K6 (ragged N, R 1 and
     4; D 768 and D 30)."""
     err5 = 0.0
-    cases = [(resid, pools, top2, lb) for resid in (True, False) for pools in (1, 2, 3)
-             for top2 in (False, True) for lb in (0, 256)]
-    cases += [(True, 2, True, 256), (True, 1, False, 0)]
+    cases = [(resid, pools, top2, lb, False, False) for resid in (True, False)
+             for pools in (1, 2, 3) for top2 in (False, True) for lb in (0, 256)]
+    cases += [(True, 2, True, 256, False, False), (True, 1, False, 0, False, False)]
+    # the filtered and l2 variants (mask, l2, both, mask with top-2)
+    cases += [(resid, pools, top2, lb, mask, l2) for resid in (True, False)
+              for (pools, top2, lb, mask, l2) in ((1, False, 0, True, False),
+                                                  (2, False, 256, False, True),
+                                                  (3, False, 256, True, True),
+                                                  (2, True, 256, True, False),
+                                                  (1, True, 0, True, True))]
     odd = dict(m=6, dsub=5, tile_n=512, tile_q=48, nq=96)
-    for seed, (resid, pools, top2, lb) in enumerate(cases):
-        shape = (odd if seed >= 24 else dict() if seed % 3 else
+    for seed, (resid, pools, top2, lb, mask, l2) in enumerate(cases):
+        shape = (odd if seed in (24, 25) or seed >= 34 else dict() if seed % 3 else
                  dict(m=8, dsub=8, nbits=6, tile_n=512, tile_q=48, nq=96))
         a = random_pq_inputs(500 + seed, dev, residual=resid, **shape)
-        kw = dict(k=4 * K, l_buckets=lb, n_pools=pools, top2=top2)
+        n = a["codes_cm"].shape[0]
+        if mask:  # a 20% filter and an all but empty tile
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            rm = (torch.rand(n, generator=g, device=dev) < 0.2).to(torch.int8)
+            rm[:a["tile_n"]] = 0
+            a["row_mask"] = rm
+        kw = dict(k=4 * K, l_buckets=lb, n_pools=pools, top2=top2, l2=l2)
         err5 = max(err5, compare(
-            f"K5 resid={resid} pools={pools} top2={top2} L{lb} D{a['queries_sorted'].shape[1]}",
+            f"K5 resid={resid} pools={pools} top2={top2} mask={mask} l2={l2} L{lb} "
+            f"D{a['queries_sorted'].shape[1]}",
             lambda: pq.pq_tiles_topk(**a, **kw),
-            lambda: pq.pq_tiles_topk_reference(**a, **kw), quiet=True))
+            lambda: pq.pq_tiles_topk_reference(**a, **kw), quiet=True,
+            allow=a.get("row_mask")))
+        if l2:
+            args = (a["codes_cm"], a["local_ids"], a["codebooks"], a["centroid_tiles"],
+                    a["tile_n"])
+            err5 = max(err5, pq_bias_compare(f"D{a['queries_sorted'].shape[1]} resid={resid}",
+                                             *args, quiet=True))
     err6 = 0.0
     for seed, (n, lb, m, dsub) in enumerate(((5000, 0, PQ_M, 12), (7777, 512, PQ_M, 12),
                                              (3001, 256, 6, 5))):
@@ -1015,7 +1118,13 @@ def small_kernel_checks(dev) -> dict:
            "K1b": bias_checks(dev)}
     err["K3"], err["K7"] = table_checks(dev)
     err["K5"], err["K6"] = pq_checks(dev)
+    err["K5b"] = CHECKS["K5b"][2]
     for key, (n, match, worst, own, own_plain) in CHECKS.items():
+        if key == "K5b":
+            log(f"[kernel] K5b (pq_row_bias) against its plain version on {n} small shapes: "
+                f"max |kernel - plain| {worst:.3g}; relative distance from the exact f64 bias: "
+                f"kernel {own:.3g}, plain {own_plain:.3g} (tolerance {BIAS_TOL})")
+            continue
         exact = (f"; float pairs against exact f64 scores: max |f32 - exact| kernel {own:.3g}, "
                  f"plain {own_plain:.3g}" if own_plain else "")
         log(f"[kernel] {key} against its plain version on {n} small shapes: ids >= "
@@ -1138,6 +1247,21 @@ def time_ms(fn, reps: int, inner: int = 1) -> float:
     return float(np.median(times))
 
 
+def timed(fn):
+    """fn with the CUDA-event time of its last call in ``.ms``."""
+    def call():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        call.ms = start.elapsed_time(end)
+        return out
+
+    call.ms = None
+    return call
+
+
 def main_shape_check(key: str, label: str, kernel, plain, reps: int,
                      plain_reps: int, **hold) -> dict:
     """A kernel against its plain version at a main path's shape (``hold``:
@@ -1187,13 +1311,23 @@ def make_corpus(dev, chunk: int, d: int = D):
     return chunk_fn
 
 
-def exact_gt(chunk_fn, n_chunks: int, chunk: int, q: torch.Tensor, metric="ip"):
-    best_v = torch.full((q.shape[0], K), float("-inf"), device=q.device)
-    best_i = torch.zeros((q.shape[0], K), dtype=torch.int64, device=q.device)
+def exact_chunks_topk(chunk_fn, n_chunks: int, chunk: int, q: torch.Tensor, k: int = K,
+                      metric: str = "ip"):
+    """The exact f32 top-k (values, gids) of ``q`` over the chunks, TF32
+    off: each tile's top-k by selection (``ivf_band._scan_topk``), ties to
+    the lower gid."""
+    best = None
     for ci in range(n_chunks):
-        cv, cidx = tiled_topk(chunk_fn(ci), q, K, metric=metric, tile=8192)
-        best_v, best_i = merge_topk(best_v, best_i, cv, cidx + ci * chunk, K)
-    return best_i.cpu().numpy()
+        x = chunk_fn(ci)
+        v, pos = ivf_band_module._scan_topk(lambda lo, hi: _score_block(q, x[lo:hi], metric),
+                                            x.shape[0], k, q.shape[0])
+        best = (v, pos + ci * chunk) if best is None else merge_topk(*best, v, pos + ci * chunk,
+                                                                     k)
+    return best
+
+
+def exact_gt(chunk_fn, n_chunks: int, chunk: int, q: torch.Tensor, metric="ip"):
+    return exact_chunks_topk(chunk_fn, n_chunks, chunk, q, metric=metric)[1].cpu().numpy()
 
 
 def make_queries(chunk_fn, dev, batch: int) -> torch.Tensor:
@@ -1301,15 +1435,16 @@ FILTER_FRACS = {"random 10%": 0.10, "random 0.1%": 0.001}
 CORRELATED_LISTS = 32
 
 
-def make_filters(idx, dev, n_ids: int = N_ROWS) -> dict:
-    """name -> (n_ids,) bool allow mask by gid, on the device."""
+def make_filters(idx, dev, n_ids: int = N_ROWS, n_rows: int = N_ROWS) -> dict:
+    """name -> (n_ids,) bool allow mask by gid, on the device (the
+    correlated window sized for an arena of ``n_rows``)."""
     g = torch.Generator(device=dev)
     g.manual_seed(4242)
     masks = {name: torch.rand(n_ids, generator=g, device=dev) < frac
              for name, frac in FILTER_FRACS.items()}
     # the window of adjacent lists whose rows come nearest an average window's
     sums = idx._offsets[CORRELATED_LISTS:] - idx._offsets[:-CORRELATED_LISTS]
-    l0 = int(np.argmin(np.abs(sums - CORRELATED_LISTS * N_ROWS / idx.nlist)))
+    l0 = int(np.argmin(np.abs(sums - CORRELATED_LISTS * n_rows / idx.nlist)))
     rows = idx._ids[idx._offsets[l0]:idx._offsets[l0 + CORRELATED_LISTS]]
     corr = torch.zeros(n_ids, dtype=torch.bool, device=dev)
     corr[torch.as_tensor(rows[rows >= 0], device=dev)] = True
@@ -1356,12 +1491,12 @@ def check_filtered(v, ids, allow: torch.Tensor, label: str) -> None:
 
 
 def counted(fn):
-    """fn() with K1's, K1b's and K3's launch counts reset just before and
-    read just after: (result, {wrapper key: launches})."""
+    """fn() with every wrapper's launch count reset just before and read
+    just after: (result, {wrapper key: launches})."""
     reset_launches()
     out = fn()
     sync()
-    return out, {k: WRAPPERS[k].launches for k in ("K1", "K1b", "K3")}
+    return out, {k: w.launches for k, w in WRAPPERS.items()}
 
 
 def run_resid_variants(dev, idx, chunk_fn, n_chunks, queries, gt, card, p_tiles: int,
@@ -2184,11 +2319,12 @@ def pq_bound(codes_bytes_per_row: int, rows_scored: int, distinct_rows: int, ct_
     return bound(n_bytes, ops, "f32")
 
 
-def pq_exact(codes, local, cb, ct, tile_n: int, q):
+def pq_exact(codes, local, cb, ct, tile_n: int, q, l2: bool = False):
     """(query indices, arena rows) -> f64 scores of the function K5/K6
     compute, on the bf16 codebooks, centroid tiles and queries they take:
-    q . (cb[j][code(g, j)] + ct[g // tile_n, local[g]]) without rounding
-    (ct None: no centroid term)."""
+    q . x with x = cb[j][code(g, j)] + ct[g // tile_n, local[g]] without
+    rounding (ct None: no centroid term); ``l2``: K5's l2 key
+    q . x - |x|^2 / 2."""
     cbd = cb.to(torch.bfloat16).double()
     ctd = None if ct is None else ct.to(torch.bfloat16).double()
     qd = q.to(torch.bfloat16).double()
@@ -2202,7 +2338,8 @@ def pq_exact(codes, local, cb, ct, tile_n: int, q):
             x = cbd[sub, codes[g].long()].reshape(g.numel(), -1)
             if ctd is not None:
                 x = x + ctd[g // tile_n, local[g].long()]
-            out.append((x * qd[qi[s:s + (1 << 16)]]).sum(dim=1))
+            sc = (x * qd[qi[s:s + (1 << 16)]]).sum(dim=1)
+            out.append(sc - 0.5 * (x * x).sum(dim=1) if l2 else sc)
         return torch.cat(out) if out else torch.zeros(0, dtype=torch.float64)
 
     return score
@@ -2373,6 +2510,434 @@ def run_k6(dev, chunk_fn, queries, card) -> dict:
         f"flop/s (the split form has no centroid term here); bound {mp['bound_ms']:.3f} ms "
         f"({mp['bound_by']})")
     return dict(launches={"K6": launches}, mp={"K6": mp})
+
+
+# -- cell 13: BASELINE config #5 (PQ tiles at 125M rows) ----------------------
+#: config #5's per-card share (scripts/bench_config5.py:1-16,40-52): 125M x
+#: 768 of the corpus's process (chunks 0-249), OPQ + IVF-PQ m 64, nbits 8,
+#: refine 'pq2' (m2 32), nlist 16384, tile_n 1024, k-means 8 and PQ 6
+#: iterations; the updates: 131,072 added rows (chunk 250), 8,192 removes,
+#: 1,024 reconstructs
+C5_ROWS, C5_NLIST, C5_M2, C5_TILE_N = 125_000_000, 16_384, 32, 1024
+C5_ADD, C5_REMOVE, C5_RECON, C5_SELF = 131_072, 8192, 1024, 256
+C5_KW = dict(nlist=C5_NLIST, m=PQ_M, nbits=PQ_NBITS, opq=True, refine="pq2", m2=C5_M2,
+             tile_n=C5_TILE_N, train_sample=262_144, kmeans_iters=8, pq_train_iters=6)
+#: pq2's recall may not fall below the same plan's tier-1 recall by more
+PQ2_SLACK = 0.005
+#: the reference's best recall@10 at this cell (VERDICT.md:117-119, TPU r4,
+#: the pq2+host cascade), quoted as recall only; not a floor
+C5_REF_RECALL = 0.928
+#: K5's holds at cell 13's op plan: each bucket slot takes the best of
+#: ~4,800 rows (cell 7's plans: 224), so exact near-ties within EXACT_TIE
+#: reorder ~20x more slots than EXACT_ID_FLOOR was set on (an H100 run read
+#: 0.96894 by position there, every differing id within the tie window and
+#: the kernel's ids' exact sum above the plain version's: PERF.md, PR 13);
+#: every other criterion of ``compare`` holds as for cell 7
+C5_ID_FLOOR = 0.95
+#: reconstruct: each row the decode of its id's arena row within this, and
+#: its cosine to its source row at least C5_RECON_COS (a PQ decode, m 64)
+C5_RECON_TOL, C5_RECON_COS = 1e-4, 0.8
+#: the smaller checks: rows of (a) l2 and (c) anisotropic codebooks, of (d)
+#: build_streaming; nlist of (a), (c), (d) (cell 11's); the cascade (b) on
+#: cell 7's first 10M rows at these host factors
+C5_SMALL_ROWS, C5_STREAM_ROWS, C5_SMALL_NLIST = 1_000_000, 2_000_000, 1024
+C5_HOST_FACTORS = (32, 102)
+
+
+def c5_build(dev, chunk_fn, n_chunks: int, **kw):
+    """build_device_streaming at cell 13's settings (``kw`` overrides);
+    (index, seconds)."""
+    t0 = time.perf_counter()
+    idx = BandIVFPQIndex.build_device_streaming(chunk_fn, n_chunks, device=dev,
+                                                **{**C5_KW, **kw})
+    sync()
+    return idx, time.perf_counter() - t0
+
+
+def c5_truths(chunk_fn, n_chunks: int, queries, added, removed: np.ndarray, masks: dict,
+              names) -> dict:
+    """Cell 13's exact f32 truths: the top-K of every query over the
+    corpus (the tuner's), and of the first NQ_GT with the added rows, after
+    the removes (from the top 2K of the corpus and of the added rows: at
+    most K of either may be removed) and under each filter (``names``, and
+    the 10% filter with the added rows)."""
+    q_gt = queries[:NQ_GT]
+    v, i = exact_chunks_topk(chunk_fn, n_chunks, CHUNK, queries, 2 * K)
+    out = {"all": i[:, :K].cpu().numpy()}
+    va, ia = tiled_topk(added, q_gt, 2 * K, metric="ip", tile=8192)
+    cv = torch.cat([v[:NQ_GT], va], 1)
+    ci = torch.cat([i[:NQ_GT], ia + C5_ROWS], 1)
+    _, pos = topk_stable(cv, K)
+    out["added"] = torch.gather(ci, 1, pos).cpu().numpy()
+    gone = torch.as_tensor(np.isin(ci.cpu().numpy(), removed), device=cv.device)
+    if int(gone[:, :2 * K].sum(1).max()) > K or int(gone[:, 2 * K:].sum(1).max()) > K:
+        raise AssertionError("c5: more than K removed ids in a top-2K: deepen the truth")
+    _, pos = topk_stable(torch.where(gone, float("-inf"), cv), K)
+    out["removed"] = torch.gather(ci, 1, pos).cpu().numpy()
+    gid = torch.arange(C5_ROWS + added.shape[0], device=q_gt.device)
+    out.update(exact_states(corpus_segments(chunk_fn, n_chunks) + [(C5_ROWS, lambda: added)],
+                            q_gt, {**{name: masks[name] & (gid < C5_ROWS) for name in names},
+                                   "added 10%": masks["random 10%"]}))
+    return out
+
+
+def pq_oracles(idx, q: torch.Tensor, gt: np.ndarray, block: int = 1 << 20) -> dict:
+    """The method's own ceilings, its plain oracles: recall@K of the exact
+    f32 top-K over every arena row's reconstruction, tier 1 (the list
+    centroid plus the PQ decode) and tier 1 plus the tier-2 decode, with no
+    plan and no candidate budget; in the index's rotated space."""
+    st = idx._device_state()
+    qr = idx._rotate(q)
+    cb2 = idx._codebooks2_dev()
+    codes2 = idx._codes2_device()
+    lists = torch.as_tensor(idx._list_of_rows(), device=q.device).long()
+    gids = st["ids"].long()
+    best = {name: None for name in ("tier 1", "tier 1 + 2")}
+    for lo in range(0, idx._n, block):
+        hi = min(idx._n, lo + block)
+        x = pq_decode(st["codes"][lo:hi], st["codebooks"]) + st["centroids"][lists[lo:hi]]
+        for name in best:
+            if name == "tier 1 + 2":
+                x = x + pq_decode(codes2[gids[lo:hi]], cb2)
+            v, pos = ivf_band_module._scan_topk(lambda a, b: qr @ x[a:b].T, hi - lo, K,
+                                                q.shape[0])
+            g = gids[lo:hi][pos]
+            best[name] = (v, g) if best[name] is None else merge_topk(*best[name], v, g, K)
+    return {name: recall_at_k(b[1].cpu().numpy(), gt) for name, b in best.items()}
+
+
+def tier1_search(idx, queries, k: int, p_tiles: int, tq: int, rf: int, top2: bool):
+    """The PQ route's plan (p_tiles, tile_q, refine_factor, top2) without the
+    pq2 rescore: the kernel's top-k of the same k_cand candidates by their
+    tier-1 scores; (scores, ids) on the device."""
+    st = idx._device_state()
+    _, k_cand, n_pools, l_buckets, _ = idx._pq_stage_plan(k, rf, 0, tq, p_tiles, top2)
+    qp = idx._rotate(queries)
+    return ivf_band_module._pq_tiles_plan_search(
+        qp, st["centroids"], st["codes"], st["codebooks"], st["refine"], st["ids"],
+        st["tile_window"], st["centroid_tiles"], idx._n, st["local"], k=k, k_cand=k_cand,
+        p_tiles=p_tiles, tile_n=idx.tile_n, tile_q=tq, refine_scale=0.0, n_pools=n_pools,
+        l_buckets=l_buckets, top2=top2)
+
+
+def c5_k5_holds(idx, queries, op: dict, rm10) -> dict:
+    """K5 against its plain version at the op point's plan in four forms:
+    plain, masked (the 10% filter's arena mask), masked with top-2, and l2
+    (its row bias from the bias kernel, the plain version's from the decoded
+    rows); ids held through exact f64 scores (``pq_exact``), each timed,
+    with its bound: each distinct tile's codes, local bytes and centroid
+    tiles, a mask byte or four bias bytes a row, the queries and slots."""
+    st = idx._device_state()
+    p_tiles, tq, rf = op["p_tiles"], op.get("tile_q", idx.tile_q), op.get("refine_factor", 16)
+    q_s, _, _, table = _plan_tiles(idx._rotate(queries), st["centroids"], st["tile_window"],
+                                   tq, p_tiles)
+    used, rows_scored = table_work(table, tq, idx.tile_n, 1)
+    w = st["centroid_tiles"].shape[1]
+    forms = {"K5 c5": (False, False, False), "K5 masked": (True, False, False),
+             "K5 masked top2": (True, True, False), "K5 l2": (False, False, True)}
+    out = {}
+    for key, (masked, top2, l2) in forms.items():
+        _, k_cand, n_pools, l_buckets, _ = idx._pq_stage_plan(K, rf, 0, tq, p_tiles, top2)
+        args = dict(codes_cm=st["codes"], codebooks=st["codebooks"], queries_sorted=q_s,
+                    tile_table=table, k=k_cand, centroid_tiles=st["centroid_tiles"],
+                    tile_n=idx.tile_n, tile_q=tq, l_buckets=l_buckets, n_valid=idx._n,
+                    row_major=True, local_ids=st["local"], n_pools=n_pools, top2=top2,
+                    row_mask=rm10 if masked else None, l2=l2)
+        kern = dict(args)
+        if l2:
+            kern["row_bias"] = pq.pq_row_bias(st["codes"], st["local"], st["codebooks"],
+                                              st["centroid_tiles"], idx.tile_n)
+        label = (f"{key[3:]} B{queries.shape[0]} p{p_tiles} tq{tq} k_cand {k_cand} "
+                 f"L{l_buckets} pools {n_pools}")
+        hold = dict(allow=rm10 if masked else None, id_floor=C5_ID_FLOOR,
+                    exact=pq_exact(st["codes"], st["local"], st["codebooks"],
+                                   st["centroid_tiles"], idx.tile_n, q_s, l2=l2))
+        # the plain version (~11 s a call at this plan on an H100) runs once:
+        # its hold's call is its timing
+        plain = timed(lambda: pq.pq_tiles_topk_reference(**args))
+        err = compare(f"K5 {label}", lambda: pq.pq_tiles_topk(**kern), plain, **hold)
+        if key not in KERNELS:  # held, not a record
+            out[key] = dict(err=err)
+            continue
+        r = dict(err=err, ms=time_ms(lambda: pq.pq_tiles_topk(**kern), 3),
+                 plain_ms=plain.ms, shape=label)
+        log(f"[kernel] K5 {label}: kernel {r['ms']:.3f} ms, plain version {r['plain_ms']:.3f} ms "
+            f"(one call)")
+        side = (1 if masked else 0) + (4 if l2 else 0)
+        n_slots = (2 if top2 else 1) * n_pools
+        r.update(pq_bound(PQ_M + 1 + side, rows_scored, used * idx.tile_n, used * w * D * 2,
+                          q_s, queries.shape[0] * n_slots * l_buckets * 8, PQ_M,
+                          2 ** PQ_NBITS, D // PQ_M))
+        log(f"[kernel] {key}: {split_form_flops(table, tq, idx.tile_n, w) / r['ms'] / 1e9:.2f} "
+            f"T bf16 flop/s in the split form; bound {r['bound_ms']:.3f} ms ({r['bound_by']}): "
+            f"{used} of {idx._tune_n_tiles()} tiles read")
+        out[key] = r
+    return out
+
+
+def run_config5(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
+    """Cell 13, BASELINE config #5 at its per-card share (module docstring,
+    phase 10): build, tune(gt=), serve, filters, updates, K5's holds. The
+    launch counts are reset just before the build and read after serving,
+    and again around the filtered searches."""
+    n_chunks = C5_ROWS // CHUNK
+    q_gt = queries[:NQ_GT]
+    launches = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    idx, build_s = c5_build(dev, chunk_fn, n_chunks)
+    log(f"[c5] built {idx.ntotal} x {D} OPQ+IVF-PQ (nlist {C5_NLIST}, m {PQ_M}, pq2 m2 "
+        f"{C5_M2}, tile_n {idx.tile_n}, W={idx._tile_window.shape[1]}, "
+        f"{idx._tune_n_tiles()} tiles): {build_s:.1f} s ({idx.ntotal / build_s:,.0f} rows/s); "
+        f"device memory {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB resident "
+        f"(codes {nbytes(idx._codes) / 2**30:.2f}, tier-2 codes "
+        f"{nbytes(idx._codes2) / 2**30:.2f}), peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+
+    # one pass over the corpus and the added rows: every state's exact truth
+    added = chunk_fn(n_chunks)[:C5_ADD]
+    n_ids = C5_ROWS + C5_ADD
+    masks = make_filters(idx, dev, n_ids, n_rows=C5_ROWS)
+    rm_names = ("random 10%", f"correlated {CORRELATED_LISTS} lists")
+    removed = np.sort(np.random.default_rng(13).choice(n_ids, C5_REMOVE, replace=False))
+    t0 = time.perf_counter()
+    gts = c5_truths(chunk_fn, n_chunks, queries, added, removed, masks, rm_names)
+    gt_all = gts.pop("all")  # tune(gt=) at B 4096
+    gts["built"] = gt_all[:NQ_GT]
+    log(f"[c5] exact f32 ground truths: {queries.shape[0]} queries over {C5_ROWS} rows, then "
+        f"{NQ_GT} over {n_ids} rows in each state: {time.perf_counter() - t0:.1f} s")
+
+    report = tune_logged(idx, queries, "c5", gt=gt_all)
+    op = dict(report["op"])
+    p_tiles, tq, rf = op["p_tiles"], op.get("tile_q", idx.tile_q), op.get("refine_factor", 16)
+    top2 = bool(op.get("top2"))
+    recall, qps = serve(idx, queries, gts["built"], reps, "c5 pq2")
+    launches["K5"] = pq.pq_tiles_topk.launches  # build, tune and serve
+    _, ids1 = tier1_search(idx, queries, K, p_tiles, tq, rf, top2)
+    recall1 = recall_at_k(ids1[:NQ_GT].cpu().numpy(), gts["built"])
+    t0 = time.perf_counter()
+    oracle = pq_oracles(idx, q_gt, gts["built"])
+    log(f"[c5] the method's plain oracles (the exact f32 top-{K} over every row's "
+        f"reconstruction, no plan): " + ", ".join(f"{k} {v:.4f}" for k, v in oracle.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    log(f"[c5] {card}: op {op}: recall@{K} {recall:.4f} vs exact f32 (the reference's best "
+        f"at this cell {C5_REF_RECALL}, its pq2+host cascade on a TPU, segmented: recall "
+        f"only); the same plan without the pq2 rescore {recall1:.4f}; device QPS "
+        f"{qps['qps']:.1f} (median {qps['ms_median']:.3f} ms); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if recall < recall1 - PQ2_SLACK:
+        raise AssertionError(f"c5: pq2 recall {recall:.4f} below tier-1 {recall1:.4f}")
+
+    # filtered search at the op point
+    flts = {name: idx.make_filter(masks[name].cpu().numpy()) for name in rm_names}
+    k5m = 0
+    for name in rm_names:
+        (v, ids), n = counted(lambda: idx.search_device(queries, K, where=flts[name]))
+        k5m += n["K5"]
+        check_filtered(v, ids, masks[name], f"c5 filtered {name}")
+        fq = qps_device(lambda q: idx.search_device(q, K, where=flts[name]), queries, reps=3)
+        log(f"[c5] filtered {name}: recall@{K} vs exact filtered f32 "
+            f"{recall_at_k(ids[:NQ_GT].cpu().numpy(), gts[name]):.4f}; device QPS "
+            f"{fq['qps']:.1f}; no disallowed id, unfilled slots (-inf, -1)")
+
+    # updates: add (pending), plain and filtered search, merge, remove, reconstruct
+    flt_add = idx.make_filter(masks["random 10%"].cpu().numpy())
+    _, _, add_s = fenced(lambda: idx.add(added))
+    if idx._pending.size != C5_ADD:
+        raise AssertionError(f"c5: {idx._pending.size} rows pending after the add")
+    mut_serve(idx, queries, gts["added"], f"c5 {C5_ADD} rows pending", 0.0, reps=3)
+    (v, ids), n = counted(lambda: idx.search_device(queries, K, where=flt_add))
+    k5m += n["K5"]
+    check_filtered(v, ids, masks["random 10%"], "c5 filtered with rows pending")
+    allowed_new = torch.nonzero(masks["random 10%"][C5_ROWS:])[:C5_SELF, 0]
+    _, own = idx.search_device(added[allowed_new], 1, where=flt_add)
+    hit = float((own[:, 0].long() == C5_ROWS + allowed_new).float().mean())
+    log(f"[c5] filtered with rows pending: recall@{K} vs exact filtered f32 "
+        f"{recall_at_k(ids[:NQ_GT].cpu().numpy(), gts['added 10%']):.4f}; no disallowed id; "
+        f"{allowed_new.numel()} allowed pending rows as queries: self-hit@1 {hit:.4f}")
+    if hit < SELF_HIT_EXACT:
+        raise AssertionError(f"c5: allowed pending rows not returned (self-hit {hit:.4f})")
+    _, host_m, merge_s = fenced(idx.merge_pending)
+    log(f"[c5] {card}: add of {C5_ADD} rows {add_s:.3f} s ({C5_ADD / add_s:,.0f} rows/s); "
+        f"merge_pending {merge_s:.3f} s (host clock to return {host_m:.3f} s) into "
+        f"{idx.ntotal} rows")
+    n_rem, host_r, rem_s = fenced(lambda: idx.remove(removed))
+    if n_rem != C5_REMOVE or idx.ntotal != n_ids - C5_REMOVE:
+        raise AssertionError(f"c5: remove took {n_rem} rows, ntotal {idx.ntotal}")
+    log(f"[c5] {card}: remove of {C5_REMOVE} ids {rem_s:.3f} s ({C5_REMOVE / rem_s:,.0f} "
+        f"rows/s; host clock to return {host_r:.3f} s)")
+    mut_serve(idx, queries, gts["removed"], "c5 after the removes", 0.0, removed=removed, reps=3)
+    keep = np.setdiff1d(np.arange(7 * CHUNK, 8 * CHUNK), removed)
+    rec_ids = np.concatenate([keep[:C5_RECON // 2], C5_ROWS + np.setdiff1d(
+        np.arange(C5_ADD), removed - C5_ROWS)[:C5_RECON // 2]])
+    src = torch.cat([chunk_fn(7)[torch.as_tensor(rec_ids[:C5_RECON // 2] - 7 * CHUNK,
+                                                 device=dev)],
+                     added[torch.as_tensor(rec_ids[C5_RECON // 2:] - C5_ROWS, device=dev)]])
+    rec, _, rec_s = fenced(lambda: idx.reconstruct(rec_ids))
+    rec = torch.as_tensor(rec, device=dev)
+    # the decode of each id's arena row, found through the id table
+    pos = np.full(idx._gid_bound(), -1, np.int64)
+    pos[idx._ids[: idx._n]] = np.arange(idx._n)
+    rows = pos[rec_ids]
+    lists = np.searchsorted(idx._offsets, rows, side="right") - 1
+    want = (pq_decode(idx._codes[torch.as_tensor(rows, device=dev)],
+                      torch.as_tensor(idx.codebooks, device=dev))
+            + torch.as_tensor(idx.centroids[lists], device=dev)) @ torch.as_tensor(
+                idx.opq_matrix, device=dev)
+    off = float((rec - want).abs().max())
+    cos = float(((rec * src).sum(1) / rec.norm(dim=1) / src.norm(dim=1)).min())
+    log(f"[c5] {card}: reconstruct of {C5_RECON} ids {rec_s:.3f} s; max |it - the decode| "
+        f"{off:.3g}; least cosine to the source rows {cos:.5f}")
+    if off > C5_RECON_TOL or cos < C5_RECON_COS:
+        raise AssertionError(f"c5: reconstruct off the decode by {off:.3g}, cosine {cos:.5f}")
+    launches["K5 masked"] = k5m
+
+    mp = c5_k5_holds(idx, queries, op, idx._arena_row_mask(flt_add))
+    log(f"[c5] {card}: build {build_s:.1f} s; op {op}; recall@{K} {recall:.4f} (tier-1 "
+        f"{recall1:.4f}); {qps['qps']:.1f} QPS; add {C5_ADD / add_s:,.0f} rows/s, merge "
+        f"{merge_s:.3f} s, remove {C5_REMOVE / rem_s:,.0f} rows/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del idx, gts, added, masks, flts
+    return dict(launches=launches, mp=mp,
+                report=dict(recall=recall, recall1=recall1, qps=qps, op=op, oracle=oracle))
+
+
+def l2_corpus(chunk_fn, dev):
+    """Cell 1's process with a norm in [0.5, 3.0] a row (seeded per chunk),
+    so that l2 and ip rankings differ."""
+    def fn(i: int) -> torch.Tensor:
+        g = torch.Generator(device=dev)
+        g.manual_seed(20_000 + i)
+        x = chunk_fn(i)
+        return x * (0.5 + 2.5 * torch.rand((x.shape[0], 1), generator=g, device=dev))
+
+    return fn
+
+
+def c5_small_checks(dev, chunk_fn, queries, card) -> dict:
+    """Cell 13's smaller checks: (a) l2 at 1M rows (pq2 and int8 builds,
+    both routes, against the exact l2 truth; K5's bias kernel held), (b) the
+    pq2+host cascade on cell 7's first 10M rows, (c) anisotropic codebooks
+    at 1M, (d) build_streaming and merge_from at 2M."""
+    q_gt = queries[:NQ_GT]
+    small = C5_SMALL_ROWS // CHUNK
+    kw = dict(nlist=C5_SMALL_NLIST, tile_n=C5_TILE_N)
+    launches, mp = {}, {}
+
+    # (a) l2: pq2 (the PQ route) and int8 (both routes)
+    l2fn = l2_corpus(chunk_fn, dev)
+    gt_l2 = exact_gt(l2fn, small, CHUNK, q_gt, metric="l2")
+    gt_ip = exact_gt(l2fn, small, CHUNK, q_gt)
+    lines = []
+    launches["K5 l2"] = launches["K5b"] = 0
+    for refine in ("pq2", "int8"):
+        reset_launches()
+        idx, build_s = c5_build(dev, l2fn, small, refine=refine, metric="l2", **kw)
+        routes = ("pq", "refine") if refine == "int8" else ("pq",)
+        for route in routes:
+            got = []
+            for p in (max(1, idx._tune_n_tiles() // 8), idx._tune_n_tiles()):
+                v, ids = idx.search_device(queries, K, serve_from=route, refine_factor=64,
+                                           p_tiles=p)
+                check_result(v.cpu().numpy(), ids.cpu().numpy(), queries.shape[0], idx.ntotal,
+                             f"l2 {refine} {route}")
+                got.append(f"{recall_at_k(ids[:NQ_GT].cpu().numpy(), gt_l2):.4f}")
+            lines.append(f"{refine} {route} {' / '.join(got)}")
+        sync()
+        launches["K5 l2"] += pq.pq_tiles_topk.launches
+        launches["K5b"] += pq.pq_row_bias.launches
+        if refine == "pq2":
+            st = idx._device_state()
+            err = pq_bias_compare(f"{idx.ntotal} x {D} l2 arena", st["codes"], st["local"],
+                                  st["codebooks"], st["centroid_tiles"], idx.tile_n)
+            args = (st["codes"], st["local"], st["codebooks"], st["centroid_tiles"], idx.tile_n)
+            ms = time_ms(lambda: pq.pq_row_bias(*args), 5)
+            plain_ms = time_ms(lambda: pq.pq_row_bias_reference(*args), 1)
+            n = st["codes"].shape[0]
+            mp["K5b"] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                             shape=f"{n} x {PQ_M} codes",
+                             **bound(nbytes(st["codes"], st["local"], st["centroid_tiles"],
+                                            st["codebooks"]) + 4 * n, 2.0 * n * D, "f32"))
+            log(f"[kernel] K5b over {n} x {PQ_M} codes: kernel {ms:.3f} ms, plain version "
+                f"{plain_ms:.3f} ms; bound {mp['K5b']['bound_ms']:.3f} ms "
+                f"({mp['K5b']['bound_by']})")
+        del idx
+        torch.cuda.empty_cache()
+    same = float((np.sort(gt_l2, 1) == np.sort(gt_ip, 1)).mean())
+    log(f"[c5 a] l2 at {C5_SMALL_ROWS} rows, norms 0.5-3.0 (the l2 truth's ids {same:.4f} the "
+        f"ip truth's): recall@{K} vs exact f32 l2 at 1/8 and all of the tiles, rf 64: "
+        + ", ".join(lines)
+        + f"; K5 launches {launches['K5 l2']}, bias launches {launches['K5b']}")
+
+    # (b) the cascade on cell 7's first 10M rows
+    n_c = PQ_ROWS // CHUNK
+    gt7 = exact_gt(chunk_fn, n_c, CHUNK, q_gt)
+    idx, build_s = c5_build(dev, chunk_fn, n_c, nlist=NLIST, tile_n=1024)
+    t0 = time.perf_counter()
+    idx.attach_host_refine(lambda i: idx._rotate(chunk_fn(i)).cpu().numpy(), n_c,
+                           chunks_rotated=True)
+    attach_s = time.perf_counter() - t0
+    # the tuner's max-effort cascade plan (refine_factor 820) on 1/4 of the tiles
+    rf, p = 820, idx._tune_n_tiles() // 4
+    _, f2 = idx.search_device(q_gt, K, refine_factor=rf, p_tiles=p)  # the on-card prefix
+    res = [f"pq2 only {recall_at_k(f2.cpu().numpy(), gt7):.4f}"]
+    for hf in C5_HOST_FACTORS:
+        t0 = time.perf_counter()
+        v, f = idx.search(q_gt.cpu().numpy(), K, refine_factor=rf, p_tiles=p, host_factor=hf)
+        dt = time.perf_counter() - t0
+        check_result(v, f, NQ_GT, idx.ntotal, f"cascade hf {hf}")
+        res.append(f"host_factor {hf}: {recall_at_k(f, gt7):.4f} ({NQ_GT / dt:,.0f} QPS host "
+                   f"clock)")
+    log(f"[c5 b] {card}: pq2+host cascade at {PQ_ROWS} rows (the one cut: 125M rows would "
+        f"hold 96 GB of host int8), build {build_s:.1f} s, attach {attach_s:.1f} s "
+        f"({idx._host_rows.nbytes / 1e9:.2f} GB host int8); rf {rf}, p_tiles {p}: "
+        + "; ".join(res))
+    del idx
+    torch.cuda.empty_cache()
+
+    # (c) anisotropic codebooks beside the plain ones, at full coverage
+    gt1 = exact_gt(chunk_fn, small, CHUNK, q_gt)
+    rec = []
+    for eta in (0.0, 4.0):
+        idx, build_s = c5_build(dev, chunk_fn, small, refine="none", aniso_eta=eta, **kw)
+        _, f = idx.search_device(q_gt, K, p_tiles=idx._tune_n_tiles())
+        rec.append(f"aniso_eta {eta}: {recall_at_k(f.cpu().numpy(), gt1):.4f} (build "
+                   f"{build_s:.1f} s)")
+        del idx
+    log(f"[c5 c] anisotropic codebooks at {C5_SMALL_ROWS} rows, refine 'none', full "
+        f"coverage: recall@{K} " + "; ".join(rec))
+    torch.cuda.empty_cache()
+
+    # (d) build_streaming and merge_from
+    n_s = C5_STREAM_ROWS // CHUNK
+    d, _ = c5_build(dev, chunk_fn, n_s, **kw)
+    quant = dict(centroids=d.centroids, codebooks=d.codebooks, codebooks2=d.codebooks2,
+                 opq_matrix=d.opq_matrix)
+    kw_q = {**C5_KW, **kw, **quant, "opq": False}
+    s = BandIVFPQIndex.build_streaming((chunk_fn(i) for i in range(n_s)), device=dev, **kw_q)
+    same_codes = (torch.equal(s._codes, d._codes) and torch.equal(s._local, d._local)
+                  and np.array_equal(s._ids, d._ids)
+                  and torch.equal(s._codes2_device(), d._codes2_device()))
+    half = n_s // 2
+    a = BandIVFPQIndex.build_device_streaming(chunk_fn, half, device=dev, **kw_q)
+    b = BandIVFPQIndex.build_device_streaming(lambda i: chunk_fn(half + i), n_s - half,
+                                              device=dev, **kw_q)
+    a.merge_from(b, id_offset=half * CHUNK)
+    gt2 = exact_gt(chunk_fn, n_s, CHUNK, q_gt)
+    p = d._tune_n_tiles() // 8
+    r_one = recall_at_k(d.search_device(q_gt, K, p_tiles=p, refine_factor=64)[1].cpu().numpy(),
+                        gt2)
+    r_merged = recall_at_k(a.search_device(q_gt, K, p_tiles=p, refine_factor=64)[1]
+                           .cpu().numpy(), gt2)
+    same_arena = torch.equal(a._codes, d._codes) and np.array_equal(a._ids, d._ids)
+    log(f"[c5 d] build_streaming at {C5_STREAM_ROWS} rows: codes, local bytes, ids and tier-2 "
+        f"codes equal to build_device_streaming's {same_codes}; merge_from of two "
+        f"{half * CHUNK}-row halves: arena equal to one build's {same_arena}, recall@{K} "
+        f"{r_merged:.4f} vs one build's {r_one:.4f}")
+    if not same_codes or abs(r_merged - r_one) > 0.005:
+        raise AssertionError("c5 d: build_streaming or merge_from departs from one build")
+    del d, s, a, b
+    torch.cuda.empty_cache()
+    return dict(launches=launches, mp=mp)
 
 
 # -- the probe-scan families (cells 10 and 11) --------------------------------
@@ -3047,7 +3612,9 @@ def k4_main_shapes(dev) -> dict:
 
 
 # -- cell 12: the pipeline from raw text, through the CLI ------------------------
-PIPE_DOCS, PIPE_TRIPLETS, PIPE_STEPS = 1_000_000, 100_000, 200
+#: cut from 1M passages, 100,000 triplets and 200 steps (PR 12) so that the
+#: run keeps inside its time limit with cell 13 (PERF.md §4)
+PIPE_DOCS, PIPE_TRIPLETS, PIPE_STEPS = 250_000, 50_000, 60
 PIPE_STAGES = ("mine", "train", "encode", "build", "tune", "eval")
 PIPE_ARTIFACTS = ("passages.jsonl", "tokenizer.json", "triplets.jsonl", "ckpt",
                   "embeddings.npy", "index", "eval.json")
@@ -3062,8 +3629,9 @@ SEARCH_QUERY = "the telescope and the galaxy relate to orbit through the nebula.
 
 def pipeline_config(workdir: Path) -> PipelineConfig:
     """Cell 12: BASELINE config #2's encoder (MiniLM-L6, 384-d) at full
-    width over 1M synthetic passages (the one cut: Wikipedia's text cannot
-    be had offline), the residual-int8 band_ivf index. Fields set directly
+    width over PIPE_DOCS synthetic passages (Wikipedia's text cannot be had
+    offline; its depth cut to keep the run inside its time limit), the
+    residual-int8 band_ivf index. Fields set directly
     with no preset (a preset would replace them); attn_dropout 0 so that
     training takes K4, attn_impl 'packed' so that encoding does too ('auto'
     takes the naive path in a deterministic forward at L 128)."""
@@ -3074,7 +3642,8 @@ def pipeline_config(workdir: Path) -> PipelineConfig:
         data=DataConfig(corpus="synthetic", num_docs=PIPE_DOCS),
         mining=MiningConfig(strategy="inbatch", num_triplets=PIPE_TRIPLETS),
         train=TrainConfig(encoder=enc, encoder_preset="", batch_size=TRIPLETS, lr=1e-4,
-                          warmup_steps=20, total_steps=PIPE_STEPS, ckpt_every=100),
+                          warmup_steps=20, total_steps=PIPE_STEPS,
+                          ckpt_every=PIPE_STEPS // 2),
         index=IndexConfig(kind="band_ivf", metric="ip", nlist=NLIST, residual=True,
                           dtype="int8", train_sample=262_144),
         encode_batch=ENC_BATCH, eval_k=K, eval_queries=1024, stages=PIPE_STAGES)
@@ -3479,6 +4048,10 @@ def main() -> int:
     runs.append(run_pq(dev, chunk_fn, queries, card))
     torch.cuda.empty_cache()  # the 10M PQ index is gone before the encoder phases
     runs.append(run_k6(dev, chunk_fn, queries, card))
+    torch.cuda.empty_cache()
+    runs.append(run_config5(dev, chunk_fn, queries, card))
+    torch.cuda.empty_cache()
+    runs.append(c5_small_checks(dev, chunk_fn, queries, card))
     del queries, gt
     torch.cuda.empty_cache()
     runs.append(run_ivf_flat(dev, card))

@@ -6,7 +6,8 @@
 //   TABLE cloudvectordb_tpu/ops/pallas_pq.py:315 pq_tiles_topk_pallas
 //         (body _pq_tiles_kernel :94): step j of query tile qt reads
 //         tile_table[qt, j] and merges into pool j % n_pools; optional
-//         residual centroid term and top-2 slots;
+//         residual centroid term, row mask (filtered search), l2 key and
+//         top-2 slots;
 //   ALL   cloudvectordb_tpu/ops/pallas_pq.py:510 pq_topk_pallas
 //         (body _pq_scan_kernel :33): step j reads tile j, no residual
 //         term, one pool.
@@ -20,7 +21,15 @@
 // form, score = q . cb^(g) + C[q, local(g)] with C[q, w] = q . ct[tile, w]:
 // both terms are bf16 x bf16 products summed in f32, so only the order of
 // the f32 sums differs from the reference (pallas_pq.py:183-204). Rows g >=
-// n_valid score -inf and are never read. Codes are read through two
+// n_valid score -inf and are never read (every offset into the codes, the
+// local bytes, the mask and the bias is 64-bit: a 125M x 64 arena holds
+// 8.0e9 code bytes; row ids stay below 2^31); with a row mask (one allow byte a
+// row, pallas_pq.py:219-249) so do rows whose byte is 0, so a disallowed row
+// never takes slot 1 or slot 2. The l2 key (pallas_pq.py:205-216) is
+// q . x - |x|^2 / 2: here the score plus the row's bias -|x|^2 / 2, read
+// from a per-row f32 table (pq_bias_kernel, below) that the caller writes
+// once per arena state; x never exists in the scan, so the bias cannot come
+// from it as the TPU's did. Codes are read through two
 // strides, so the row-major (N, m) arena and a code-major (m, N) matrix
 // (K6) need no copy. Each query keeps L = l_buckets slots per pool, two
 // with top-2, merged as csrc/slot_merge.cuh says; output slot s = pool (or
@@ -45,7 +54,15 @@
 // In residual mode C is formed once per (block, table entry) on the same
 // path, the tile's W centroid rows standing in for the decoded rows and
 // all 8 warps splitting the depth, and C[q, local(g)] is added to each
-// row's score.
+// row's score. A row's mask byte and l2 bias are staged beside its local
+// byte; one instantiation per (residual, mask, l2, top-2) keeps the
+// serving variant as it was.
+//
+// pq_bias_kernel: the l2 bias -|x|^2 / 2 of every arena row, a warp a row:
+// the lanes take the row's dims in turn, x[e] is the f32 sum of the bf16
+// codeword value and the bf16 centroid value (as interpret mode forms it),
+// squares are summed in f64 and the warp's sums are added in a fixed
+// shuffle order; one f32 a row.
 //
 // What bounds it, and what the design does about each limit. The least
 // work of the function (chip_smoke.py::pq_bound) is small: the codes and
@@ -101,6 +118,8 @@ struct ScanArgs {
   const bf16* ct;           // (n_tiles, W, D), residual mode
   const bf16* q;            // (n_qt * tile_q, D)
   const int32_t* table;     // (n_qt, steps), TABLE
+  const uint8_t* mask;      // (N,) allow bytes, MASK
+  const float* bias;        // (N,) f32 l2 bias -|x|^2 / 2, L2
   float* out_v;             // (n_slots, n_qt * tile_q, L)
   int32_t* out_i;
   int nq, tile_q, steps, tile_n, l_buckets, m, ncode, dsub, w, n_valid, n_pools;
@@ -114,20 +133,24 @@ __host__ __device__ inline int align16(int x) { return (x + 15) / 16 * 16; }
 __host__ __device__ inline int q_stride(int dp) { return dp + 2 * (((8 - dp / 2) % 32 + 32) % 32); }
 
 // Shared memory layout, in bytes: the queries, two code blocks, two
-// local-byte blocks, the score tile (QB x RS f32), the tile's running best
+// local-byte blocks, two l2-bias blocks and two mask blocks (each present
+// only when used), the score tile (QB x RS f32), the tile's running best
 // per (query, slot) while r < R (value and r; two of each with top-2), the
 // centroid term C (QB x W f32).
 struct Layout {
-  int q, codes, local, red, tile, c, total;
+  int q, codes, local, bias, mask, red, tile, c, total;
 };
 
-__host__ __device__ inline Layout layout(int m, int dsub, int w, bool top2) {
+__host__ __device__ inline Layout layout(int m, int dsub, int w, bool top2, bool mask = false,
+                                         bool l2 = false) {
   const int dp = align16(m * dsub);
   Layout l;
   l.q = 0;
   l.codes = l.q + align16(QB * q_stride(dp) * 2);
   l.local = l.codes + 2 * align16(SB * (m + 4));
-  l.red = l.local + 2 * SB;
+  l.bias = l.local + 2 * SB;
+  l.mask = l.bias + (l2 ? 2 * SB * 4 : 0);
+  l.red = l.mask + (mask ? 2 * SB : 0);
   l.tile = l.red + QB * RS * 4;
   l.c = l.tile + QB * RS * (top2 ? 16 : 8);
   l.total = l.c + align16(QB * w * 4);
@@ -184,13 +207,15 @@ struct Block {
 // 2t + 1, 2t + 8 and 2t + 9, and its B values at the same k, are taken from
 // dims 4t .. 4t + 3 of the step's 16: a permutation of the sum's terms,
 // which lets one 8-byte load fetch a lane's four values of a row.
-template <int SRC, bool RESID, bool TOP2>
+template <int SRC, bool RESID, bool TOP2, bool MASK, bool L2>
 __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = layout(a.m, a.dsub, RESID ? a.w : 0, TOP2);
+  const Layout lay = layout(a.m, a.dsub, RESID ? a.w : 0, TOP2, MASK, L2);
   bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
   uint8_t* codes_s = smem + lay.codes;
   uint8_t* local_s = smem + lay.local;
+  float* bias_s = reinterpret_cast<float*>(smem + lay.bias);
+  uint8_t* mask_s = smem + lay.mask;
   float* red = reinterpret_cast<float*>(smem + lay.red);
   float* c_s = reinterpret_cast<float*>(smem + lay.c);
   float* tm1 = reinterpret_cast<float*>(smem + lay.tile);  // [query * RS + slot]
@@ -239,8 +264,8 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
     return x;
   };
 
-  // the codes (as CodeCopy says) and local bytes of a row block into
-  // buffer bi; only live rows are read
+  // the codes (as CodeCopy says), local bytes, l2 biases and mask bytes of
+  // a row block into buffer bi; only live rows are read
   auto stage = [&](const Block& x, int bi) {
     uint8_t* dst = codes_s + bi * codes_buf;
     const uint8_t* src = a.codes + x.row0 * a.row_stride;
@@ -262,8 +287,12 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
         dst[s * SB + r] = src[r * a.row_stride + s * a.sub_stride];
       }
     }
-    if (RESID)
-      for (int i = tid; i < x.n_rows; i += THREADS) local_s[bi * SB + i] = a.local[x.row0 + i];
+    if (RESID || MASK || L2)
+      for (int i = tid; i < x.n_rows; i += THREADS) {
+        if (RESID) local_s[bi * SB + i] = a.local[x.row0 + i];
+        if (L2) bias_s[bi * SB + i] = a.bias[x.row0 + i];
+        if (MASK) mask_s[bi * SB + i] = a.mask[x.row0 + i];
+      }
   };
 
   // k-steps [lo, hi) of the product of this warp's 16 rows (A, from
@@ -399,12 +428,13 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
     for (int j = 0; j < 8; ++j) {
       const int row = mr + 8 * j, o = mq * RS + row;
       float sc = -INFINITY;
-      if (row < x.n_rows) {
+      if (row < x.n_rows && (!MASK || mask_s[bi * SB + row])) {
         sc = red[o];
         if (RESID) {
           const int l = local_s[bi * SB + row];
           if (l < a.w) sc += c_s[mq * a.w + l];
         }
+        if (L2) sc += bias_s[bi * SB + row];
       }
       const long long col = b0 + row;
       if (R == 1) {
@@ -485,16 +515,55 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
   }
 }
 
-template <int SRC, bool RESID, bool TOP2>
+template <int SRC, bool RESID, bool TOP2, bool MASK, bool L2>
 cudaError_t launch(const ScanArgs& a, int n_qt, cudaStream_t stream) {
-  const int smem = layout(a.m, a.dsub, RESID ? a.w : 0, TOP2).total;
-  const cudaError_t err = cudaFuncSetAttribute(
-      pq_scan_kernel<SRC, RESID, TOP2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = layout(a.m, a.dsub, RESID ? a.w : 0, TOP2, MASK, L2).total;
+  const cudaError_t err =
+      cudaFuncSetAttribute(pq_scan_kernel<SRC, RESID, TOP2, MASK, L2>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int qblocks = (a.tile_q + QB - 1) / QB;
   const dim3 grid((a.l_buckets + SB - 1) / SB, n_qt * qblocks, a.n_pools);
-  pq_scan_kernel<SRC, RESID, TOP2><<<grid, THREADS, smem, stream>>>(a);
+  pq_scan_kernel<SRC, RESID, TOP2, MASK, L2><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// TABLE's 16 instantiations, one per (residual, top-2, mask, l2).
+template <bool RESID, bool TOP2, bool MASK>
+cudaError_t launch_l2(const ScanArgs& a, int n_qt, cudaStream_t s) {
+  return a.bias ? launch<TABLE, RESID, TOP2, MASK, true>(a, n_qt, s)
+                : launch<TABLE, RESID, TOP2, MASK, false>(a, n_qt, s);
+}
+
+template <bool RESID, bool TOP2>
+cudaError_t launch_table(const ScanArgs& a, int n_qt, cudaStream_t s) {
+  return a.mask ? launch_l2<RESID, TOP2, true>(a, n_qt, s)
+                : launch_l2<RESID, TOP2, false>(a, n_qt, s);
+}
+
+// The l2 bias of rows [0, n): a warp a row (file header).
+__global__ void __launch_bounds__(256) pq_bias_kernel(
+    const uint8_t* __restrict__ codes, long long row_stride, long long sub_stride,
+    const uint8_t* __restrict__ local, const bf16* __restrict__ cb, const bf16* __restrict__ ct,
+    float* __restrict__ out, long long n, int tile_n, int m, int ncode, int dsub, int w) {
+  const long long g = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (g >= n) return;
+  const int d = m * dsub;
+  const uint8_t* row = codes + g * row_stride;
+  const bf16* crow = ct ? ct + (static_cast<long long>(g / tile_n) * w + local[g]) * d : nullptr;
+  double acc = 0.0;
+  for (int e = lane; e < d; e += 32) {
+    const int j = e / dsub;
+    float x = __bfloat162float(cb[(static_cast<long long>(j) * ncode +
+                                   row[static_cast<long long>(j) * sub_stride]) * dsub + e -
+                                  j * dsub]);
+    if (crow) x += __bfloat162float(crow[e]);
+    acc += static_cast<double>(x) * x;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[g] = static_cast<float>(-0.5 * acc);
 }
 
 }  // namespace
@@ -506,18 +575,20 @@ const char* cvdb_cuda_error_string(int code) {
 }
 
 // Dynamic shared memory one block needs (w = 0 without the residual term).
-int cvdb_pq_scan_smem_bytes(int m, int dsub, int w, int top2) {
-  return layout(m, dsub, w, top2).total;
+int cvdb_pq_scan_smem_bytes(int m, int dsub, int w, int top2, int mask, int l2) {
+  return layout(m, dsub, w, top2, mask, l2).total;
 }
 
 // Launches the scan on `stream`; returns the launch's cudaGetLastError()
 // (cudaErrorInvalidValue for a source/option pair it does not take: ALL is
-// the non-residual one-pool scan). `ct` null means no residual term.
+// the non-residual, unmasked, one-pool ip scan). `ct` null means no
+// residual term, `mask` null no row mask, `bias` null the ip key.
 int cvdb_pq_scan(int source, int top2, const void* codes, long long row_stride,
                  long long sub_stride, const void* local, const void* cb, const void* ct,
-                 const void* q, const void* table, void* out_v, void* out_i, int n_qt,
-                 int tile_q, int steps, int tile_n, int l_buckets, int m, int ncode, int dsub,
-                 int w, int n_valid, int n_pools, int device, void* stream) {
+                 const void* q, const void* table, const void* mask, const void* bias,
+                 void* out_v, void* out_i, int n_qt, int tile_q, int steps, int tile_n,
+                 int l_buckets, int m, int ncode, int dsub, int w, int n_valid, int n_pools,
+                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const uintptr_t p = reinterpret_cast<uintptr_t>(codes);
@@ -527,20 +598,38 @@ int cvdb_pq_scan(int source, int top2, const void* codes, long long row_stride,
   const ScanArgs a{static_cast<const uint8_t*>(codes), row_stride, sub_stride,
                    static_cast<const uint8_t*>(local), static_cast<const bf16*>(cb),
                    static_cast<const bf16*>(ct), static_cast<const bf16*>(q),
-                   static_cast<const int32_t*>(table), static_cast<float*>(out_v),
+                   static_cast<const int32_t*>(table), static_cast<const uint8_t*>(mask),
+                   static_cast<const float*>(bias), static_cast<float*>(out_v),
                    static_cast<int32_t*>(out_i), n_qt * tile_q, tile_q, steps, tile_n,
                    l_buckets, m, ncode, dsub, w, n_valid, n_pools, copy};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool resid = ct != nullptr;
-  if (source == ALL && !resid && !top2 && n_pools == 1)
-    err = launch<ALL, false, false>(a, n_qt, s);
+  if (source == ALL && !resid && !top2 && !mask && !bias && n_pools == 1)
+    err = launch<ALL, false, false, false, false>(a, n_qt, s);
   else if (source != TABLE)
     err = cudaErrorInvalidValue;
   else if (resid)
-    err = top2 ? launch<TABLE, true, true>(a, n_qt, s) : launch<TABLE, true, false>(a, n_qt, s);
+    err = top2 ? launch_table<true, true>(a, n_qt, s) : launch_table<true, false>(a, n_qt, s);
   else
-    err = top2 ? launch<TABLE, false, true>(a, n_qt, s) : launch<TABLE, false, false>(a, n_qt, s);
+    err = top2 ? launch_table<false, true>(a, n_qt, s) : launch_table<false, false>(a, n_qt, s);
   return static_cast<int>(err);
+}
+
+// Writes the l2 bias -|x|^2 / 2 of rows [0, n) to `out` on `stream`; `ct`
+// and `local` null mean no residual term. Returns cudaGetLastError().
+int cvdb_pq_row_bias(const void* codes, long long row_stride, long long sub_stride,
+                     const void* local, const void* cb, const void* ct, void* out, long long n,
+                     int tile_n, int m, int ncode, int dsub, int w, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const long long blocks = (n + 7) / 8;  // 8 warps a block, a row a warp
+    pq_bias_kernel<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(codes), row_stride, sub_stride,
+        static_cast<const uint8_t*>(local), static_cast<const bf16*>(cb),
+        static_cast<const bf16*>(ct), static_cast<float*>(out), n, tile_n, m, ncode, dsub, w);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -189,70 +189,193 @@ def _tiles_plan_search(q, centroids, payload, ids, tile_window, db_scale, n_vali
     return _unsort(order, v, ids[rows.long().clamp(0, ids.shape[0] - 1)])
 
 
-def _rescore_cap(k_cand: int, b: int) -> int:
+def _rescore_cap(k_cand: int, b: int, halve: bool = False) -> int:
     """Query sub-batch of the refine rescore: the largest divisor of b not
-    above min(512, 2^20 / k_cand), so one gathered (sub, k_cand, D) block
-    stays near 1 GB of f32 at D 768 (the reference's cap,
-    ivf_band.py:173-181)."""
+    above min(512, 2^20 / k_cand) (halved with ``halve``), so one gathered
+    (sub, k_cand, D) block stays near 1 GB of f32 at D 768 (the reference's
+    cap, ivf_band.py:173-181)."""
     cap = max(1, min(512, (1 << 20) // max(k_cand, 1)))
+    if halve:
+        cap = max(1, cap // 2)
     return max(s for s in range(1, min(cap, b) + 1) if b % s == 0)
 
 
 def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
-                   centroid_tiles, n_valid, local_ids, *, k: int, k_cand: int,
-                   p_tiles: int, tile_n: int, tile_q: int, refine_scale: float,
-                   n_pools: int = 1, l_buckets: int = 0, refine_residual: bool = False,
-                   top2: bool = False):
+                   centroid_tiles, n_valid, local_ids, row_mask=None, *, k: int,
+                   k_cand: int, p_tiles: int, tile_n: int, tile_q: int,
+                   refine_scale: float, n_pools: int = 1, l_buckets: int = 0,
+                   refine_residual: bool = False, l2: bool = False, top2: bool = False,
+                   row_bias=None):
     """The PQ-tiles search without the arena-row → global-id map: device
     planning, K5 (ops/pq.py) over the row-major (N_pad, m) codes for
-    ``k_cand`` candidates, the int8 refine rescore, and the unsort. Returns
-    (v, rows) in caller query order, rows as arena rows.
+    ``k_cand`` candidates, the int8 refine rescore, the unsort and the l2
+    key's conversion. Returns (v, rows) in caller query order, rows as
+    arena rows.
+
+    ``row_mask`` ((1, N_pad) int8 allow bits, the index's cached form):
+    tiles with no allowed row leave the plan and K5 masks the rest. ``l2``:
+    K5 ranks by q·x̂ - ‖x̂‖²/2 over ``row_bias`` (computed if None), the
+    rescore takes the same key of its reconstruction, and the scores
+    return as -‖q - x̂‖² (-inf stays -inf); two-stage callers (pq2, host)
+    receive the k_cand candidates in that form.
 
     The rescore (``refine_scale > 0``) gathers each candidate's int8 refine
-    row. Residual rows (``refine_residual``): bf16(q)·bf16(r) as exact f32
-    products summed in f32, times the scale, plus the exact centroid term
-    ``dots[order]`` gathered by the row's list (its local byte through the
-    tile window). Whole rows: q·(r·scale) in f32. Unfilled kernel slots
-    (-inf) stay -inf. Then a stable top-k."""
-    q_s, order, dots, tile_table = _plan_tiles(q, centroids, tile_window, tile_q, p_tiles)
+    row, in query sub-batches (``_rescore_cap``; halved for l2 residual
+    rows, whose centroid gather doubles the temporaries). Residual rows
+    (``refine_residual``): bf16(q)·bf16(r) as exact f32 products summed in
+    f32, times the scale, plus the exact centroid term ``dots[order]``
+    gathered by the row's list (its local byte through the tile window);
+    l2 subtracts ‖c + s·r‖²/2 expanded as the reference does. Whole rows:
+    q·(r·scale) in f32 (l2: less ‖r·scale‖²/2). Unfilled kernel slots (-inf)
+    stay -inf. Then a stable top-k."""
+    tile_live = None
+    if row_mask is not None:
+        tile_live = row_mask.reshape(-1, tile_n).amax(dim=1) > 0
+    q_s, order, dots, tile_table = _plan_tiles(q, centroids, tile_window, tile_q, p_tiles,
+                                               tile_live=tile_live)
     v, rows = pq_tiles_topk(
         codes, codebooks, q_s, tile_table, k_cand, centroid_tiles=centroid_tiles,
         tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets, n_valid=n_valid,
-        row_major=True, local_ids=local_ids, n_pools=n_pools, top2=top2)
+        row_major=True, local_ids=local_ids, n_pools=n_pools, row_mask=row_mask, l2=l2,
+        top2=top2, row_bias=row_bias)
     if refine_scale > 0:
         valid = v > NEG_INF
         rows = rows.long().clamp(0, refine_rows.shape[0] - 1)
         b, kc = rows.shape
         scale = f32_const(refine_scale, q)
-        sub = _rescore_cap(kc, b)
+        half = f32_const(0.5, q)
+        lists = None
+        if refine_residual:  # row -> local byte -> list id
+            lists = tile_window[rows // tile_n, local_ids.reshape(-1)[rows].long()].long()
+        # l2 residual rows gather their centroids too: half the sub-batch
+        sub = _rescore_cap(kc, b, halve=l2 and refine_residual)
         parts = []
         for s in range(0, b, sub):
-            cand = refine_rows[rows[s:s + sub]]  # (sub, k_cand, D) int8
+            cand = refine_rows[rows[s:s + sub]].float()  # (sub, k_cand, D), int8 values
             if refine_residual:
                 qb = q_s[s:s + sub].to(torch.bfloat16).float()
-                ex = torch.bmm(cand.float(), qb[:, :, None])[:, :, 0] * scale
+                ex = torch.bmm(cand, qb[:, :, None])[:, :, 0] * scale
+                if l2:
+                    ca = centroids[lists[s:s + sub]]
+                    ex = ex - half * ((ca * ca).sum(dim=2)
+                                      + f32_const(2.0 * refine_scale, q) * (ca * cand).sum(dim=2)
+                                      + f32_const(refine_scale * refine_scale, q)
+                                      * (cand * cand).sum(dim=2))
             else:
-                ex = torch.bmm(cand.float() * scale, q_s[s:s + sub, :, None])[:, :, 0]
+                cand = cand * scale
+                ex = torch.bmm(cand, q_s[s:s + sub, :, None])[:, :, 0]
+                if l2:
+                    ex = ex - half * (cand * cand).sum(dim=2)
             parts.append(ex)
         ex = torch.cat(parts)
         if refine_residual:
-            lists = tile_window[rows // tile_n, local_ids.reshape(-1)[rows].long()]
-            ex = ex + torch.gather(dots[order], 1, lists.long())
+            ex = ex + torch.gather(dots[order], 1, lists)
         ex = torch.where(valid, ex, NEG_INF)
         v, pos = topk_stable(ex, k)
         rows = torch.gather(rows, 1, pos)
     else:
         v, rows = v[:, :k], rows[:, :k].long()
-    return _unsort(order, v, rows)
+    v, rows = _unsort(order, v, rows)
+    if l2:  # the key q·x̂ - ‖x̂‖²/2 -> -‖q - x̂‖²
+        v = f32_const(2.0, v) * v - (q * q).sum(dim=1, keepdim=True)
+    return v, rows
 
 
 def _pq_tiles_plan_search(q, centroids, codes, codebooks, refine_rows, ids, tile_window,
-                          centroid_tiles, n_valid, local_ids, **kw):
+                          centroid_tiles, n_valid, local_ids, row_mask=None, **kw):
     """One-dispatch PQ-tiles search (``_pq_tiles_core``) with the arena-row
-    → global-id map: (v (B, k) f32, ids (B, k) int32) in caller order."""
+    → global-id map: (v (B, k) f32, ids (B, k) int32) in caller order; with
+    a row mask unfilled slots are (-inf, -1)."""
     v, rows = _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
-                             centroid_tiles, n_valid, local_ids, **kw)
-    return v, ids[rows.clamp(0, ids.shape[0] - 1)]
+                             centroid_tiles, n_valid, local_ids, row_mask, **kw)
+    gids = ids[rows.clamp(0, ids.shape[0] - 1)]
+    if row_mask is not None:
+        gids = torch.where(v > NEG_INF, gids, -1)
+    return v, gids
+
+
+def _rescore_nsub(b: int, kc: int, m2: int, budget: int = 1 << 25) -> int:
+    """Query-chunk count bounding ``_pq2_rescore``'s (b/nsub, kc, m2) gather
+    temporaries to ~``budget`` elements (the reference's ``_rescore_nsub``)."""
+    nsub = 1
+    while b % (nsub * 2) == 0 and (b // nsub) * kc * m2 > budget:
+        nsub *= 2
+    return nsub
+
+
+def _pq2_rescore(q, v, gids, codes2, codebooks2, s2=None, *, k: int, l2: bool = False):
+    """Tier-2 ADC correction (refine='pq2', the reference's ``_pq2_rescore``):
+    the candidates' tier-1 score ``v`` plus q·decode2(code2), the tier-2
+    codes gathered by global id (``codes2`` (N_cap, m2) uint8) and scored
+    through a per-query (m2, C) f32 lookup table; l2 keys (-‖q - x̂₁‖²) take
+    2·corr - s₂[gid] instead. Unfilled slots (-inf) stay -inf. In
+    ``_rescore_nsub`` query chunks; each a stable top-k. Returns (v, gids)
+    of k columns."""
+    b, kc = v.shape
+    m2, _, dsub2 = codebooks2.shape
+    nsub = _rescore_nsub(b, kc, m2)
+    step = b // nsub
+    two = f32_const(2.0, v)
+    out_v, out_i = [], []
+    for s in range(0, b, step):
+        qb, vb, gb = q[s:s + step], v[s:s + step], gids[s:s + step]
+        g = gb.long().clamp(0, codes2.shape[0] - 1)
+        c2 = codes2[g].long()  # (bs, kc, m2)
+        lut = torch.einsum("bmd,mcd->bmc", qb.reshape(qb.shape[0], m2, dsub2), codebooks2)
+        corr = torch.gather(lut.transpose(1, 2), 1, c2).sum(dim=2)
+        if l2:
+            corr = two * corr - s2[g]
+        ex = torch.where(vb > NEG_INF, vb + corr, NEG_INF)
+        v2, pos = topk_stable(ex, k)
+        out_v.append(v2)
+        out_i.append(torch.gather(gb, 1, pos))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def _host_rescore(q, v, gids, r8, assign, centroids, scale: float, x_sq=None, *, k: int,
+                  resid: bool = True, l2: bool = False):
+    """Exact rescore of the shortlist's int8 rows shipped from host RAM
+    (refine='host', the reference's ``_host_rescore``): ``r8`` (B, kc, D)
+    int8, ``assign`` (B, kc) their lists. bf16(q)·bf16(r) as exact f32
+    products summed in f32, times the scale, plus (residual rows) the exact
+    centroid term; l2 gives -‖q - x̂‖² from ``x_sq`` (residual: (B, kc)
+    ‖x̂‖², gathered host-side) or the rows themselves. In query sub-batches;
+    a stable top-k."""
+    b, kc = v.shape
+    sc = f32_const(scale, q)
+    qb = q.to(torch.bfloat16).float()
+    sub = _rescore_cap(kc, b)
+    parts, sq = [], []
+    for s in range(0, b, sub):
+        r = r8[s:s + sub].float()
+        parts.append(sc * torch.bmm(r, qb[s:s + sub, :, None])[:, :, 0])
+        if l2 and not resid:  # whole rows: their own norms
+            sq.append((sc * sc) * (r * r).sum(dim=2))
+    ex = torch.cat(parts)
+    if resid:
+        ex = ex + torch.gather(q @ centroids.T, 1, assign.long())
+    if l2:
+        x_sq = torch.cat(sq) if sq else x_sq
+        ex = f32_const(2.0, ex) * ex - x_sq - (q * q).sum(dim=1, keepdim=True)
+    ex = torch.where(v > NEG_INF, ex, NEG_INF)
+    v2, pos = topk_stable(ex, k)
+    return v2, torch.gather(gids, 1, pos)
+
+
+def host_rows_sq(rows: np.ndarray, assign: np.ndarray, centroids: np.ndarray,
+                 scale: float) -> np.ndarray:
+    """(N,) f32 ‖x̂‖² of every host-store row (x̂ = c[assign] + scale·r), on
+    the host in 1M-row chunks (the reference's ``host_rows_sq``): the l2
+    host rescore's bias."""
+    cents = np.asarray(centroids, np.float32)
+    s = np.float32(scale)
+    n = rows.shape[0]
+    out = np.empty(n, np.float32)
+    for lo in range(0, n, 1 << 20):
+        hi = min(n, lo + (1 << 20))
+        x = cents[assign[lo:hi]] + rows[lo:hi].astype(np.float32) * s
+        out[lo:hi] = np.einsum("nd,nd->n", x, x)
+    return out
 
 
 def _next_pow2(x: int) -> int:

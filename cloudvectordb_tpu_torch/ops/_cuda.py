@@ -51,8 +51,9 @@ _SIGNATURES = {
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "pq_scan": {
-        "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 7 + [_CI] * 12 + [_VP], _CI),
-        "cvdb_pq_scan_smem_bytes": ([_CI] * 4, _CI),
+        "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 9 + [_CI] * 12 + [_VP], _CI),
+        "cvdb_pq_scan_smem_bytes": ([_CI] * 6, _CI),
+        "cvdb_pq_row_bias": ([_VP, _CLL, _CLL] + [_VP] * 4 + [_CLL] + [_CI] * 6 + [_VP], _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "mha_small_head": {
@@ -294,30 +295,43 @@ def tiles_scan_slots(source: int, db, q, table, sqnorm, *, n_qt: int, tile_q: in
     return out_v[0], out_i[0]
 
 
-def pq_scan_slots(source: int, codes, local, cb, ct, q, table, *, n_qt: int, tile_q: int,
-                  steps: int, tile_n: int, l_buckets: int, n_valid: int, n_pools: int,
-                  top2: bool):
-    """Launch the PQ scan (K5 with ``source`` TABLE, K6 with ALL, numbered
-    as ops/band.py's SCAN_*): (n_slots, Q, L) f32 slot values and int32
-    arena rows, on the tensors' device and PyTorch's current stream.
-    ``codes`` is the (N, m) uint8 code of each row under any strides (the
-    row-major arena, or a code-major matrix transposed); ``local`` (N,)
-    uint8 and ``ct`` (n_tiles, W, D) bf16 are both None without a residual
-    term. Shapes are checked by ops/pq.py; this checks what the kernel
-    reads raw."""
+def _pq_side(codes, local, cb, ct) -> None:
+    """What the PQ scan and its bias kernel read raw besides the codes."""
     dev = codes.device
-    if codes.dtype != torch.uint8 or codes.device != dev:
+    if codes.dtype != torch.uint8:
         raise ValueError(f"codes: need uint8 on {dev}, got {codes.dtype}")
     _need(cb, "codebooks", torch.bfloat16, dev)
-    _need(q, "queries", torch.bfloat16, dev)
     if (ct is None) != (local is None):
         raise ValueError("the residual term needs both local ids and centroid tiles")
     if ct is not None:
         _need(ct, "centroid_tiles", torch.bfloat16, dev)
         if local.dtype != torch.uint8 or local.device != dev or local.stride(0) != 1:
             raise ValueError("local ids: need a contiguous uint8 vector on the device")
+
+
+def pq_scan_slots(source: int, codes, local, cb, ct, q, table, row_mask=None, row_bias=None,
+                  *, n_qt: int, tile_q: int, steps: int, tile_n: int, l_buckets: int,
+                  n_valid: int, n_pools: int, top2: bool):
+    """Launch the PQ scan (K5 with ``source`` TABLE, K6 with ALL, numbered
+    as ops/band.py's SCAN_*): (n_slots, Q, L) f32 slot values and int32
+    arena rows, on the tensors' device and PyTorch's current stream.
+    ``codes`` is the (N, m) uint8 code of each row under any strides (the
+    row-major arena, or a code-major matrix transposed); ``local`` (N,)
+    uint8 and ``ct`` (n_tiles, W, D) bf16 are both None without a residual
+    term; ``row_mask`` (N,) uint8 allow bytes and ``row_bias`` (N,) f32 l2
+    bias are optional (K5). Shapes are checked by ops/pq.py; this checks
+    what the kernel reads raw. Offsets into the codes are 64-bit."""
+    dev = codes.device
+    _pq_side(codes, local, cb, ct)
+    _need(q, "queries", torch.bfloat16, dev)
     if table is not None:
         _need(table, "table", torch.int32, dev)
+    for t, name, dt in ((row_mask, "row_mask", torch.uint8),
+                        (row_bias, "row_bias", torch.float32)):
+        if t is not None:
+            _need(t, name, dt, dev)
+            if t.numel() != codes.shape[0]:
+                raise ValueError(f"{name}: {t.numel()} entries for {codes.shape[0]} rows")
     n, m = codes.shape
     nq, d = q.shape
     _, ncode, dsub = cb.shape
@@ -327,7 +341,8 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, *, n_qt: int, til
         raise ValueError(f"{n_qt} query tiles of {tile_q}, {n_pools} pools exceed the grid")
     w = 0 if ct is None else ct.shape[1]
     lib = _load("pq_scan")
-    smem = lib.cvdb_pq_scan_smem_bytes(m, dsub, w, int(top2))
+    smem = lib.cvdb_pq_scan_smem_bytes(m, dsub, w, int(top2), int(row_mask is not None),
+                                       int(row_bias is not None))
     if smem > _SMEM_MAX:
         raise ValueError(f"m={m}, dsub={dsub}, W={w} need {smem} B of shared memory "
                          f"> {_SMEM_MAX}")
@@ -338,12 +353,32 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, *, n_qt: int, til
         source, int(top2), codes.data_ptr(), codes.stride(0), codes.stride(1),
         None if local is None else local.data_ptr(), cb.data_ptr(),
         None if ct is None else ct.data_ptr(), q.data_ptr(),
-        None if table is None else table.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+        None if table is None else table.data_ptr(), _ptr(row_mask), _ptr(row_bias),
+        out_v.data_ptr(), out_i.data_ptr(),
         n_qt, tile_q, steps, tile_n, l_buckets, m, ncode, dsub, w, n_valid, n_pools,
         _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "pq_scan")
     return out_v, out_i
+
+
+def pq_row_bias(codes, local, cb, ct, *, tile_n: int):
+    """Launch K5's l2 bias kernel: (N,) f32 -|x|^2 / 2 of every row of the
+    (N, m) codes (any strides), on the tensors' device and PyTorch's
+    current stream. Shapes are checked by ops/pq.py."""
+    dev = codes.device
+    _pq_side(codes, local, cb, ct)
+    n, m = codes.shape
+    _, ncode, dsub = cb.shape
+    w = 0 if ct is None else ct.shape[1]
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = _load("pq_scan")
+    rc = lib.cvdb_pq_row_bias(
+        codes.data_ptr(), codes.stride(0), codes.stride(1), _ptr(local), cb.data_ptr(),
+        _ptr(ct), out.data_ptr(), n, tile_n, m, ncode, dsub, w, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "pq_row_bias")
+    return out
 
 
 def _attn_shapes(q, k, v, mask, d: int) -> tuple[int, int]:

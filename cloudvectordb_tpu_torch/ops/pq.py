@@ -23,11 +23,19 @@ second term formed once per table entry: the same bf16 products, summed in
 another f32 order (held to these plain versions within 1e-4 on the card,
 and by ``tests/port/test_torch_pq_kernel.py`` on the CPU).
 
+K5's two further variants (``pallas_pq.py:205-249``). ``row_mask`` (N_pad,)
+int8 allow bits: a row is a candidate iff g < n_valid and its bit is set.
+``l2``: the key is q·x̂ - ‖x̂‖²/2. The plain version subtracts ‖x̂‖²/2 from
+the decoded x̂ as interpret mode does; the kernel never forms x̂, so it adds
+a per-row bias -‖x̂‖²/2 that ``pq_row_bias`` writes once per arena state (a
+kernel of its own on CUDA; the index caches it) and the wrapper computes
+when it is not given. The caller turns the key into -‖q - x̂‖².
+
 K5 walks each query tile's table of arena tiles; K6 walks every tile of a
-code-major (m, N) matrix with no residual term. Not ported (each raises
-NotImplementedError, ROADMAP queue 1 item 13): ``row_mask`` (filters),
-``l2``, and segmented arenas (tuple ``codes_cm``, ``n_live_tiles``), which
-exist for a Mosaic DMA-descriptor limit the card does not have.
+code-major (m, N) matrix with no residual term. Segmented arenas (tuple
+``codes_cm``, ``n_live_tiles``) raise NotImplementedError: they exist for a
+Mosaic DMA-descriptor limit the card does not have (one arena holds 125M x
+64 codes, its offsets 64-bit).
 """
 
 from __future__ import annotations
@@ -36,27 +44,43 @@ import torch
 
 from cloudvectordb_tpu_torch.ops.band import (
     SCAN_ALL, SCAN_TABLE, _bucket_merge, _bucket_merge_top2, _final_topk, _resolve_buckets)
-from cloudvectordb_tpu_torch.ops.topk import NEG_INF
+from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const
 
-_LATER = "arrives with the rest of the PQ-tiles family (ROADMAP queue 1 item 13)"
+_SEGMENTS = ("segmented PQ arenas: a Mosaic DMA-descriptor workaround the card does not "
+             "need (one arena, 64-bit offsets)")
+
+
+def _decode_rows(codes, local, cbf, ctf, g, tile_n: int):
+    """f32 x̂ of arena rows ``g`` (any shape): the codewords of each row
+    plus, with ``ctf``, its tile's centroid row of its local byte; (*g.shape,
+    D)."""
+    m = codes.shape[1]
+    sub = torch.arange(m, device=codes.device)
+    xhat = cbf[sub, codes[g].long()].reshape(*g.shape, -1)
+    if ctf is not None:
+        xhat = xhat + ctf[g // tile_n, local[g].long()]
+    return xhat
 
 
 def _pq_slots_reference(codes, local, cb, ct, q, tiles, *, tile_n: int, tile_q: int,
-                        l_buckets: int, n_valid: int, n_pools: int, top2: bool):
+                        l_buckets: int, n_valid: int, n_pools: int, top2: bool,
+                        row_mask=None, l2: bool = False, row_bias=None):
     """Plain PQ slot scan: (n_slots, Q, L) f32 values and int32 arena rows.
     ``codes`` (N, m) uint8 rows (any strides), ``local`` (N,) uint8 or None,
     ``cb`` (m, ncode, dsub) and ``ct`` (n_tiles, W, D) bf16 (ct None: no
     residual term), ``q`` (Q, D) bf16, ``tiles`` (n_qt, S) int64 the arena
-    tile of each query tile at each step. Only tile-sized row blocks are
-    gathered and decoded."""
+    tile of each query tile at each step. ``row_mask`` (N,) uint8 allow
+    bytes; ``l2`` adds ``row_bias`` (N,) f32, or -‖x̂‖²/2 from the decoded
+    rows when it is None. Only tile-sized row blocks are gathered and
+    decoded."""
     n, m = codes.shape
     nq, d = q.shape
     n_qt, steps = tiles.shape
     dev = codes.device
     cbf = cb.float()
     ctf = None if ct is None else ct.float()
-    sub = torch.arange(m, device=dev)
     row_iota = torch.arange(tile_n, device=dev, dtype=torch.int64)
+    half = f32_const(0.5, cbf)
     qt = q.float().view(n_qt, tile_q, d)
     n_slots = n_pools * (2 if top2 else 1)
     best_v = torch.full((n_slots, n_qt, tile_q, l_buckets), NEG_INF, device=dev)
@@ -65,11 +89,15 @@ def _pq_slots_reference(codes, local, cb, ct, q, tiles, *, tile_n: int, tile_q: 
         t = tiles[:, j]
         g = t[:, None] * tile_n + row_iota  # (n_qt, tile_n)
         gc = g.clamp(0, n - 1)
-        xhat = cbf[sub, codes[gc].long()].reshape(n_qt, tile_n, d)
-        if ctf is not None:
-            xhat = xhat + ctf[t[:, None], local[gc].long()]
+        xhat = _decode_rows(codes, local, cbf, ctf, gc, tile_n)
         scores = torch.bmm(qt, xhat.transpose(1, 2))
-        scores = torch.where((g < n_valid)[:, None, :], scores, NEG_INF)
+        if l2:
+            bias = -half * (xhat * xhat).sum(dim=2) if row_bias is None else row_bias[gc]
+            scores = scores + bias[:, None, :]
+        live = g < n_valid
+        if row_mask is not None:
+            live = live & (row_mask[gc] != 0)
+        scores = torch.where(live[:, None, :], scores, NEG_INF)
         pid = j % n_pools
         base = t * tile_n
         if top2:
@@ -94,9 +122,10 @@ def _slots_topk(out_v, out_i, k: int):
 
 def _pq_slots(source: int, codes, local, cb, ct, q, table, steps: int, *, tile_n: int,
               tile_q: int, l_buckets: int, n_valid: int, n_pools: int, top2: bool,
-              plain: bool):
+              plain: bool, row_mask=None, l2: bool = False, row_bias=None):
     """(n_slots, Q, L) slots of a PQ scan: the plain version when ``plain``
-    or on CPU tensors, the kernel (csrc/pq_scan.cu) on CUDA tensors.
+    or on CPU tensors, the kernel (csrc/pq_scan.cu) on CUDA tensors, which
+    takes the l2 key as ``row_bias`` (computed here when None).
     Returns (values, rows, launched)."""
     dev = codes.device
     if plain or dev.type == "cpu":
@@ -104,18 +133,66 @@ def _pq_slots(source: int, codes, local, cb, ct, q, table, steps: int, *, tile_n
         tiles = step[None, :] if source == SCAN_ALL else table.long()
         out = _pq_slots_reference(codes, local, cb, ct, q, tiles, tile_n=tile_n,
                                   tile_q=tile_q, l_buckets=l_buckets, n_valid=n_valid,
-                                  n_pools=n_pools, top2=top2)
+                                  n_pools=n_pools, top2=top2, row_mask=row_mask, l2=l2,
+                                  row_bias=row_bias)
         return (*out, False)
     if dev.type != "cuda":
         raise NotImplementedError(f"no PQ scan for {dev.type} tensors")
     from cloudvectordb_tpu_torch.ops import _cuda
 
+    if l2 and row_bias is None:
+        row_bias = pq_row_bias(codes, local, cb, ct, tile_n=tile_n)
     out = _cuda.pq_scan_slots(
         source, codes, local, cb, ct, q,
         None if table is None else table.to(torch.int32).contiguous(),
+        row_mask, row_bias if l2 else None,
         n_qt=q.shape[0] // tile_q, tile_q=tile_q, steps=steps, tile_n=tile_n,
         l_buckets=l_buckets, n_valid=n_valid, n_pools=n_pools, top2=top2)
     return (*out, True)
+
+
+def pq_row_bias_reference(codes, local, codebooks, centroid_tiles, tile_n: int,
+                          chunk: int = 1 << 16):
+    """Plain version of ``pq_row_bias``: -‖x̂‖²/2 of the decoded f32 rows,
+    ``chunk`` rows at a time."""
+    cbf = codebooks.to(torch.bfloat16).float()
+    ctf = None if centroid_tiles is None else centroid_tiles.to(torch.bfloat16).float()
+    half = f32_const(0.5, cbf)
+    n = codes.shape[0]
+    parts = []
+    for lo in range(0, n, chunk):
+        g = torch.arange(lo, min(n, lo + chunk), device=codes.device)
+        xhat = _decode_rows(codes, local, cbf, ctf, g, tile_n)
+        parts.append(-half * (xhat * xhat).sum(dim=1))
+    return torch.cat(parts) if parts else torch.zeros(0, device=codes.device)
+
+
+def pq_row_bias(codes, local, codebooks, centroid_tiles, tile_n: int):
+    """(N,) f32 l2 bias -‖x̂‖²/2 of every row of the (N, m) uint8 codes
+    (x̂: the bf16 codewords plus, with ``centroid_tiles``, the bf16 centroid
+    row of the row's local byte in its tile, summed in f32): K5's l2 key
+    term. It depends on the arena only, so an index computes it once per
+    arena state. CUDA tensors launch the hand-written kernel
+    (csrc/pq_scan.cu ``pq_bias_kernel``); CPU tensors run the plain version."""
+    n, m = codes.shape
+    if (centroid_tiles is None) != (local is None) or (
+            local is not None and local.numel() != n):
+        raise ValueError("the residual term needs (N,) local bytes and centroid tiles")
+    local = None if local is None else local.reshape(-1)
+    dev = codes.device
+    if dev.type == "cuda":
+        from cloudvectordb_tpu_torch.ops import _cuda
+
+        out = _cuda.pq_row_bias(
+            codes, local,
+            codebooks.to(torch.bfloat16).contiguous(),
+            None if centroid_tiles is None else centroid_tiles.to(torch.bfloat16).contiguous(),
+            tile_n=tile_n)
+        pq_row_bias.launches += 1
+        return out
+    if dev.type != "cpu":
+        raise NotImplementedError(f"no pq_row_bias path for {dev.type} tensors")
+    return pq_row_bias_reference(codes, local, codebooks, centroid_tiles, tile_n)
 
 
 def _check_devices(*ts) -> None:
@@ -128,14 +205,10 @@ def _tiles_args(codes_cm, codebooks, queries_sorted, tile_table, centroid_tiles,
                 tile_q, l_buckets, n_valid, row_major, local_ids, n_pools, n_live_tiles,
                 row_mask, l2):
     """Validate K5's arguments; return (codes (N, m) rows, local or None,
-    bf16 codebooks, bf16 centroid tiles or None, bf16 queries, L,
-    n_valid)."""
+    bf16 codebooks, bf16 centroid tiles or None, bf16 queries, L, n_valid,
+    (N,) uint8 row mask or None)."""
     if isinstance(codes_cm, (list, tuple)) or n_live_tiles is not None:
-        raise NotImplementedError(f"segmented PQ arenas {_LATER}")
-    if row_mask is not None:
-        raise NotImplementedError(f"row_mask (filtered search) {_LATER}")
-    if l2:
-        raise NotImplementedError(f"metric='l2' {_LATER}")
+        raise NotImplementedError(_SEGMENTS)
     residual = centroid_tiles is not None
     m, ncode, dsub = codebooks.shape
     if row_major:
@@ -173,23 +246,37 @@ def _tiles_args(codes_cm, codebooks, queries_sorted, tile_table, centroid_tiles,
         if local.numel() != n or local.dtype != torch.uint8:
             raise ValueError(f"local ids: need ({n},) uint8")
         ct = centroid_tiles.to(torch.bfloat16).contiguous()
-    _check_devices(codes, local, codebooks, queries_sorted, tile_table, ct)
+    if row_mask is not None:
+        if row_mask.numel() != n or row_mask.dtype not in (torch.int8, torch.uint8, torch.bool):
+            raise ValueError(f"row_mask: need ({n},) int8 allow bits, got "
+                             f"{tuple(row_mask.shape)} {row_mask.dtype}")
+        row_mask = row_mask.reshape(-1)
+        row_mask = (row_mask.view(torch.uint8) if row_mask.dtype == torch.int8
+                    else row_mask.to(torch.uint8))
+    _check_devices(codes, local, codebooks, queries_sorted, tile_table, ct, row_mask)
     l_buckets = _resolve_buckets(tile_n, l_buckets)
     n_valid = n if n_valid is None else int(n_valid)
     return (codes, local, codebooks.to(torch.bfloat16).contiguous(), ct,
-            queries_sorted.to(torch.bfloat16).contiguous(), l_buckets, n_valid)
+            queries_sorted.to(torch.bfloat16).contiguous(), l_buckets, n_valid, row_mask)
 
 
 def _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k, centroid_tiles,
                    tile_n, tile_q, l_buckets, n_valid, row_major, local_ids, n_pools,
-                   n_live_tiles, row_mask, l2, top2, plain):
-    codes, local, cb, ct, q, l_buckets, n_valid = _tiles_args(
+                   n_live_tiles, row_mask, l2, top2, plain, row_bias=None):
+    if row_bias is not None and not l2:
+        raise ValueError("row_bias is the l2 key's; pass l2=True")
+    codes, local, cb, ct, q, l_buckets, n_valid, row_mask = _tiles_args(
         codes_cm, codebooks, queries_sorted, tile_table, centroid_tiles, tile_n, tile_q,
         l_buckets, n_valid, row_major, local_ids, n_pools, n_live_tiles, row_mask, l2)
+    if row_bias is not None:
+        if row_bias.numel() != codes.shape[0]:
+            raise ValueError(f"row_bias: {row_bias.numel()} entries for {codes.shape[0]} rows")
+        row_bias = row_bias.reshape(-1).float()
     out_v, out_i, launched = _pq_slots(
         SCAN_TABLE, codes, local, cb, ct, q, tile_table, tile_table.shape[1],
         tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets, n_valid=n_valid,
-        n_pools=n_pools, top2=top2, plain=plain)
+        n_pools=n_pools, top2=top2, plain=plain, row_mask=row_mask, l2=l2,
+        row_bias=row_bias)
     pq_tiles_topk.launches += launched
     return _slots_topk(out_v, out_i, k)
 
@@ -209,29 +296,34 @@ def pq_tiles_topk(
     local_ids=None,  # (1, N_pad) or (N_pad,) uint8 local list byte (row_major + residual)
     n_pools: int = 1,  # independent bucket pools; table entry j -> pool j % n_pools
     n_live_tiles=None,
-    row_mask=None,
-    l2: bool = False,
+    row_mask=None,   # (1, N_pad) or (N_pad,) int8 allow bits (filtered search)
+    l2: bool = False,  # rank by q·x̂ - ‖x̂‖²/2 (module docstring)
     top2: bool = False,  # best two distinct rows per bucket and pool
+    row_bias=None,   # (N_pad,) f32 -‖x̂‖²/2 (pq_row_bias), computed if None
 ):
-    """K5: tile-table-pruned PQ search, inner product on reconstructions:
-    (Q_pad, k') f32 scores and int32 arena rows, k' = min(k, n_slots·L)
-    (module docstring). CUDA tensors launch the hand-written kernel; CPU
-    tensors run the plain version."""
+    """K5: tile-table-pruned PQ search, inner product on reconstructions
+    (or the l2 key): (Q_pad, k') f32 scores and int32 arena rows, k' =
+    min(k, n_slots·L) (module docstring). CUDA tensors launch the
+    hand-written kernel; CPU tensors run the plain version."""
     return _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k,
                           centroid_tiles, tile_n, tile_q, l_buckets, n_valid, row_major,
-                          local_ids, n_pools, n_live_tiles, row_mask, l2, top2, plain=False)
+                          local_ids, n_pools, n_live_tiles, row_mask, l2, top2, plain=False,
+                          row_bias=row_bias)
 
 
 def pq_tiles_topk_reference(codes_cm, codebooks, queries_sorted, tile_table, k: int,
                             centroid_tiles=None, tile_n: int = 1024, tile_q: int = 128,
                             l_buckets: int = 0, n_valid=None, row_major: bool = False,
                             local_ids=None, n_pools: int = 1, n_live_tiles=None,
-                            row_mask=None, l2: bool = False, top2: bool = False):
+                            row_mask=None, l2: bool = False, top2: bool = False,
+                            row_bias=None):
     """Plain PyTorch version of ``pq_tiles_topk`` on any device: the CPU path
-    of the wrapper, and the kernel's yardstick on the card."""
+    of the wrapper, and the kernel's yardstick on the card. With l2 and no
+    ``row_bias`` the key subtracts ‖x̂‖²/2 of the decoded rows."""
     return _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k,
                           centroid_tiles, tile_n, tile_q, l_buckets, n_valid, row_major,
-                          local_ids, n_pools, n_live_tiles, row_mask, l2, top2, plain=True)
+                          local_ids, n_pools, n_live_tiles, row_mask, l2, top2, plain=True,
+                          row_bias=row_bias)
 
 
 def _pq_topk(codes_cm, codebooks, queries, k, tile_n, l_buckets, plain):
@@ -280,3 +372,4 @@ def pq_topk_reference(codes_cm, codebooks, queries, k: int, tile_n: int = 2048,
 #: kernel launches since the last reset (the card run resets and reads them)
 pq_tiles_topk.launches = 0
 pq_topk.launches = 0
+pq_row_bias.launches = 0

@@ -14,13 +14,18 @@ written to a temporary directory (the package's source is not touched):
   first arena tile), so those rows are never scored;
 - ``r``: rows of r == 1 (the second row block of a tile at a slot) are never
   scored; a plan whose tiles hold one row block per slot (R 1) has no such
-  rows.
+  rows;
+- ``mask``: the row mask is ignored, so disallowed rows become candidates;
+- ``l2``: the l2 bias is added twice (the key q . x - |x|^2).
 
 Then, as chip_smoke.py's run_pq does, it builds BASELINE config #3's index
 (10M x 768 OPQ+IVF-PQ, m 64) on the same corpus and queries, and holds each
 build against the plain version at the PQ route's three plans at (p_tiles,
-tile_q) = (224, 32), the op point chip_smoke.py's tune picks there; then K6
-over 1M x 64 codes as run_k6 does. Every hold is chip_smoke.compare with
+tile_q) = (224, 32), the op point chip_smoke.py's tune picks there, and at
+refine_factor 64's plan masked by a random 10% filter (no disallowed row in
+either version's results) and with the l2 key (the bias from the bias
+kernel; its exact scores the l2 key's); then K6 over 1M x 64 codes as run_k6
+does. Every hold is chip_smoke.compare with
 the exact scores, as in chip_smoke.py. One line per (shape, build): passed,
 or the criteria it failed. Exits 1 unless the package's kernel passes every
 hold and each faulted build fails every hold it applies to.
@@ -47,7 +52,11 @@ FAULTS = {
                "const int n_it = (n_steps - (n_steps > 1)) * R;"),
               ("const int j = pid + js * a.n_pools;",
                "const int j = pid + (js + (n_steps > 1)) * a.n_pools;")],
-    "r": [("if (row < x.n_rows) {", "if (row < x.n_rows && x.r != 1) {")],
+    "r": [("if (row < x.n_rows && (!MASK || mask_s[bi * SB + row])) {",
+           "if (row < x.n_rows && (!MASK || mask_s[bi * SB + row]) && x.r != 1) {")],
+    "mask": [("if (row < x.n_rows && (!MASK || mask_s[bi * SB + row])) {",
+              "if (row < x.n_rows) {")],
+    "l2": [("if (L2) sc += bias_s[bi * SB + row];", "if (L2) sc += 2.0f * bias_s[bi * SB + row];")],
 }
 
 
@@ -85,13 +94,13 @@ def build(out: Path) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def hold(libs, label: str, kernel, plain, exact, faults: list[str]) -> list[str]:
+def hold(libs, label: str, kernel, plain, exact, faults: list[str], allow=None) -> list[str]:
     """Each build through one hold; returns what went wrong."""
     wrong = []
     for name in ["kernel", *faults]:
         _cuda._libs["pq_scan"] = libs[name]
         try:
-            c.compare(f"{label} [{name}]", kernel, plain, exact=exact)
+            c.compare(f"{label} [{name}]", kernel, plain, exact=exact, allow=allow)
             if name != "kernel":
                 wrong.append(f"{label}: fault {name} passed the hold")
         except AssertionError as e:
@@ -116,14 +125,31 @@ def main() -> int:
         queries = c.make_queries(chunk_fn, dev, c.B)
         idx, build_s = c.build_pq(dev, chunk_fn)
         c.log(f"[pq] built config #3 in {build_s:.1f} s, tile_n {idx.tile_n}")
-        _, _, _, exact, plans = c.pq_holds(idx, queries, P_TILES, TILE_Q)
+        st, q_s, _, exact, plans = c.pq_holds(idx, queries, P_TILES, TILE_Q)
         for name, args in plans.items():
             r_blocks = args["tile_n"] // args["l_buckets"]
             label = f"K5 {c.pq_plan_label(name, args, c.B, P_TILES)} R{r_blocks}"
             wrong += hold(libs, label, lambda a=args: pq.pq_tiles_topk(**a),
                           lambda a=args: pq.pq_tiles_topk_reference(**a), exact,
                           ["entry", "r"] if r_blocks > 1 else ["entry"])
-        del idx, plans, exact
+        g = torch.Generator(device=dev)
+        g.manual_seed(4242)
+        rm = (torch.rand(st["codes"].shape[0], generator=g, device=dev) < 0.1).to(torch.int8)
+        masked = dict(plans["rf64"], row_mask=rm)
+        wrong += hold(libs, f"K5 {c.pq_plan_label('rf64 masked 10%', masked, c.B, P_TILES)}",
+                      lambda: pq.pq_tiles_topk(**masked),
+                      lambda: pq.pq_tiles_topk_reference(**masked), exact, ["entry", "mask"],
+                      allow=rm)
+        l2 = dict(plans["rf64"], l2=True)
+        bias = pq.pq_row_bias(st["codes"], st["local"], st["codebooks"], st["centroid_tiles"],
+                              idx.tile_n)
+        wrong += hold(libs, f"K5 {c.pq_plan_label('rf64 l2', l2, c.B, P_TILES)}",
+                      lambda: pq.pq_tiles_topk(**l2, row_bias=bias),
+                      lambda: pq.pq_tiles_topk_reference(**l2),
+                      c.pq_exact(st["codes"], st["local"], st["codebooks"],
+                                 st["centroid_tiles"], idx.tile_n, q_s, l2=True),
+                      ["entry", "l2"])
+        del idx, plans, exact, st, bias
         torch.cuda.empty_cache()
         _, cb, codes_cm, _ = c.k6_inputs(chunk_fn)
         kw = dict(tile_n=c.K6_TILE_N)

@@ -543,6 +543,39 @@ def test_filtered_pending_keeps_allowed_rows(data, built):
     assert 3010 not in ij  # the reference loses it
 
 
+def test_pq_route_filtered_pending_returns_no_disallowed_row(data):
+    """The reference's fault on the PQ family's PQ route
+    (cloudvectordb_tpu/index/ivf_band.py:3800, :3898): search and
+    search_device merge pending rows without the filter, so a filtered
+    query near disallowed pending rows gets them back. The port filters
+    pending rows before their top-k (``_merge_pending_topk``) and returns
+    the allowed pending row; the reference's answer is recorded as it is."""
+    from cloudvectordb_tpu.index.ivf_band import BandIVFPQIndex as JaxPQ
+
+    db, _ = data
+    rng = np.random.default_rng(9)
+    probe = rng.standard_normal((1, 64)).astype(np.float32)
+    probe /= np.linalg.norm(probe)
+    near = probe + 0.01 * rng.standard_normal((10, 64)).astype(np.float32)
+    allowed_row = probe + 0.05 * rng.standard_normal((1, 64)).astype(np.float32)
+    added = np.concatenate([near, allowed_row])
+    added /= np.linalg.norm(added, axis=1, keepdims=True)
+    kw = dict(nlist=16, m=8, nbits=6, tile_n=256, tile_q=16, kmeans_iters=4,
+              pq_train_iters=4, refine="none")
+    j = JaxPQ.build(db[:3000], **kw)
+    t = BandIVFPQIndex.build(db[:3000], centroids=j.centroids, codebooks=j.codebooks,
+                             **kw, **CPU)
+    for idx in (j, t):
+        idx.add(added)  # ids 3000..3010 pending; 3010 the allowed one
+    where = np.r_[0:3000, 3010]
+    _, it = t.search(probe, 10, p_tiles=8, where=where)
+    _, idd = t.search_device(torch.from_numpy(probe), 10, p_tiles=8, where=where)
+    _, ij = j.search(probe, 10, p_tiles=8, where=where, interpret=True)
+    assert it[0, 0] == 3010 and int(idd[0, 0]) == 3010
+    assert np.isin(it, where).all() and np.isin(idd.numpy(), where).all()
+    assert np.isin(ij, np.arange(3000, 3010)).any()  # the reference returns disallowed rows
+
+
 def test_l2_pending_annex_filters_and_remove(data, built):
     """Model: test_l2_band.py:72: an l2 residual index with pending and
     annex rows, searched plain and filtered (a filter on which both agree:
@@ -604,15 +637,25 @@ def test_caches_follow_every_mutation(data):
     check(t, "host merge")
 
 
-def test_pq_family_keeps_an_empty_pending_buffer():
-    """BandIVFPQIndex inherits the pending buffer and leaves it empty; its
-    own mutation surface and build_streaming still raise."""
+def test_pq_family_keeps_an_empty_pending_buffer(data):
+    """BandIVFPQIndex's pending buffer holds its own adds (whole-row int8 at
+    its own scale, the codes beside them) and never folds into the base
+    annex: past the threshold the fold is a merge. An empty index
+    reconstructs nothing and an empty stream builds nothing."""
+    db, _ = data
     idx = BandIVFPQIndex(64, 16, m=8, **CPU)
     assert idx._pending.size == 0 and idx._annex is None and idx.ntotal == 0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         idx.reconstruct([0])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         BandIVFPQIndex.build_streaming(iter([]), 16)
+    t = BandIVFPQIndex.build(db[:2800], nlist=16, m=8, nbits=6, tile_n=256, tile_q=16,
+                             kmeans_iters=4, pq_train_iters=4, refine="none", **CPU)
+    t.add(db[2800:3300])
+    assert t._pending.size == 500 and t._annex is None and t._pending_scale > 0
+    assert sum(c.shape[0] for c in t._pending_codes) == 500
+    t.add(db[3300:4000])  # past max(5% of 2800, 4 tiles of 256): the fold merges
+    assert t._pending.size == 0 and t._annex is None and t._n == 4000
 
 
 def test_explicit_ids_and_empty_add(data, built):

@@ -19,9 +19,13 @@ same quantizers.
    its row-major device-build layout, the port's row-major one) and search
    alike; the ``_tune_candidates`` ladders are equal, ``tune()`` runs, and
    the tuners of both packages prune the same candidates.
+4. The refine tiers 'pq2' (ip and l2), 'host' and the 'pq2+host' cascade,
+   ``metric='l2'`` on both routes, anisotropic codebooks and filtered search
+   (``where=``, both routes, search and search_device): the gid-keyed tier
+   stores byte for byte (tier-2 codes; host rows as the refine rows; s₂
+   within 1e-5 relative), searches as in 2, artifacts both ways.
 """
 
-import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,18 +33,29 @@ import pytest
 import torch
 
 from cloudvectordb_tpu.data.synthetic import clustered_vectors, queries_from
+from cloudvectordb_tpu.index.pq import pq_encode_aniso as jax_pq_encode_aniso
 from cloudvectordb_tpu.eval import tune as jax_tune
 from cloudvectordb_tpu.index import load_index as jax_load_index
 from cloudvectordb_tpu.index.ivf_band import BandIVFPQIndex as JaxPQ
 from cloudvectordb_tpu_torch.eval import tune
 from cloudvectordb_tpu_torch.eval.recall import brute_force_topk, recall_at_k
 from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
+from cloudvectordb_tpu_torch.index.pq import pq_encode_aniso
 from cloudvectordb_tpu_torch.index.registry import load_index
 
 KW = dict(nlist=16, m=8, nbits=6, kmeans_iters=6, pq_train_iters=6, tile_n=256, tile_q=16)
 #: (refine, residual): residual-int8 refine, whole-row int8 refine, no refine
 BUILDS = {"resid_int8": ("int8", True), "whole_int8": ("int8", False),
           "resid_none": ("none", True)}
+#: the tiers, l2 and anisotropic codebooks: name -> (build kwargs, l2 data)
+TIER_BUILDS = {
+    "pq2": (dict(refine="pq2", m2=16), False),
+    "pq2_l2": (dict(refine="pq2", m2=16, metric="l2"), True),
+    "host": (dict(refine="host"), False),
+    "int8_l2": (dict(refine="int8", metric="l2", opq=True), True),
+    "host_l2": (dict(refine="host", metric="l2", residual=False), True),
+    "aniso": (dict(refine="none", aniso_eta=4.0), False),
+}
 
 
 @pytest.fixture(scope="module")
@@ -75,9 +90,56 @@ def jax_streamed(data):
         train_sample=1000, **KW)
 
 
+@pytest.fixture(scope="module")
+def l2_data():
+    """Rows of the same process with norms spread over [0.5, 3.0], so that
+    the l2 and ip rankings differ; the exact l2 ground truth."""
+    db = clustered_vectors(4000, 64, n_clusters=32, seed=92, normalize=True)
+    db = db * np.random.default_rng(93).uniform(0.5, 3.0, (4000, 1)).astype(np.float32)
+    q = queries_from(db, 48, seed=94, normalize=False)
+    _, gt = brute_force_topk(db, q, 10, metric="l2")
+    return db, q, gt
+
+
+@pytest.fixture(scope="module")
+def tier_builds(data, l2_data):
+    """The reference's tier, l2 and anisotropic indexes, built once each."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            kw, l2 = TIER_BUILDS[name]
+            rows = (l2_data if l2 else data)[0]
+            cache[name] = JaxPQ.build(rows, **{**KW, **kw})
+        return cache[name]
+
+    return get
+
+
 def _same_quantizers(j) -> dict:
     return dict(centroids=j.centroids, codebooks=j.codebooks, opq_matrix=j.opq_matrix,
-                refine=j.refine, residual=j.residual)
+                refine=j.refine, residual=j.residual, metric=j.metric, m2=j.m2,
+                codebooks2=j.codebooks2, aniso_eta=j.aniso_eta)
+
+
+def _assert_same_tiers(t, j):
+    """The gid-keyed tier stores: tier-2 codes byte for byte, s₂ within
+    1e-5 relative, host rows as the refine rows (their scale an f32 mean/max
+    of another summation order), the host assignments exactly."""
+    if j._tier2_active:
+        np.testing.assert_array_equal(t._codes2_device().numpy(), np.asarray(j._codes2_device()))
+        np.testing.assert_allclose(t.codebooks2, j.codebooks2)
+        if j.metric == "l2":
+            s2_j = np.asarray(j._s2_device())
+            np.testing.assert_allclose(t._s2_device().numpy(), s2_j, rtol=1e-5,
+                                       atol=1e-5 * float(np.abs(s2_j).max()))
+    if j._host_active:
+        rows_j, asg_j = j._host_store()
+        rows_t, asg_t = t._host_store()
+        np.testing.assert_array_equal(asg_t, asg_j)
+        diff = np.abs(rows_t.astype(np.int16) - rows_j.astype(np.int16))
+        assert diff.max() <= 1 and (diff == 0).mean() >= 0.9999, (diff.max(), (diff == 0).mean())
+        assert t._host_scale == pytest.approx(j._host_scale, rel=1e-6)
 
 
 def _jax_arena(j):
@@ -208,44 +270,138 @@ def test_tune_runs_and_prunes_as_the_reference(data, jax_builds):
 
 
 def test_unported_options_raise(data, jax_builds):
-    for bad in (dict(refine="pq2"), dict(refine="host"), dict(refine="pq2+host"),
+    """Every option the PQ family once refused now constructs; what the
+    reference refuses still raises ValueError: an unknown refine tier or
+    metric, the refine route without refine rows, the host tier on the
+    device entry point, the host tier's attach without a streaming build's
+    assignments, explicit ids a tier store cannot append."""
+    for opt in (dict(refine="pq2"), dict(refine="host"), dict(refine="pq2+host"),
                 dict(metric="l2"), dict(aniso_eta=4.0)):
-        with pytest.raises(NotImplementedError):
+        idx = BandIVFPQIndex(64, 16, m=8, device="cpu", **opt)
+        assert idx.ntotal == 0 and idx._pending.size == 0
+    for bad in (dict(refine="int4"), dict(metric="cosine"), dict(m2=7)):
+        with pytest.raises(ValueError):
             BandIVFPQIndex(64, 16, m=8, device="cpu", **bad)
-    with pytest.raises(ValueError):
-        BandIVFPQIndex(64, 16, m=8, refine="int4", device="cpu")
     j = jax_builds("resid_none")
     t = BandIVFPQIndex.build(data[0], device="cpu", **dict(KW, **_same_quantizers(j)))
-    for call in (lambda: t.add(data[0][:4]), lambda: t.remove([1]), t.merge_pending,
-                 lambda: t.merge_from(t), lambda: t.attach_host_refine(None, 1),
-                 lambda: t.search(data[1], 10, where={"tenant": 1})):
-        with pytest.raises(NotImplementedError):
-            call()
     with pytest.raises(ValueError):  # no refine rows to scan
         t.search(data[1], 10, serve_from="refine")
+    with pytest.raises(ValueError):  # built by build(): no gid-keyed assignments
+        t.attach_host_refine(lambda i: data[0], 1)
+    h = BandIVFPQIndex.build(data[0][:2000], refine="host", device="cpu",
+                             **dict(KW, centroids=j.centroids, codebooks=j.codebooks))
+    with pytest.raises(ValueError, match="host"):
+        h.search_device(torch.from_numpy(data[1]), 10, refine_factor=4)
+    with pytest.raises(ValueError, match="non-consecutive"):
+        h.add(data[0][2000:2004], ids=np.arange(5000, 5004))
 
 
-def test_filters_and_l2_still_refused(data, jax_builds, tmp_path):
-    """BandIVFIndex's where=, top2-free l2 and their caches do not leak into
-    the PQ subclass: where= (search and search_device) and metric='l2' (the
-    constructor and a saved l2 manifest) raise, naming item 13."""
+@pytest.mark.parametrize("route", ["pq", "refine"])
+def test_filters_and_l2_still_refused(data, jax_builds, route):
+    """where= on both routes (K5 masked on the PQ route, K1 masked on the
+    refine route), search and search_device, against the reference: a
+    random 40% filter and a correlated one (every row of four adjacent
+    lists, so that the plan drops dead tiles); no disallowed id, unfilled
+    slots (-inf, -1); the filter mask cached per filter and arena state."""
+    db, q, gt = data
     j = jax_builds("resid_int8")
-    t = BandIVFPQIndex.build(data[0], device="cpu", **dict(KW, **_same_quantizers(j)))
-    mask = np.ones(data[0].shape[0], bool)
-    for call in (lambda: t.search(data[1], 10, where=mask),
-                 lambda: t.search_device(torch.from_numpy(data[1]), 10, where=mask),
-                 lambda: t.search(data[1], 10, where=mask, serve_from="refine"),
-                 lambda: BandIVFPQIndex(64, 16, m=8, metric="l2", device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
-    t.save(tmp_path / "pq")
-    manifest = json.loads((tmp_path / "pq" / "manifest.json").read_text())
-    (tmp_path / "pq" / "manifest.json").write_text(json.dumps(dict(manifest, metric="l2")))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        load_index(tmp_path / "pq", device="cpu")
-    # its refine route still takes K1's unfiltered ip top-1 variant
-    v, ids = t.search(data[1], 10, serve_from="refine", p_tiles=4)
-    assert np.isfinite(v).all() and (ids >= 0).all()
+    t = BandIVFPQIndex.build(db, device="cpu", **dict(KW, **_same_quantizers(j)))
+    rand = np.random.default_rng(5).random(db.shape[0]) < 0.4
+    corr = np.zeros(db.shape[0], bool)
+    corr[np.asarray(j._ids)[j._offsets[4]:j._offsets[8]]] = True
+    few = np.zeros(db.shape[0], bool)
+    few[[4, 44, 444]] = True
+    kw = dict(p_tiles=6, refine_factor=16, serve_from=route)
+    for mask in (rand, corr, few):
+        vj, ij = j.search(q, 10, interpret=True, where=mask, **kw)
+        flt = t.make_filter(mask)
+        vt, it = t.search(q, 10, where=flt, **kw)
+        _assert_same_results(vt, it, vj, ij, gt)
+        assert mask[it[it >= 0]].all() and np.isneginf(vt[it < 0]).all()
+        vd, idd = t.search_device(torch.from_numpy(q), 10, where=flt, **kw)
+        np.testing.assert_array_equal(idd.numpy(), it)
+        assert t._arena_row_mask(flt) is t._arena_row_mask(flt)
+    assert (it < 0).any()  # three allowed rows leave every query short
+
+
+@pytest.mark.parametrize("name", list(TIER_BUILDS))
+def test_tier_l2_and_aniso_parity(data, l2_data, tier_builds, name):
+    """Each tier, l2 and anisotropic build against the reference: the arena
+    and the tier stores, then search (both routes where they exist) and
+    search_device, filtered and not."""
+    kw, l2 = TIER_BUILDS[name]
+    db, q, gt = l2_data if l2 else data
+    j = tier_builds(name)
+    t = BandIVFPQIndex.build(db, device="cpu", **dict(KW, **_same_quantizers(j)))
+    _assert_same_arena(t, j)
+    _assert_same_tiers(t, j)
+    _assert_same_search(t, j, q, gt, p_tiles=6, refine_factor=16)
+    mask = np.random.default_rng(6).random(db.shape[0]) < 0.5
+    _assert_same_search(t, j, q, gt, p_tiles=6, refine_factor=32, top2=True, where=mask)
+    if t._have_host() and not t._have_tier2():
+        return  # the host tier serves through search() only
+    if name == "int8_l2":
+        _assert_same_search(t, j, q, gt, device=True, p_tiles=6, serve_from="refine")
+    _assert_same_search(t, j, q, gt, device=True, p_tiles=6, refine_factor=16)
+
+
+def test_aniso_encode_matches_the_reference(data, tier_builds):
+    """pq_encode_aniso against the reference's on the same codebooks and
+    rows (residual-like rows, the full rows as score directions): codes
+    equal but at near-ties (at most 0.1%), and not the isotropic encode's."""
+    db, q, gt = data
+    j = tier_builds("aniso")
+    x = 0.3 * db[:1000] + 0.1 * db[1000:2000]
+    args = (x, db[:1000], j.codebooks)
+    codes_j = np.asarray(jax_pq_encode_aniso(*(jnp.asarray(a) for a in args), eta=4.0))
+    codes_t = pq_encode_aniso(*(torch.from_numpy(a) for a in args), eta=4.0, tile=256).numpy()
+    assert (codes_t != codes_j).mean() <= 1e-3
+    iso = pq_encode_aniso(*(torch.from_numpy(a) for a in args), eta=1.0).numpy()
+    assert (iso != codes_t).mean() > 0.01
+
+
+def test_cascade_parity(data):
+    """'pq2+host': the reference's device-streaming pq2 build with the host
+    tier attached from host copies of the chunks, against the port's; the
+    cascade's shortlist at host_factor 4 and 32, and search_device's
+    on-card prefix (kernel and tier 2)."""
+    db, q, gt = data
+    chunks = lambda i: db[i * 1000:(i + 1) * 1000]  # noqa: E731
+    j = JaxPQ.build_device_streaming(lambda i: jnp.asarray(chunks(i)), 4, refine="pq2",
+                                     m2=16, opq=True, train_sample=1000, **KW)
+    t = BandIVFPQIndex.build_device_streaming(
+        lambda i: torch.from_numpy(chunks(i)), 4, train_sample=1000, device="cpu",
+        **dict(KW, **_same_quantizers(j)))
+    for idx in (j, t):
+        idx.attach_host_refine(chunks, 4)
+        assert idx.refine == "pq2+host"
+    _assert_same_arena(t, j)
+    _assert_same_tiers(t, j)
+    for hf in (4, 32):
+        _assert_same_search(t, j, q, gt, p_tiles=6, refine_factor=32, host_factor=hf)
+    _assert_same_search(t, j, q, gt, device=True, p_tiles=6, refine_factor=32)
+    assert t._tune_candidates(48) == j._tune_candidates(48)
+    assert t._tune_reference_kw(48) == j._tune_reference_kw(48)
+
+
+@pytest.mark.parametrize("name", ["pq2_l2", "host", "int8_l2"])
+def test_tier_artifacts_load_both_ways(data, l2_data, tier_builds, tmp_path, name):
+    """Each tier's and l2's artifact: the reference's loads into the port
+    and the port's into the reference, stores and searches alike."""
+    kw, l2 = TIER_BUILDS[name]
+    db, q, gt = l2_data if l2 else data
+    j = tier_builds(name)
+    j.save(tmp_path / "ref")
+    t = load_index(tmp_path / "ref", device="cpu")
+    assert t.metric == j.metric and t.refine == j.refine
+    _assert_same_arena(t, j)
+    _assert_same_tiers(t, j)
+    _assert_same_search(t, j, q, gt, p_tiles=6, refine_factor=16)
+    t.save(tmp_path / "port")
+    j2 = jax_load_index(tmp_path / "port")
+    _assert_same_arena(t, j2)
+    _assert_same_tiers(t, j2)
+    _assert_same_search(t, j2, q, gt, p_tiles=6, refine_factor=16)
 
 
 @pytest.mark.parametrize("tile_n,expect", [(1024, 256), (384, 256)])

@@ -82,3 +82,22 @@ def test_train_opq_from_the_reference_init(x):
     np.testing.assert_allclose(r @ r.T, np.eye(64), atol=1e-4)
     np.testing.assert_allclose(r, r_j, atol=1e-3, rtol=0)
     np.testing.assert_allclose(cb, cb_j, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("eta", [4.0, 1.0])
+def test_train_pq_aniso_from_the_reference_init(x, eta):
+    """Anisotropic training from the reference's init (two k-means
+    iterations per sub-space from the same rows, then the normal-equation
+    rounds; xdir the rows themselves, x their halves): codebooks within
+    1e-3; eta 1 reduces to Lloyd."""
+    from cloudvectordb_tpu.index.pq import train_pq_aniso as jax_train_pq_aniso
+    from cloudvectordb_tpu_torch.index.pq import train_pq_aniso
+
+    xr = 0.5 * x
+    cb_j = np.asarray(jax_train_pq_aniso(jnp.asarray(xr), jnp.asarray(x), M, NBITS, iters=4,
+                                         eta=eta, seed=3))
+    init = init_codebooks_from_perm(torch.from_numpy(xr), M, NBITS, 3, _perm_fn(x.shape[0]))
+    cb = train_pq_aniso(torch.from_numpy(xr), torch.from_numpy(x), M, NBITS, iters=4, eta=eta,
+                        seed=3, init_codebooks=init)
+    assert cb.shape == cb_j.shape
+    np.testing.assert_allclose(cb.numpy(), cb_j, atol=1e-3, rtol=0)

@@ -7,7 +7,12 @@ and sum the same f32 products, only in another order, so scores agree
 within 1e-5 relative and ids are identical except between candidates whose
 scores agree within that tolerance. Unfilled slots (-inf) must agree
 exactly. The CUDA kernel is held to the same plain version on the card
-(``chip_smoke.py::pq_checks``)."""
+(``chip_smoke.py::pq_checks``).
+
+K5's filtered (``row_mask``) and l2 variants, alone and together and with
+top-2, are held the same way; the l2 key's per-row bias route the kernel
+takes (``pq_row_bias``, added after the split-form score) is held to the
+Pallas kernel within 1e-4 against its own f64 recomputation."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,26 +130,118 @@ def test_pq_topk_matches_the_reference(n, l_buckets):
 
 
 def test_unported_options_raise():
+    """Segmented arenas (a Mosaic DMA-descriptor workaround the card does not
+    need) still raise; a bad mask, a bias without l2 and residual codes
+    without local ids are refused."""
     a = _tiles_inputs(seed=1)
     args = (torch.from_numpy(a["codes"]), torch.from_numpy(a["codebooks"]),
             torch.from_numpy(a["queries"]), torch.from_numpy(a["table"]), 10)
     kw = dict(tile_n=a["tile_n"], tile_q=a["tile_q"], row_major=True)
-    for bad in (dict(row_mask=torch.ones(1, a["codes"].shape[0], dtype=torch.int8)),
-                dict(l2=True), dict(n_live_tiles=3)):
-        with pytest.raises(NotImplementedError):
-            pq.pq_tiles_topk(*args, **kw, **bad)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="segmented"):
+        pq.pq_tiles_topk(*args, **kw, n_live_tiles=3)
+    with pytest.raises(NotImplementedError, match="segmented"):
         pq.pq_tiles_topk((args[0], args[0]), *args[1:], **kw)
+    n = a["codes"].shape[0]
+    for bad in (dict(row_mask=torch.ones(1, n - 1, dtype=torch.int8)),
+                dict(row_bias=torch.zeros(n))):
+        with pytest.raises(ValueError):
+            pq.pq_tiles_topk(*args, **kw, **bad)
     with pytest.raises(ValueError):  # residual row-major codes need local ids
         pq.pq_tiles_topk(*args, centroid_tiles=torch.from_numpy(a["centroid_tiles"]), **kw)
 
 
-def _split_form_topk(a, residual: bool, n_pools: int, top2: bool, l_buckets: int, k: int):
+#: K5's contract variants held to the reference: (residual, n_pools, top2,
+#: l_buckets, masked, l2)
+VARIANT_CASES = [
+    (True, 1, False, 0, True, False),    # masked
+    (True, 2, False, 32, False, True),   # l2
+    (True, 2, False, 32, True, True),    # masked + l2
+    (True, 2, True, 32, True, False),    # masked + top-2
+    (False, 3, True, 16, True, True),    # all at once, no residual term
+    (True, 1, True, 0, True, True),      # all at once, R 1
+]
+
+
+def _mask(n: int, seed: int) -> np.ndarray:
+    """(N,) int8 allow bits: a 6% random filter with one tile all but
+    disallowed, so that queries run short of allowed rows."""
+    rng = np.random.default_rng(seed)
+    m = (rng.random(n) < 0.06).astype(np.int8)
+    m[128:256] = 0
+    m[200] = 1
+    return m
+
+
+@pytest.mark.parametrize("residual,n_pools,top2,l_buckets,masked,l2", VARIANT_CASES)
+def test_pq_tiles_variants_match_the_reference(residual, n_pools, top2, l_buckets, masked, l2):
+    """Filtered and l2 K5 (and both, and with top-2) against the Pallas
+    kernel in interpret mode: ids equal but at ties, scores within 1e-5
+    relative, unfilled slots equal; no disallowed row in a filled slot; the
+    plain version with the precomputed bias (the kernel's route) equal to
+    the wrapper's within 1e-5 (the bias is the same sum in another order)."""
+    a = _tiles_inputs(seed=7 + n_pools + 10 * top2 + 100 * masked + 1000 * l2)
+    n = a["codes"].shape[0]
+    mask = _mask(n, n_pools) if masked else None
+    ct = a["centroid_tiles"] if residual else None
+    kw = dict(tile_n=a["tile_n"], tile_q=a["tile_q"], l_buckets=l_buckets,
+              n_valid=a["n_valid"], row_major=True, n_pools=n_pools, top2=top2, l2=l2)
+    k = 40
+    v_j, i_j = pq_tiles_topk_pallas(
+        jnp.asarray(a["codes"]), jnp.asarray(a["codebooks"]), jnp.asarray(a["queries"]),
+        jnp.asarray(a["table"]), k,
+        centroid_tiles=None if ct is None else jnp.asarray(ct, jnp.bfloat16),
+        local_ids=jnp.asarray(a["local"][None, :]) if residual else None,
+        row_mask=None if mask is None else jnp.asarray(mask[None, :]),
+        interpret=True, **kw)
+    args = (torch.from_numpy(a["codes"]), torch.from_numpy(a["codebooks"]),
+            torch.from_numpy(a["queries"]), torch.from_numpy(a["table"]), k)
+    kw_t = dict(kw, centroid_tiles=None if ct is None else torch.from_numpy(ct),
+                local_ids=torch.from_numpy(a["local"][None, :]) if residual else None,
+                row_mask=None if mask is None else torch.from_numpy(mask[None, :]))
+    v_t, i_t = pq.pq_tiles_topk(*args, **kw_t)
+    assert pq.pq_tiles_topk.launches == 0
+    _assert_same_topk(v_t.numpy(), i_t.numpy(), v_j, i_j)
+    if masked:
+        filled = np.isfinite(v_t.numpy())
+        assert (mask[i_t.numpy()[filled]] == 1).all()
+        assert (~filled).any()  # the sparse tile leaves some queries short
+    if l2:
+        bias = pq.pq_row_bias(args[0], kw_t["local_ids"], args[1], kw_t["centroid_tiles"],
+                              a["tile_n"])
+        assert pq.pq_row_bias.launches == 0
+        v_b, i_b = pq.pq_tiles_topk_reference(*args, **kw_t, row_bias=bias)
+        _assert_same_topk(v_b.numpy(), i_b.numpy(), v_t.numpy(), i_t.numpy())
+
+
+def test_pq_row_bias_is_the_exact_norm():
+    """pq_row_bias (CPU: its plain version) against -|x|^2/2 recomputed in
+    f64 from the bf16 codewords and centroid rows, residual and not."""
+    a = _tiles_inputs(seed=3)
+    codes, local = torch.from_numpy(a["codes"]), torch.from_numpy(a["local"])
+    cb = torch.from_numpy(a["codebooks"])
+    ct = torch.from_numpy(a["centroid_tiles"])
+    m = codes.shape[1]
+    x = cb.to(torch.bfloat16).double()[torch.arange(m), codes.long()].reshape(codes.shape[0], -1)
+    for resid in (False, True):
+        want = x + (ct.to(torch.bfloat16).double()[torch.arange(codes.shape[0]) // a["tile_n"],
+                                                   local.long()] if resid else 0.0)
+        got = pq.pq_row_bias(codes, local if resid else None, cb, ct if resid else None,
+                             a["tile_n"])
+        exact = -0.5 * (want * want).sum(1)
+        assert got.dtype == torch.float32
+        assert float((got.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+    with pytest.raises(ValueError):
+        pq.pq_row_bias(codes, local, cb, None, a["tile_n"])
+
+
+def _split_form_topk(a, residual: bool, n_pools: int, top2: bool, l_buckets: int, k: int,
+                     mask=None, l2: bool = False):
     """The card kernel's arithmetic (csrc/pq_scan.cu), written in torch: the
     bf16 query times the bf16 concatenation of a row's codewords in f32,
     plus, in residual mode, C[q, w] = q · ct[tile, w] (f32) added after by
-    the row's local byte; then the bucketed merge and the final top-k of
-    ops/band.py and ops/pq.py."""
+    the row's local byte; with l2, plus the row's bias -|x|^2/2 (f32 x
+    squared in f64, as pq_bias_kernel); a mask byte of 0 scores -inf; then
+    the bucketed merge and the final top-k of ops/band.py and ops/pq.py."""
     codes = torch.from_numpy(a["codes"]).long()
     local = torch.from_numpy(a["local"]).long()
     cb = torch.from_numpy(a["codebooks"]).to(torch.bfloat16).float()
@@ -157,6 +254,10 @@ def _split_form_topk(a, residual: bool, n_pools: int, top2: bool, l_buckets: int
     n_qt, steps = table.shape
     lb = l_buckets or tile_n
     rows = cb[torch.arange(m), codes].reshape(n, d)  # every row's codewords, bf16 values
+    bias = None
+    if l2:
+        x = rows + (ct[torch.arange(n) // tile_n, local] if residual else 0.0)
+        bias = (-0.5 * (x.double() * x.double()).sum(1)).float()
     qt = q.view(n_qt, tile_q, d)
     n_slots = n_pools * (2 if top2 else 1)
     best_v = torch.full((n_slots, n_qt, tile_q, lb), float("-inf"))
@@ -168,7 +269,12 @@ def _split_form_topk(a, residual: bool, n_pools: int, top2: bool, l_buckets: int
         if residual:
             c = torch.bmm(qt, ct[t].transpose(1, 2))  # (n_qt, tile_q, W)
             scores = scores + torch.gather(c, 2, local[g][:, None, :].expand(-1, tile_q, -1))
-        scores = torch.where((g < n_valid)[:, None, :], scores, float("-inf"))
+        if bias is not None:
+            scores = scores + bias[g][:, None, :]
+        live = g < n_valid
+        if mask is not None:
+            live = live & (torch.from_numpy(mask)[g] != 0)
+        scores = torch.where(live[:, None, :], scores, float("-inf"))
         pid, base = j % n_pools, t * tile_n
         if top2:
             s1, s2 = 2 * pid, 2 * pid + 1
@@ -212,3 +318,34 @@ def test_tensor_core_split_form_holds_to_the_reference(m, dsub, nbits, residual,
     same = i == i_ref
     assert same.mean() >= 0.999
     assert np.all(diff[~same & live] <= 1e-4)  # a differing id is a near-tie
+
+
+@pytest.mark.parametrize("masked,l2", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("m,dsub,nbits", [(64, 12, 8), (6, 5, 8)])
+def test_split_form_variants_hold_to_the_reference(m, dsub, nbits, masked, l2):
+    """The kernel's split form with the mask byte and the per-row l2 bias
+    (the route csrc/pq_scan.cu takes) against the Pallas kernel's masked and
+    l2 variants in interpret mode, residual with top-2: |dscore| <= 1e-4,
+    ids >= 0.999 equal, mismatches only at near-ties."""
+    a = _tiles_inputs(seed=m + dsub + 5 * masked + 7 * l2, m=m, nbits=nbits, dsub=dsub)
+    d = m * dsub
+    for key in ("codebooks", "centroid_tiles", "queries"):
+        a[key] = a[key] / np.float32(np.sqrt(d))
+    mask = _mask(a["codes"].shape[0], m) if masked else None
+    n_pools, l_buckets, k = 2, 32, 40
+    v_ref, i_ref = pq_tiles_topk_pallas(
+        jnp.asarray(a["codes"]), jnp.asarray(a["codebooks"]), jnp.asarray(a["queries"]),
+        jnp.asarray(a["table"]), k, centroid_tiles=jnp.asarray(a["centroid_tiles"], jnp.bfloat16),
+        local_ids=jnp.asarray(a["local"][None, :]),
+        row_mask=None if mask is None else jnp.asarray(mask[None, :]),
+        tile_n=a["tile_n"], tile_q=a["tile_q"], l_buckets=l_buckets, n_valid=a["n_valid"],
+        row_major=True, n_pools=n_pools, top2=True, l2=l2, interpret=True)
+    v, i = _split_form_topk(a, True, n_pools, True, l_buckets, k, mask=mask, l2=l2)
+    v, i, v_ref, i_ref = v.numpy(), i.numpy(), np.asarray(v_ref), np.asarray(i_ref)
+    live = np.isfinite(v_ref)
+    np.testing.assert_array_equal(live, np.isfinite(v))
+    diff = np.abs(v - v_ref)
+    assert diff[live].max(initial=0.0) <= 1e-4
+    same = i == i_ref
+    assert same.mean() >= 0.999
+    assert np.all(diff[~same & live] <= 1e-4)
