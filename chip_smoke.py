@@ -60,6 +60,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scores from -|q - x|^2); then the l2 bias kernel over the arena and K1's
    'precise', masked (10%), l2 and top-2 plans against their plain
    versions (held through exact f64 scores), each timed, with its bound;
+   then cell 14, sharded serving (``run_sharded``, the residual index
+   freed first; alone: ``cell14``), at BASELINE config #4's per-card share
+   on cell 1's quantizer: (a) a 4-shard ``ShardedBandIndex`` on this card
+   (``make_mesh(4)``) by ``build_streaming`` of the 25 chunks,
+   ``tune(gt=)`` at B 4096 against the exact top-10 of every query,
+   recall@10 >= 0.90 at the op point and, at full coverage, no more than
+   0.005 below cell 1's single index, device QPS, a 10% and a 3-id filter
+   (no disallowed id, (-inf, -1) tails), a torch.profiler split, the
+   merge's time, and K1 at shard 0's plan against its plain version (held
+   as cell 1's, timed, with its bound); (b) two spawned processes (gloo)
+   loading 2 + 2 shards of a saved 1M-row 4-shard index: ids and scores
+   equal to one process at p 32 and at full coverage; (c)
+   ``DistributedFlatIndex`` over those 1M rows (K2, f32 ip, 4096 queries)
+   equal to the exact top-10 under K2's one-row-a-bucket rule, near-ties
+   aside; (d) the saved index loaded (equal at both plans) and resharded
+   4 -> 2 (ids equal by position on >= 0.999, recall within 0.001);
 6. the whole-row path on the same corpus, queries and ground truth (the
    residual index freed first): ``build_device_streaming(residual=False)``
    (int8), ``tune``, ``search_device`` with the default hybrid scoring (QPS
@@ -157,7 +173,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at rf 64 within 0.01 of the method's exact oracle, 8,192 removes (no
    removed id back, recall within 0.01), ``merge_from`` of two halves
    (every id once, recall within 0.005) and ``reconstruct`` (cosine >=
-   0.99));
+   0.99)); in it cell 14 (e): 4-shard ``ShardedIVFPQIndex`` builds on
+   cell 11's quantizers, recall@10 at nprobe 1, 16 and 64 within 0.01 of
+   the single index on the ADC route and no more than 0.01 below it with
+   the int8 refine (rf 64: rf·10 candidates a shard, the reference's
+   rule), and at full probe no more than 0.01 below the method's oracle;
 11. K4 (mha_small_head) against its plain version, forward outputs and dq,
    dk, dv: L 128, 256 and 512, (H, d) (12, 32) and (12, 64), f32 and bf16,
    and (12, 16) bf16, ragged key padding and a fully masked sequence; each
@@ -187,7 +207,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    back, each repetition);
 15. cell 12, the pipeline from raw text (``run_pipeline``), driven through
    the CLI entry point in this process (``cli.main(["pipeline", ...])``)
-   on a temporary workdir: 250,000 synthetic passages, 50,000 inbatch
+   on a temporary workdir: 125,000 synthetic passages, 50,000 inbatch
    triplets (cut from 1M and 100,000 to keep the run in its time limit),
    MiniLM-L6-384 at full width (bf16, max_len 128, dropout 0.1, no probs
    dropout, 'packed': K4 forward and backward in training, K4 in
@@ -195,7 +215,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    residual-int8 band_ivf index (nlist 4096), tune, eval; the stage table
    from metrics.jsonl (host tokenization, tokenizer training and corpus
    synthesis split out; kernel launches per stage); every stage's marker
-   and artifact, a finite falling loss, 250,000 x 384 finite unit-norm
+   and artifact, a finite falling loss, 125,000 x 384 finite unit-norm
    embeddings (within 1e-3), K4 forward and backward in train, K4 in
    encode and K1 in tune and eval launched, eval recall@10 >= 0.90 against
    the exact f64 ground truth; a second ``pipeline`` on the workdir must
@@ -339,7 +359,7 @@ KERNELS["K5b"] = {"name": "pq_row_bias", "route": "cuda", "source": _PQ,
 SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2", "K1 precise": "K1",
                  "K1 masked": "K1", "K1 l2": "K1", "K1 top2": "K1", "K3 top2": "K3",
                  "K1 mutated": "K1", "K3 top2 f32": "K3", "K3 top2 deep": "K3",
-                 "K5 masked": "K5", "K5 l2": "K5"}
+                 "K5 masked": "K5", "K5 l2": "K5", "K1 sharded": "K1"}
 KERNELS.update({key: dict(KERNELS[base], **({"name": f"{KERNELS[base]['name']} "
                                                      f"{' '.join(key.split()[1:])}"}
                                             if key.split()[1] in VARIANTS else {}))
@@ -1423,9 +1443,14 @@ def run_residual(dev, chunk_fn, n_chunks, queries, gt, card, reps: int = 7) -> d
     p_tiles, tq, _ = idx._resolve_knobs(queries.shape[0], 32, 0, op.get("tile_q"))
     mp = k1_check(f"main path B{queries.shape[0]} p{p_tiles} tq{tq}", idx,
                   k1_plan(idx, queries, p_tiles, tq), reps=10, plain_reps=3)
+    (_, ids_full), n_full = counted(lambda: idx.search_device(
+        queries[:gt.shape[0]], K, p_tiles=idx._tune_n_tiles()))
+    full = recall_at_k(ids_full.cpu().numpy(), gt)
+    log(f"[resid] full coverage ({idx._tune_n_tiles()} tiles): recall@{K} {full:.4f}")
     out = run_resid_variants(dev, idx, chunk_fn, n_chunks, queries, gt, card, p_tiles, tq)
-    return dict(launches={"K1": launches, **out["launches"]}, mp={"K1": mp, **out["mp"]},
-                op=(p_tiles, tq))
+    return dict(launches={"K1": launches + n_full["K1"], **out["launches"]},
+                mp={"K1": mp, **out["mp"]}, op=(p_tiles, tq),
+                cell1=dict(centroids=idx.centroids, full_recall=full))
 
 
 #: filtered search at full width: random filters by fraction of the gids,
@@ -1712,6 +1737,343 @@ def k1_check(label: str, idx, args: dict, reps: int, plain_reps: int,
         f"{mp['bound_ms']:.3f} ms ({mp['bound_by']}): {used} of {idx._tune_n_tiles()} tiles "
         f"read")
     return mp
+
+
+# -- cell 14: sharded serving (parallel/) -----------------------------------------
+SHARDS = 4
+#: the sharded search plans every query group at the index's tile_q (it has
+#: no tile_q knob, as the reference's); cell 1's op point runs tile_q 32
+SHARD_TILE_Q = 32
+#: (b)-(d) run on cell 1's first MH_CHUNKS chunks (1M rows), (b) at a
+#: partial budget of MH_P_TILES tiles a shard and at full coverage
+MH_CHUNKS, MH_P_TILES = 2, 32
+MH_TIMEOUT_S = 300
+#: cell 14 (a): full coverage over 4 shards may read this much below cell
+#: 1's single index at full coverage, no more
+SHARD_FULL_SLACK = 0.005
+#: (c): K2 keeps one row a bucket of its tile_n-row tiles; the collision-aware
+#: exact top-K is drawn from this many exact candidates a query
+FLAT_POOL, K2_TILE_N = 32, 2048
+SHARD_GROUPS = {"K1": ("resid_",), "GEMM": ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_"),
+                "sort and top-k": ("sort", "radix", "topk", "scan")}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_worker(rank: int, world: int, port: int, tmp: str, device: str) -> None:
+    """Cell 14 (b): one of two processes on the one card (gloo; the
+    partials cross through host memory). Loads the two shards its mesh slots
+    hold of the saved 4-shard index, searches the saved queries at the
+    partial and the full plan (a warm-up first; every collective in step on
+    both processes), times the search and the partials' gather (host clock,
+    fenced), and writes its results for the parent."""
+    from cloudvectordb_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.init_multihost(f"127.0.0.1:{port}", world, rank, timeout_s=120)
+    try:
+        tmp = Path(tmp)
+        idx = load_index(tmp / "index", mesh=mesh_mod.make_mesh(SHARDS, devices=[device]))
+        q = np.load(tmp / "queries.npy")
+        out = dict(held=np.array(sum(sh is not None for sh in idx._shards)))
+        idx.search(q, K, p_tiles=MH_P_TILES)
+        for name, p_tiles in (("part", MH_P_TILES), ("full", idx._n_tiles())):
+            (v, i), _, host_s = fenced(lambda: idx.search(q, K, p_tiles=p_tiles))
+            out.update({f"{name}_v": v, f"{name}_i": i, f"{name}_ms": np.array(host_s * 1e3)})
+        v = torch.zeros((2, q.shape[0], K), device=idx.device)
+        times = []
+        for _ in range(5):
+            _, _, host_s = fenced(lambda: mesh_mod._gather_partials(v, v.long(), idx.mesh))
+            times.append(host_s * 1e3)
+        out["gather_ms"] = np.array(np.median(times))
+        np.savez(tmp / f"res_{rank}.npz", **out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_two_processes(tmp: Path, device: torch.device) -> list:
+    """(b): two spawned processes running ``sharded_worker``, each bounded by
+    MH_TIMEOUT_S (a hung collective fails the run); every process stopped
+    before return. Their result files."""
+    ctx = torch.multiprocessing.start_processes(
+        sharded_worker, args=(2, free_port(), str(tmp), str(device)), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + MH_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"two-process search still running after {MH_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    return [dict(np.load(tmp / f"res_{r}.npz")) for r in range(2)]
+
+
+def bucket_keys(idx) -> np.ndarray:
+    """gid -> K1's slot at full coverage in a sharded residual index: shard
+    and arena position modulo tile_n (one slot a bucket, the rows of a
+    bucket a tile apart); -1 for ids it does not hold."""
+    keys = np.full(max(m["gid_bound"] for m in idx._meta), -1, np.int64)
+    for si, sh in enumerate(idx._shards):
+        ids = np.asarray(sh._ids, np.int64)
+        pos = np.flatnonzero(ids >= 0)
+        keys[ids[pos]] = si * sh.tile_n + pos % sh.tile_n
+    return keys
+
+
+def collisions_explain(ids_a: np.ndarray, ids_b: np.ndarray, keys_a: np.ndarray,
+                       keys_b: np.ndarray) -> tuple[int, int]:
+    """(queries whose ids differ, those whose difference no bucket collision
+    explains) between two layouts of the same rows searched at full
+    coverage: each layout returns the exact top-K of its scores but where two
+    rows of a query's top-K share one of its K1 slots, so where the two
+    differ, an id one returns and the other misses must share the other's
+    slot with an id that the other returns."""
+    differ = np.flatnonzero((np.sort(ids_a, 1) != np.sort(ids_b, 1)).any(axis=1))
+    bad = 0
+    for qi in differ:
+        a, b = set(ids_a[qi].tolist()), set(ids_b[qi].tolist())
+        slots_a = {keys_a[g] for g in a}
+        slots_b = {keys_b[g] for g in b}
+        if not (any(keys_b[g] in slots_b for g in a - b)
+                or any(keys_a[g] in slots_a for g in b - a)):
+            bad += 1
+    return int(differ.size), bad
+
+
+def flat_collision_truth(x: torch.Tensor, q: torch.Tensor, rps: int):
+    """(scores (Q, K), ids (Q, K), colliding queries) of the exact f32 top-K
+    under K2's rule on each shard of ``rps`` rows: rows of one shard whose
+    offsets agree modulo K2_TILE_N share one slot, and only the best of them
+    (the lower row on a tie) can surface. Drawn from each query's FLAT_POOL
+    exact candidates, in blocks of 512 queries."""
+    outs, n_coll = [], 0
+    earlier = torch.ones(FLAT_POOL, FLAT_POOL, device=x.device).tril(-1).bool()
+    for s in range(0, q.shape[0], 512):
+        v, g = topk_stable_select(exact_scores(x, q[s:s + 512]), FLAT_POOL)
+        slot = (g // rps) * K2_TILE_N + (g % rps) % K2_TILE_N
+        shadowed = ((slot[:, :, None] == slot[:, None, :]) & earlier[None]).any(dim=2)
+        key = torch.where(shadowed, FLAT_POOL, torch.arange(FLAT_POOL, device=x.device))
+        pos = torch.sort(key, dim=1, stable=True).indices[:, :K]
+        n_coll += int(shadowed[:, :K].any(dim=1).sum())
+        outs.append((torch.gather(v, 1, pos), torch.gather(g, 1, pos)))
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]), n_coll
+
+
+def check_flat_exact(ids: np.ndarray, x: torch.Tensor, q: torch.Tensor, tv: torch.Tensor,
+                     tids: torch.Tensor, label: str) -> None:
+    """Ids must be the collision-aware exact top-K's (``flat_collision_truth``),
+    except ids whose exact score lies within CUT_TIE of its K-th: a missing
+    truth id there, or a returned id scoring there."""
+    n_bad = 0
+    for s in range(0, q.shape[0], 512):
+        sc = exact_scores(x, q[s:s + 512])
+        got = torch.as_tensor(ids[s:s + 512], device=x.device)
+        kth = tv[s:s + 512, -1:]
+        bad_got = (got < 0) | (torch.gather(sc, 1, got.clamp_min(0)) < kth - CUT_TIE)
+        t = tids[s:s + 512]
+        missing = ~(t[:, :, None] == got[:, None, :]).any(dim=2)
+        bad_miss = missing & (tv[s:s + 512] > kth + CUT_TIE)
+        n_bad += int(bad_got.sum()) + int(bad_miss.sum())
+    log(f"[{label}] ids equal to the exact top-{K} under K2's one-row-a-bucket rule but for "
+        f"near-ties: {n_bad == 0} ({n_bad} differences beyond {CUT_TIE})")
+    if n_bad:
+        raise AssertionError(f"{label}: not the exact top-{K}")
+
+
+def check_resharded_rows(a, b) -> None:
+    """Every global id once in each layout, with the same int8 row and the
+    same list (the residual's centroid), between sharded indexes ``a`` and
+    ``b`` of one global scale."""
+    def rows(idx):
+        parts = []
+        for sh in idx._shards:
+            ids = np.asarray(sh._ids, np.int64)
+            pos = np.flatnonzero(ids >= 0)
+            lists = np.searchsorted(sh._offsets, pos, side="right") - 1
+            parts.append((ids[pos], lists, sh._payload[torch.as_tensor(pos, device=sh.device)]))
+        gid = np.concatenate([p[0] for p in parts])
+        order = np.argsort(gid)
+        return (gid[order], np.concatenate([p[1] for p in parts])[order],
+                torch.cat([p[2] for p in parts])[torch.as_tensor(order, device=parts[0][2].device)])
+    (ga, la, ra), (gb, lb, rb) = rows(a), rows(b)
+    if not (a._scale == b._scale and np.array_equal(ga, gb) and np.array_equal(ga, np.unique(ga))
+            and np.array_equal(la, lb) and torch.equal(ra, rb.to(ra.device))):
+        raise AssertionError("(d) the resharded rows, lists or scale differ")
+
+
+def sharded_merge_ms(idx, queries) -> float:
+    """CUDA-event time of the fan-in alone: ``merge_partials`` over SHARDS
+    partials of (B, K), as one search makes them."""
+    from cloudvectordb_tpu_torch.parallel.mesh import merge_partials
+
+    g = torch.Generator(device=queries.device)
+    g.manual_seed(3)
+    parts = [(torch.rand((queries.shape[0], K), generator=g, device=queries.device),
+              torch.randint(0, N_ROWS, (queries.shape[0], K), generator=g,
+                            device=queries.device)) for _ in range(SHARDS)]
+    return time_ms(lambda: merge_partials(parts, K, idx.mesh), reps=10)
+
+
+def cell14(dev) -> dict:
+    """Cell 14 (a)-(d) alone, for a short card call: the corpus, the B
+    queries and the exact top-K of the first NQ_GT, then ``run_sharded`` on
+    a quantizer of its own."""
+    chunk_fn = make_corpus(dev, CHUNK)
+    n_chunks = N_ROWS // CHUNK
+    queries, gt = queries_and_gt(chunk_fn, n_chunks, CHUNK, dev, B)
+    return run_sharded(dev, chunk_fn, n_chunks, queries, gt, card_line(), None)
+
+
+def run_sharded(dev, chunk_fn, n_chunks, queries, gt, card, cell1: dict | None) -> dict:
+    """Cell 14, sharded serving on the one card: (a) BASELINE config #4's
+    per-card share, a 4-shard ``ShardedBandIndex`` (residual int8, nlist
+    4096, ``make_mesh(4)``: four shards on this card) streamed from cell 1's
+    25 chunks on cell 1's quantizer, ``tune(gt=)`` at B 4096 against the
+    exact top-K of all 4096 queries, recall at the op point (>= 0.90) and at
+    full coverage (no more than SHARD_FULL_SLACK below cell 1's single
+    index there), device QPS, a 10% and a 3-id filter, a torch.profiler
+    split and the merge's time, K1 at shard 0's plan against its plain
+    version; (b) two processes on the card (gloo), 2 + 2 shards of a 1M-row
+    index loaded from its saved artifact, id for id and score for score
+    equal to one process at a partial and the full plan; (c)
+    ``DistributedFlatIndex`` over the same 1M rows (K2, f32 ip, 4096
+    queries) against the exact top-K under K2's bucket rule; (d) the saved
+    index loaded (equal) and resharded 4 -> 2 (RESHARD_ID_FLOOR). Launch
+    counts reset just before (a) and read just after each path. ``cell1``
+    None (the cell alone): the quantizer is trained on the first chunk and
+    (a)'s full-coverage floor is not held."""
+    from cloudvectordb_tpu_torch.parallel import (
+        DistributedFlatIndex, ShardedBandIndex, make_mesh)
+
+    kw = dict(residual=True, tile_q=SHARD_TILE_Q, kmeans_iters=10)
+    centroids = None if cell1 is None else cell1["centroids"]
+    t0 = time.perf_counter()
+    reset_launches()
+    idx = ShardedBandIndex.build_streaming((chunk_fn(i) for i in range(n_chunks)), NLIST,
+                                           mesh=make_mesh(SHARDS, devices=[dev]), centroids=centroids, **kw)
+    sync()
+    build_s = time.perf_counter() - t0
+    gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"[sharded] built {idx.ntotal} x {D} on {SHARDS} shards of "
+        f"{[sh.ntotal for sh in idx._shards]} rows ({[sh._tune_n_tiles() for sh in idx._shards]}"
+        f" tiles), nlist {NLIST}, tile_q {SHARD_TILE_Q}: {build_s:.1f} s, resident {gib:.2f} GiB")
+    t0 = time.perf_counter()
+    gt_all = exact_gt(chunk_fn, n_chunks, CHUNK, queries)
+    log(f"[sharded] exact f32 top-{K} of all {queries.shape[0]} queries: "
+        f"{time.perf_counter() - t0:.1f} s")
+    report = tune_logged(idx, queries, "sharded", gt=gt_all)
+    recall, qps = serve(idx, queries, gt_all, 5, "sharded")
+    _, ids_full = idx.search_device(queries[:gt.shape[0]], K, p_tiles=idx._n_tiles())
+    full = recall_at_k(ids_full.cpu().numpy(), gt)  # cell 1's queries and ground truth
+    log(f"[sharded] {card}: op {report['op']}, recall@{K} {recall:.4f} (floor {RECALL_FLOOR}), "
+        f"device QPS {qps['qps']:.1f} ({SHARDS} K1 launches a batch); full coverage "
+        f"({idx._n_tiles()} tiles a shard, the first {gt.shape[0]} queries) {full:.4f}"
+        + ("" if cell1 is None else f", cell 1's single index {cell1['full_recall']:.4f}"))
+    if recall < RECALL_FLOOR:
+        raise AssertionError(f"sharded recall {recall:.4f} < {RECALL_FLOOR}")
+    if cell1 is not None and full < cell1["full_recall"] - SHARD_FULL_SLACK:
+        raise AssertionError(f"sharded full coverage {full:.4f} < cell 1's "
+                             f"{cell1['full_recall']:.4f} - {SHARD_FULL_SLACK}")
+    allow = torch.rand(N_ROWS, generator=torch.Generator(device=dev).manual_seed(14),
+                       device=dev) < 0.10
+    for name, where in (("random 10%", allow),
+                        ("3 ids", torch.isin(torch.arange(N_ROWS, device=dev),
+                                             torch.tensor([5, 5_000_000, 12_000_000],
+                                                          device=dev)))):
+        v, ids = idx.search_device(queries, K, where=where.cpu().numpy())
+        check_filtered(v, ids, where, f"sharded filtered {name}")
+        log(f"[sharded] filter {name}: no disallowed id, (-inf, -1) in the "
+            f"{int((ids < 0).sum())} unfilled slots")
+    split = device_profile(lambda: idx.search_device(queries, K), "sharded one batch at the op "
+                           "point", groups=SHARD_GROUPS)
+    merge_ms = sharded_merge_ms(idx, queries)
+    log(f"[sharded] the merge alone ({SHARDS} partials of {queries.shape[0]} x {K}): "
+        f"{merge_ms:.3f} ms; K1 {split['K1']:.1%} of the batch's kernel time")
+    k1_a = band.tiles_topk_resid.launches  # (a)'s main path; the hold's launches not
+    sh0 = idx._shards[0]
+    p0 = min(idx._resolve(queries.shape[0], 32, 0, None)[0], sh0._tune_n_tiles())
+    mp = k1_check(f"shard 0 of {SHARDS} B{queries.shape[0]} p{p0} tq{SHARD_TILE_Q}", sh0,
+                  k1_plan(sh0, queries, p0, SHARD_TILE_Q), reps=5, plain_reps=1)
+    band.tiles_topk_resid.launches = k1_a
+    del idx, sh0
+    torch.cuda.empty_cache()
+
+    n_mh = MH_CHUNKS * CHUNK
+    q_gt = queries[:gt.shape[0]]
+    qn = queries.cpu().numpy()
+    with tempfile.TemporaryDirectory(prefix="cell14_") as tmp:
+        tmp = Path(tmp)
+        mh = ShardedBandIndex.build_streaming((chunk_fn(i) for i in range(MH_CHUNKS)), NLIST,
+                                              mesh=make_mesh(SHARDS, devices=[dev]), centroids=centroids, **kw)
+        ref = {"part": mh.search(qn, K, p_tiles=MH_P_TILES),
+               "full": mh.search(qn, K, p_tiles=mh._n_tiles())}
+        _, _, one_s = fenced(lambda: mh.search(qn, K, p_tiles=MH_P_TILES))
+        mh.save(tmp / "index")
+        np.save(tmp / "queries.npy", qn)
+        t0 = time.perf_counter()
+        res = run_two_processes(tmp, dev)
+        two_s = time.perf_counter() - t0
+        for rank, r in enumerate(res):
+            for name in ("part", "full"):
+                if not (np.array_equal(r[f"{name}_i"], ref[name][1])
+                        and np.array_equal(r[f"{name}_v"], ref[name][0])):
+                    raise AssertionError(f"two processes, rank {rank}, {name} plan: not the "
+                                         "one-process ids and scores")
+            if int(r["held"]) != SHARDS // 2:
+                raise AssertionError(f"rank {rank} held {int(r['held'])} shards")
+        log(f"[sharded] (b) two processes on the card (gloo, 2 + 2 shards of {n_mh} rows, "
+            f"loaded from the saved index): ids and scores equal to one process at p "
+            f"{MH_P_TILES} and at full coverage ({mh._n_tiles()} tiles); a search at p "
+            f"{MH_P_TILES} {res[0]['part_ms']:.1f} / {res[1]['part_ms']:.1f} ms host clock "
+            f"(one process {one_s * 1e3:.1f} ms), the partials' gather through host memory "
+            f"{float(res[0]['gather_ms']):.3f} ms; {two_s:.1f} s with the processes' start")
+
+        gt_mh = exact_gt(chunk_fn, MH_CHUNKS, CHUNK, q_gt)
+        loaded = load_index(tmp / "index", device=dev)
+        got = {name: loaded.search(qn, K, p_tiles=p) for name, p in
+               (("part", MH_P_TILES), ("full", loaded._n_tiles()))}
+        for name in got:
+            if not (np.array_equal(got[name][1], ref[name][1])
+                    and np.array_equal(got[name][0], ref[name][0])):
+                raise AssertionError(f"(d) the loaded index differs at the {name} plan")
+        del loaded
+        two = ShardedBandIndex.load(tmp / "index", mesh=make_mesh(2, devices=[dev]))
+        check_resharded_rows(mh, two)
+        _, i2 = two.search(qn, K, p_tiles=two._n_tiles())
+        n_diff, n_bad = collisions_explain(ref["full"][1], i2, bucket_keys(mh), bucket_keys(two))
+        r4, r2 = (recall_at_k(i[:gt_mh.shape[0]], gt_mh) for i in (ref["full"][1], i2))
+        log(f"[sharded] (d) saved, loaded: equal at both plans; resharded 4 -> 2 "
+            f"({[sh.ntotal for sh in two._shards]} rows): every id's int8 row and list equal; "
+            f"at full coverage {n_diff} of {qn.shape[0]} queries differ, {n_bad} of them not by "
+            f"a K1 bucket collision of one layout; recall@{K} {r2:.4f} (4 shards {r4:.4f})")
+        if n_bad:
+            raise AssertionError(f"(d) the resharded index: {n_bad} queries differ beyond "
+                                 "K1's bucket collisions")
+        del two, mh
+    torch.cuda.empty_cache()
+
+    x = torch.cat([chunk_fn(i) for i in range(MH_CHUNKS)])
+    flat_idx = DistributedFlatIndex.build(x.cpu().numpy(), mesh=make_mesh(SHARDS, devices=[dev]))
+    v, ids = flat_idx.search(qn, K)
+    check_result(v, ids, queries.shape[0], n_mh, "sharded flat")
+    tv, tids, n_coll = flat_collision_truth(x, queries, -(-n_mh // SHARDS))
+    check_flat_exact(ids, x, queries, tv, tids, "sharded flat")
+    log(f"[sharded] (c) DistributedFlatIndex, {SHARDS} shards of {n_mh} x {D} f32, ip, "
+        f"{queries.shape[0]} queries: K2 launches {flat.flat_topk.launches}; {n_coll} queries have two of "
+        f"their exact top-{K} in one K2 bucket (the reference's flat_topk_pallas keeps one too)")
+    del x, flat_idx
+    torch.cuda.empty_cache()
+    launches = {"K1": band.tiles_topk_resid.launches, "K1 sharded": k1_a,
+                "K2": flat.flat_topk.launches}
+    return dict(launches=launches, mp={"K1 sharded": mp})
 
 
 # -- the whole-row path ---------------------------------------------------------
@@ -3112,6 +3474,54 @@ def ivfpq_recall(idx, q: np.ndarray, gt: np.ndarray, label: str, **kw) -> float:
     return r
 
 
+#: cell 14 (e): the sharded IVF-PQ's recall@10 against the single index's
+#: at each of SHARD_NPROBES: within this on the ADC route; on the int8
+#: refine route (rf 64) no lower by more than this
+SHARD_IVFPQ_TOL, SHARD_NPROBES = 0.01, (1, 16, 64)
+
+
+def run_sharded_ivfpq(x, qn, gt, single, quant: dict, kw: dict, oracle: float, card) -> None:
+    """Cell 14 (e): ``ShardedIVFPQIndex`` on cell 11's corpus and settings
+    over SHARDS shards on this card, on the single index's quantizers. The
+    ADC route (refine 'none') ranks every probed row by the same scores as
+    the single index: recall@K within SHARD_IVFPQ_TOL of it at nprobe 1, 16
+    and 64. The refine route keeps rf·K candidates a shard (the
+    reference's rule), a superset of the single index's rf·K: recall no
+    lower than the single index's by more than SHARD_IVFPQ_TOL at each
+    nprobe, and at full probe than the method's exact oracle (the single
+    index's rf·K rescored). The probe scans are plain torch ops."""
+    from cloudvectordb_tpu_torch.parallel import ShardedIVFPQIndex, make_mesh
+
+    xn = x.cpu().numpy()
+    common = dict(mesh=make_mesh(SHARDS, devices=[x.device]), **quant,
+                  **{k: v for k, v in kw.items() if k != "device"})
+    t0 = time.perf_counter()
+    sh = ShardedIVFPQIndex.build(xn, C3_NLIST, refine="int8", **common)
+    adc = ShardedIVFPQIndex.build(xn, C3_NLIST, refine="none", **common)
+    single_adc = IVFPQIndex.build(x, C3_NLIST, refine="none", **kw, **quant)
+    log(f"[sharded ivf_pq] built {sh.ntotal} x {C3_D} on {SHARDS} shards twice (refine int8 "
+        f"and none) and the single ADC index in {time.perf_counter() - t0:.1f} s; refine "
+        f"scale {sh._refine_scale:.6g} (single {single._refine_scale:.6g})")
+    for nprobe in SHARD_NPROBES:
+        r1 = recall_at_k(single.search(qn, K, nprobe=nprobe, refine_factor=64)[1], gt)
+        (_, ids), _, host_s = fenced(lambda: sh.search(qn, K, nprobe=nprobe, refine_factor=64))
+        r = recall_at_k(ids, gt)
+        a1 = recall_at_k(single_adc.search(qn, K, nprobe=nprobe)[1], gt)
+        a = recall_at_k(adc.search(qn, K, nprobe=nprobe)[1], gt)
+        log(f"[sharded ivf_pq] {card}: nprobe {nprobe}: ADC recall@{K} {a:.4f} (single "
+            f"{a1:.4f}); rf 64 {r:.4f} (single {r1:.4f}), {qn.shape[0] / host_s:,.1f} QPS "
+            "host clock")
+        if abs(a - a1) > SHARD_IVFPQ_TOL or r < r1 - SHARD_IVFPQ_TOL:
+            raise AssertionError(f"sharded IVF-PQ at nprobe {nprobe}: ADC {a:.4f} against "
+                                 f"{a1:.4f}, rf 64 {r:.4f} against {r1:.4f}")
+    _, ids = sh.search(qn[:PROBE_BATCH], K, nprobe=C3_NLIST, refine_factor=64)
+    full = recall_at_k(ids, gt[:PROBE_BATCH])
+    log(f"[sharded ivf_pq] full probe, rf 64: recall@{K} {full:.4f} (the single index's "
+        f"method's exact oracle {oracle:.4f}: rf·K candidates in all, here rf·K a shard)")
+    if full < oracle - IVFPQ_ORACLE_TOL:
+        raise AssertionError(f"sharded IVF-PQ at full probe {full:.4f}, oracle {oracle:.4f}")
+
+
 def run_ivf_pq(dev, card) -> dict:
     """Cell 11: IVF-PQ at the reference's on-chip shape, residual, two
     builds on one quantizer: refine 'int8' (the nprobe x refine_factor
@@ -3152,6 +3562,7 @@ def run_ivf_pq(dev, card) -> dict:
     if abs(full - oracle) > IVFPQ_ORACLE_TOL:
         raise AssertionError(f"IVF-PQ refine at full probe: recall {full:.4f}, its exact "
                              f"oracle {oracle:.4f}")
+    run_sharded_ivfpq(x, qn, gt, idx, quant, kw, oracle, card)
     t0 = time.perf_counter()
     adc = IVFPQIndex.build(x, C3_NLIST, refine="none", **kw, **quant)
     sync()
@@ -3614,7 +4025,7 @@ def k4_main_shapes(dev) -> dict:
 # -- cell 12: the pipeline from raw text, through the CLI ------------------------
 #: cut from 1M passages, 100,000 triplets and 200 steps (PR 12) so that the
 #: run keeps inside its time limit with cell 13 (PERF.md §4)
-PIPE_DOCS, PIPE_TRIPLETS, PIPE_STEPS = 250_000, 50_000, 60
+PIPE_DOCS, PIPE_TRIPLETS, PIPE_STEPS = 125_000, 50_000, 60
 PIPE_STAGES = ("mine", "train", "encode", "build", "tune", "eval")
 PIPE_ARTIFACTS = ("passages.jsonl", "tokenizer.json", "triplets.jsonl", "ckpt",
                   "embeddings.npy", "index", "eval.json")
@@ -4037,6 +4448,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     runs = [run_residual(dev, chunk_fn, n_chunks, queries, gt, card)]
     torch.cuda.empty_cache()  # the residual index is gone: one arena at a time
+    runs.append(run_sharded(dev, chunk_fn, n_chunks, queries, gt, card, runs[0]["cell1"]))
+    torch.cuda.empty_cache()
     runs.append(run_whole_row(dev, chunk_fn, n_chunks, queries, gt, card))
     torch.cuda.empty_cache()
     runs.append(run_top2_routes(dev, chunk_fn, queries, card))

@@ -85,11 +85,13 @@ class IdFilter:
         ok = m[g.clamp(0, m.shape[0] - 1)] > 0
         return ok & (g >= 0) & (g < m.shape[0])
 
-    def staged_for_mesh(self, mesh):
-        """The bitmap replicated onto a serving mesh: the sharded serving
-        path is not ported (ROADMAP queue 1 item 14)."""
-        raise NotImplementedError(
-            "staged_for_mesh: sharded serving arrives with ROADMAP queue 1 item 14")
+    def staged_for_mesh(self, mesh) -> dict:
+        """The bitmap on each of this process's devices of a serving mesh
+        (parallel/mesh.py), {device: (n_pad,) int8 tensor}, cached per
+        device as ``mask_device``: each shard gathers it through its own
+        global-id table, so one copy a device serves every shard and
+        replica there."""
+        return {d: self.mask_device(d) for d in mesh.local_devices()}
 
 
 def filtered_search(index, queries, k: int, where, oversample: int = 8, **search_kw):

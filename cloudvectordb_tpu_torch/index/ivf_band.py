@@ -43,6 +43,8 @@ union through the host. ``merge_from``, ``reconstruct`` and
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -104,6 +106,35 @@ def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
         ts = torch.where(tile_live[None, :], ts, NEG_INF)
     _, tile_table = topk_stable(ts, p_tiles)
     return q_s, order, dots, tile_table.to(torch.int32).contiguous()
+
+
+def train_ordered_centroids(x: torch.Tensor, nlist: int, train_sample: int, iters: int,
+                            seed: int, device: torch.device | None = None) -> np.ndarray:
+    """The reference's quantizer training: k-means, on ``device`` (default
+    ``x``'s), of a seeded sample of ``x`` (rows in their sorted order),
+    relabelled along the locality order (ops/band.py::order_centroids).
+    (nlist, D) f32 numpy."""
+    ns = min(train_sample, x.shape[0])
+    sel = np.random.default_rng(seed).choice(x.shape[0], ns, replace=False)
+    xs = x[torch.as_tensor(np.sort(sel), device=x.device)].to(device or x.device)
+    c, _ = train_kmeans(xs, nlist, iters=iters, seed=seed)
+    c = c.cpu().numpy()
+    return c[order_centroids(c)]
+
+
+def auto_p_tiles(n: int, nlist: int, tile_n: int, tile_q: int, nq: int, nprobe: int,
+                 n_tiles: int) -> int:
+    """Span-aware tile budget of an arena of extent ``n``. The planner
+    shares ONE tile table across each group of ``tile_q`` sorted queries, so
+    the budget must cover the group's union of relevant tiles: for g =
+    min(tile_q, nq) queries spread over the locality-ordered lists the union
+    spans ~min(nlist·g/nq, g·nprobe) lists; multiply by tiles-per-list and
+    add a per-query margin."""
+    g = min(tile_q, max(nq, 1))
+    r = max(n, 1) / max(nlist, 1) / tile_n  # tiles/list
+    span = min(nlist * g / max(nq, 1), float(g) * nprobe)
+    margin = max(8.0, nprobe * max(r, 0.25))
+    return int(min(n_tiles, max(8, int(np.ceil(span * r + margin)))))
 
 
 def _unsort(order, v, gids):
@@ -575,12 +606,8 @@ class BandIVFIndex(Index):
         idx = cls(int(vectors.shape[1]), nlist, **kw)
         x = torch.as_tensor(vectors, dtype=torch.float32).to(idx.device)
         if centroids is None:
-            ns = min(train_sample, x.shape[0])
-            sel = np.random.default_rng(idx.seed).choice(x.shape[0], ns, replace=False)
-            c, _ = train_kmeans(x[torch.as_tensor(np.sort(sel), device=idx.device)],
-                                nlist, iters=idx.kmeans_iters, seed=idx.seed)
-            c = c.cpu().numpy()
-            centroids = c[order_centroids(c)]  # relabel along locality order
+            centroids = train_ordered_centroids(x, nlist, train_sample, idx.kmeans_iters,
+                                                idx.seed)
         idx.centroids = np.asarray(centroids, np.float32)
         idx._populate(x)
         return idx
@@ -630,44 +657,51 @@ class BandIVFIndex(Index):
         full-precision corpus never exists in one piece. The first chunk
         trains the quantizer (unless ``centroids`` gives it) and sets the
         int8 scale."""
-        idx = None
-        cdev = None
+        chunks = iter(chunks)
+        first = next(chunks, None)
+        if first is None:
+            raise ValueError("empty stream")
+        idx = cls(int(first.shape[1]), nlist, **kw)
+        if idx.dtype != "int8":
+            raise ValueError("streaming build is the int8 path")
         payload_chunks: list[torch.Tensor] = []
         assign_chunks: list[np.ndarray] = []
+        for q8, a in idx.quantize_stream(itertools.chain([first], chunks), train_sample,
+                                         centroids):
+            payload_chunks.append(q8)
+            assign_chunks.append(a)
+        payload = torch.cat(payload_chunks)
+        idx._assemble_compact(payload, np.arange(payload.shape[0], dtype=np.int64),
+                              np.concatenate(assign_chunks))
+        return idx
+
+    def quantize_stream(self, chunks, train_sample: int, centroids: np.ndarray | None):
+        """Yield each chunk's (int8 rows on the host, list assignments),
+        assigned and quantized on the device. The first chunk trains the
+        quantizer (unless ``centroids`` gives it) and sets the int8 scale
+        (of residuals with ``residual``); both are set on this index."""
+        cdev = None
         scale = 0.0
         for chunk in chunks:
-            chunk = torch.as_tensor(chunk, dtype=torch.float32)
-            if idx is None:
-                idx = cls(int(chunk.shape[1]), nlist, **kw)
-                if idx.dtype != "int8":
-                    raise ValueError("streaming build is the int8 path")
-                chunk = chunk.to(idx.device)
+            chunk = torch.as_tensor(chunk, dtype=torch.float32).to(self.device)
+            if cdev is None:
                 if centroids is None:
                     ns = min(train_sample, chunk.shape[0])
-                    c, _ = train_kmeans(chunk[:ns], nlist, iters=idx.kmeans_iters,
-                                        seed=idx.seed)
+                    c, _ = train_kmeans(chunk[:ns], self.nlist, iters=self.kmeans_iters,
+                                        seed=self.seed)
                     c = c.cpu().numpy()
                     centroids = c[order_centroids(c)]
-                idx.centroids = np.asarray(centroids, np.float32)
-                cdev = idx._centroids_dev()
-            chunk = chunk.to(idx.device)
+                self.centroids = np.asarray(centroids, np.float32)
+                cdev = self._centroids_dev()
             a, _ = assign_clusters(chunk, cdev)
-            if idx.residual:
+            if self.residual:
                 chunk = chunk - cdev[a]
             if scale == 0.0:  # the first chunk sets the (residual-aware) scale
                 rms = float(torch.sqrt(torch.mean(chunk * chunk)))
                 amax = float(torch.max(torch.abs(chunk)))
-                scale = max(min(amax, 4.0 * rms) / 127.0, 1e-12)
+                scale = self._scale = max(min(amax, 4.0 * rms) / 127.0, 1e-12)
             q8 = torch.clamp(torch.round(chunk / f32_const(scale, chunk)), -127, 127)
-            payload_chunks.append(q8.to(torch.int8).cpu())
-            assign_chunks.append(a.cpu().numpy())
-        if idx is None:
-            raise ValueError("empty stream")
-        payload = torch.cat(payload_chunks)
-        idx._scale = scale
-        idx._assemble_compact(payload, np.arange(payload.shape[0], dtype=np.int64),
-                              np.concatenate(assign_chunks))
-        return idx
+            yield q8.to(torch.int8).cpu(), a.cpu().numpy()
 
     @classmethod
     def build_device_streaming(
@@ -1628,18 +1662,9 @@ class BandIVFIndex(Index):
 
     def _auto_p_tiles(self, nq: int, nprobe: int, n_tiles: int,
                       tile_q: int | None = None) -> int:
-        """Span-aware tile budget. The planner shares ONE tile table across
-        each group of `tile_q` sorted queries, so the budget must cover the
-        group's union of relevant tiles: for g = min(tile_q, nq) queries
-        spread over the locality-ordered lists the union spans
-        ≈ min(nlist·g/nq, g·nprobe) lists; multiply by tiles-per-list and
-        add a per-query margin."""
-        tq = tile_q or self.tile_q
-        g = min(tq, max(nq, 1))
-        r = max(self._n, 1) / max(self.nlist, 1) / self.tile_n  # tiles/list
-        span = min(self.nlist * g / max(nq, 1), float(g) * nprobe)
-        margin = max(8.0, nprobe * max(r, 0.25))
-        return int(min(n_tiles, max(8, int(np.ceil(span * r + margin)))))
+        """Span-aware tile budget (``auto_p_tiles``) of this arena."""
+        return auto_p_tiles(self._n, self.nlist, self.tile_n, tile_q or self.tile_q, nq,
+                            nprobe, n_tiles)
 
     # -- op-point tuning (eval/tune.py) -----------------------------------
     def _tune_tile_qs(self, nq: int) -> list[int]:

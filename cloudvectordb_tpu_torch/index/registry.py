@@ -6,8 +6,12 @@ cloudvectordb_tpu/index/registry.py).
 reads a directory in the shared on-disk format (index/base.py), saved by
 either package, onto an explicit device: the ``flat``, ``ivf_flat``,
 ``ivf_pq``, ``band_ivf`` (residual-int8 and whole-row arenas) and
-``band_ivf_pq`` kinds (code-major or row-major codes). Sharded configs and
-artifacts raise and name the slice they wait for (distribution).
+``band_ivf_pq`` kinds (code-major or row-major codes), and the sharded
+``sharded_band_ivf`` and ``sharded_ivf_pq`` artifacts (parallel/persist.py)
+onto a mesh. ``nshards > 0`` builds the sharded wrapper of ``band_ivf`` and
+``ivf_pq`` over a mesh of that many shard slots on ``device``
+(parallel/); the sharded ``band_ivf_pq`` raises and names the part of the
+distribution item it waits for (ROADMAP item 14 (b)).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cloudvectordb_tpu_torch.index.base import MANIFEST, Index
+from cloudvectordb_tpu_torch.index.base import Index
 from cloudvectordb_tpu_torch.index.flat import FlatIndex
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
 from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
@@ -32,23 +36,38 @@ _KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
 
 
 def build_index(vectors, cfg: IndexConfig, device: str | torch.device = DEFAULT) -> Index:
-    """Build any single-card index kind from (N, D) vectors and ``cfg``,
-    training its quantizers inline, on ``device``."""
-    if cfg.nshards > 0:
-        raise NotImplementedError(
-            f"nshards={cfg.nshards}: sharded indexes arrive with the distribution "
-            "slice (ROADMAP item 14)")
+    """Build any index kind from (N, D) vectors and ``cfg``, training its
+    quantizers inline, on ``device``; ``cfg.nshards > 0`` builds the
+    row-sharded wrapper of ``band_ivf`` or ``ivf_pq`` (parallel/) over
+    ``make_mesh(cfg.nshards)`` on that device (BASELINE config #4's
+    topology), with the same arguments."""
     vectors = np.asarray(vectors, np.float32)
+    sharded = cfg.nshards > 0
+    if sharded and cfg.kind not in ("band_ivf", "ivf_pq"):
+        if cfg.kind == "band_ivf_pq":
+            raise NotImplementedError(_SHARDED_BAND_PQ)
+        raise ValueError(f"nshards>0 supports kinds band_ivf | ivf_pq, got {cfg.kind!r}")
+    if sharded and cfg.kind == "ivf_pq" and cfg.opq:
+        raise ValueError("the sharded ivf_pq does not rotate (no OPQ)")
     if cfg.kind == "flat":
         return FlatIndex.build(vectors, metric=cfg.metric, dtype=cfg.dtype, device=device)
     nlist = min(cfg.nlist, max(1, vectors.shape[0] // 4))
     common = dict(train_sample=cfg.train_sample, kmeans_iters=cfg.kmeans_iters,
-                  seed=cfg.seed, metric=cfg.metric, device=device)
+                  seed=cfg.seed, metric=cfg.metric)
+    if sharded:
+        from cloudvectordb_tpu_torch.parallel import (
+            ShardedBandIndex, ShardedIVFPQIndex, make_mesh)
+
+        common["mesh"] = make_mesh(cfg.nshards, devices=[device])
+        band_cls, ivfpq_cls = ShardedBandIndex, ShardedIVFPQIndex
+    else:
+        common["device"] = device
+        band_cls, ivfpq_cls = BandIVFIndex, IVFPQIndex
     if cfg.kind == "band_ivf":
         dtype = cfg.dtype if cfg.dtype != "float32" else "int8"
         resid = cfg.residual and dtype == "int8"
-        return BandIVFIndex.build(vectors, nlist, dtype=dtype, residual=resid,
-                                  slack=(cfg.slack if resid else 0.0), **common)
+        return band_cls.build(vectors, nlist, dtype=dtype, residual=resid,
+                              slack=(cfg.slack if resid else 0.0), **common)
     if cfg.kind == "band_ivf_pq":
         return BandIVFPQIndex.build(
             vectors, nlist, m=cfg.m, nbits=cfg.nbits, refine=cfg.refine, opq=cfg.opq,
@@ -62,21 +81,36 @@ def build_index(vectors, cfg: IndexConfig, device: str | torch.device = DEFAULT)
             rs = np.random.default_rng(cfg.seed).choice(vectors.shape[0], ns, replace=False)
             opq_matrix, _ = train_opq(vectors[rs], cfg.m, cfg.nbits, seed=cfg.seed,
                                       device=device)
-        return IVFPQIndex.build(
+        return ivfpq_cls.build(
             vectors, nlist, m=cfg.m, nbits=cfg.nbits, pq_train_iters=cfg.pq_train_iters,
             opq_matrix=opq_matrix, refine=cfg.refine, **common)
     raise ValueError(f"unknown index kind {cfg.kind!r}")
 
 
+_SHARDED_BAND_PQ = ("the sharded band_ivf_pq (config #5 across cards, ShardedBandIVFPQIndex) "
+                    "is the next part of the distribution item, ROADMAP item 14 (b)")
+
+
 def load_index(path: str | Path, device: str | torch.device = DEFAULT,
-               mmap: bool = True) -> Index:
+               mmap: bool = True, mesh=None) -> Index:
     """Load a saved index onto ``device``. A tuned op point in the manifest
-    becomes the index's default serving config."""
+    becomes the index's default serving config. A sharded artifact loads
+    onto ``mesh`` (default: one of its saved shard count on ``device``)."""
     path = Path(path)
-    if not (path / MANIFEST).exists():
-        raise NotImplementedError(
-            f"{path} has no {MANIFEST}: sharded artifacts arrive with the "
-            "distribution slice")
+    from cloudvectordb_tpu_torch.parallel.persist import (
+        is_sharded_artifact, read_sharded_manifest)
+
+    if is_sharded_artifact(path):
+        from cloudvectordb_tpu_torch.parallel.dist_band import ShardedBandIndex
+        from cloudvectordb_tpu_torch.parallel.dist_ivf import ShardedIVFPQIndex
+
+        kind = read_sharded_manifest(path)["kind"]
+        if kind == "sharded_band_ivf_pq":
+            raise NotImplementedError(_SHARDED_BAND_PQ)
+        cls = {"sharded_band_ivf": ShardedBandIndex, "sharded_ivf_pq": ShardedIVFPQIndex}.get(kind)
+        if cls is None:
+            raise ValueError(f"unknown sharded index kind {kind!r}")
+        return cls.load(path, mesh=mesh, mmap=mmap, device=device)
     manifest = Index.read_manifest(path)
     kind = manifest["kind"]
     if kind not in _KINDS:

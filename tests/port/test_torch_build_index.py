@@ -5,7 +5,8 @@ with every list probed at least the reference's less RECALL_MARGIN (the
 quantizers differ: each package trains its own from its own random stream,
 and jax.random's cannot be reproduced in torch); the port's saved artifact
 loads in both packages' load_index and serves the same answers in the
-port; sharded configs raise and name the distribution slice."""
+port; a sharded config builds the sharded wrapper (parallel/), but for
+band_ivf_pq's, which raises and names its part of the distribution item."""
 
 import numpy as np
 import pytest
@@ -100,5 +101,13 @@ def test_build_index_clamps_nlist_and_maps_band_dtypes(data):
 
 @pytest.mark.parametrize("kind", ["band_ivf", "ivf_pq"])
 def test_sharded_config_raises_and_names_distribution(data, kind):
+    """Since the distribution slice ported sharded serving, nshards > 0
+    builds band_ivf and ivf_pq sharded over a mesh on the given device; the
+    sharded band_ivf_pq still raises, naming the distribution item's part
+    it waits for."""
+    x = data[0]
+    idx = build_index(x, IndexConfig(kind=kind, nshards=2, nlist=16, m=8), device="cpu")
+    assert idx.kind == f"sharded_{kind}" and idx.nshards == 2 and idx.ntotal == x.shape[0]
+    assert all(sh.device == torch.device("cpu") for sh in idx._shards)
     with pytest.raises(NotImplementedError, match="distribution"):
-        build_index(data[0], IndexConfig(kind=kind, nshards=2), device="cpu")
+        build_index(x, IndexConfig(kind="band_ivf_pq", nshards=2, m=8), device="cpu")

@@ -95,8 +95,12 @@ def test_idfilter_coerce_forms_match_reference():
     assert f.mask_np.shape[0] == 2048 and f.allowed_np(np.array([2000]))[0]
     with pytest.raises(TypeError):
         filters.IdFilter.coerce(np.array([0.5]), 100)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        f.staged_for_mesh(None)
+    # on a serving mesh: the bitmap on each of its devices, mask_device's copy
+    from cloudvectordb_tpu_torch.parallel.mesh import make_mesh
+
+    staged = f.staged_for_mesh(make_mesh(4, devices=["cpu"]))
+    assert list(staged) == [torch.device("cpu")]
+    assert staged[torch.device("cpu")] is f.mask_device("cpu")
 
 
 def test_plan_tiles_tile_live_and_arena_mask_match_reference(pair):

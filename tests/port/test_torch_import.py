@@ -1,8 +1,10 @@
 """The port stands alone: importing it (the data layer, the pipeline, the
-CLI and ``python -m``'s ``__main__`` included), and running its paths on CPU
-tensors (residual and whole-row tiles search, the band strategy, the fused
-flat scan, the PQ-tiles index with OPQ on both serving routes, the
-probe-scan IVF-Flat and IVF-PQ indexes, the full PQ scan, an encoder
+CLI, ``python -m``'s ``__main__`` and the sharded serving layer
+``parallel/`` included), and running its paths on CPU tensors (residual
+and whole-row tiles search, the band strategy, the fused flat scan, the
+PQ-tiles index with OPQ on both serving routes, the probe-scan IVF-Flat
+and IVF-PQ indexes, the sharded band, IVF-PQ and flat indexes over a mesh
+of four CPU shards, the full PQ scan, an encoder
 forward, K4's plain forward and backward, a training step, inbatch mining),
 loads no JAX, Flax, Triton or reference package, and never reaches the CUDA
 binding (ops/_cuda.py): CPU tensors go to the plain versions. Entry points
@@ -54,6 +56,16 @@ hits.append(ivf_flat.IVFFlatIndex.build(db, 8, kmeans_iters=3, device="cpu")
 hits.append(ivf_pq.IVFPQIndex.build(db, 8, m=8, nbits=5, kmeans_iters=3, pq_train_iters=3,
                                     refine="int8", device="cpu")
             .search(db[:20], 5, nprobe=2)[1][:, 0])
+from cloudvectordb_tpu_torch import parallel
+from cloudvectordb_tpu_torch.parallel import dist_band, dist_ivf, dist_search, mesh, persist
+cpu4 = mesh.make_mesh(4, devices=["cpu"])
+hits.append(parallel.ShardedBandIndex.build(db, 8, mesh=cpu4, residual=True, kmeans_iters=3,
+                                            tile_n=128, tile_q=16)
+            .search(db[:20], 5)[1][:, 0])
+hits.append(parallel.ShardedIVFPQIndex.build(db, 8, m=8, nbits=5, mesh=cpu4, kmeans_iters=3,
+                                             pq_train_iters=3, refine="int8")
+            .search(db[:20], 5, nprobe=8)[1][:, 0])
+hits.append(parallel.DistributedFlatIndex.build(db, mesh=cpu4).search(db[:20], 5)[1][:, 0])
 codes_cm = pqi._codes[:1000].T.contiguous()
 hits.append(pq.pq_topk(codes_cm, torch.from_numpy(pqi.codebooks),
                        torch.from_numpy(db[:20] @ pqi.opq_matrix.T), 5)[1][:, 0].numpy())
@@ -158,3 +170,18 @@ def test_device_measurement_refuses_the_cpu():
 
     with pytest.raises(RuntimeError):
         qps_device(lambda q: q, torch.zeros(4, 8))
+
+
+def test_no_source_of_the_port_imports_jax_or_the_reference():
+    """Read statically: no module of the port (``parallel/`` included) and
+    not ``chip_smoke.py`` imports jax, flax or the JAX package, at any
+    depth of a function."""
+    import re
+
+    pat = re.compile(r"^\s*(?:from|import)\s+(?:jax|flax|cloudvectordb_tpu)(?:[.\s]|$)",
+                     re.MULTILINE)
+    files = sorted((REPO / "cloudvectordb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert any(f.parent.name == "parallel" for f in files)
+    hits = [(f.relative_to(REPO), m.group(0).strip()) for f in files
+            for m in pat.finditer(f.read_text())]
+    assert hits == []
