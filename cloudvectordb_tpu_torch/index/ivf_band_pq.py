@@ -94,6 +94,56 @@ def _quantize(src: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.clamp(torch.round(src / f32_const(scale, src)), -127, 127).to(torch.int8)
 
 
+def pq_candidate_budget(k: int, refine_factor: int, n_pools: int, tq: int, p_tiles: int,
+                        top2: bool, *, two_stage: bool, n: int, tile_n: int) -> tuple:
+    """K5's candidate budget over an arena of ``n`` rows (the reference's,
+    number for number): (k_cand, n_pools, l_buckets). A two-stage search
+    draws k·refine_factor candidates (at least 32); auto pools
+    (n_pools <= 0) hold them within a slot budget that shrinks with the
+    query tile; top2 doubles each pool's slots; the bucket count is the
+    next power of two of k_cand over the slots, floored at 128, that
+    divides tile_n."""
+    k_cand = min(max(k * refine_factor, 32), n) if two_stage else k
+    slot_budget = max(min(262_144 // tq, 8192), tile_n)
+    mult = 2 if top2 else 1
+    if n_pools <= 0:
+        n_pools = max(1, min(-(-k_cand // (mult * tile_n)),
+                             max(slot_budget // (mult * tile_n), 1), p_tiles))
+    l_buckets = min(tile_n, max(128, _next_pow2(-(-k_cand // (mult * n_pools)))))
+    while tile_n % l_buckets != 0 and l_buckets < tile_n:
+        l_buckets *= 2
+    l_buckets = min(l_buckets, tile_n)
+    if tile_n % l_buckets != 0:
+        l_buckets = tile_n
+    return min(k_cand, mult * n_pools * l_buckets), n_pools, l_buckets
+
+
+def host_tier_rescore(q: torch.Tensor, v, gids, rows: np.ndarray, assign: np.ndarray,
+                      pos: np.ndarray, centroids, scale: float, rows_sq=None, *, k: int,
+                      resid: bool, l2: bool, cache: dict) -> tuple:
+    """The host tier's exact rescore of the candidates (v, gids): the host
+    store's int8 ``rows`` at positions ``pos`` (their lists ``assign[pos]``;
+    l2 residual rows: ``rows_sq[pos]``, their ‖x̂‖²) gathered into the pinned
+    buffer that ``cache`` keeps (the only host -> card traffic of the
+    search), copied to q's device, rescored by ``_host_rescore``."""
+    dev = q.device
+    shape = (*pos.shape, rows.shape[1])
+    size = int(np.prod(shape))
+    pinned = cache.get("pinned")
+    if pinned is None or pinned.numel() < size:
+        pinned = torch.empty(size, dtype=torch.int8, pin_memory=dev.type == "cuda")
+        cache["pinned"] = pinned
+    buf = pinned[:size].view(shape)
+    np.take(rows, pos, axis=0, out=buf.numpy())
+    r8 = buf.to(dev, non_blocking=True)
+    asg = torch.as_tensor(assign[pos].astype(np.int64), device=dev)
+    x_sq = torch.as_tensor(rows_sq[pos], device=dev) if rows_sq is not None else None
+    out = _host_rescore(q, v, gids, r8, asg, centroids, scale, x_sq, k=k, resid=resid, l2=l2)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()  # the buffer is reused
+    return out
+
+
 class BandIVFPQIndex(BandIVFIndex):
     kind = "band_ivf_pq"
 
@@ -1037,17 +1087,6 @@ class BandIVFPQIndex(BandIVFIndex):
             self._caches[("bias", route)] = hit
         return hit[2]
 
-    def _derive_l_buckets(self, k_cand: int, n_pools: int) -> int:
-        """Bucket count for a candidate budget: the next power of two of
-        ceil(k_cand / n_pools), floored at 128, that divides tile_n."""
-        l_buckets = min(self.tile_n, max(128, _next_pow2(-(-k_cand // n_pools))))
-        while self.tile_n % l_buckets != 0 and l_buckets < self.tile_n:
-            l_buckets *= 2
-        l_buckets = min(l_buckets, self.tile_n)
-        if self.tile_n % l_buckets != 0:
-            l_buckets = self.tile_n
-        return l_buckets
-
     def _resolve_pq_knobs(self, nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
                           serve_from, top2=None, host_factor=None):
         """Tuned op-point fills for knobs left at their sentinels, the
@@ -1084,50 +1123,27 @@ class BandIVFPQIndex(BandIVFIndex):
                                       or bool(self._host_pending_rows))
 
     def _pq_stage_plan(self, k, refine_factor, n_pools, tq, p_tiles, top2=False):
-        """Candidate budget (the reference's, number for number):
-        (two_stage, k_cand, n_pools, l_buckets, k_stage1). A populated
-        refine tier rescores the kernel's k·refine_factor candidates (at
-        least 32); auto pools (n_pools <= 0) hold them within a slot budget
-        that shrinks with the query tile; top2 doubles each pool's slots.
-        The int8 tier rescores inside the search (k_stage1 = k); pq2 and
-        host receive the k_cand candidates."""
+        """(two_stage, k_cand, n_pools, l_buckets, k_stage1): the candidate
+        budget (``pq_candidate_budget``) of this index. The int8 tier
+        rescores inside the search (k_stage1 = k); pq2 and host receive the
+        k_cand candidates."""
         two_stage = self.refine == "int8" or self._have_tier2() or self._have_host()
-        k_cand = min(max(k * refine_factor, 32), self._n) if two_stage else k
-        slot_budget = max(min(262_144 // tq, 8192), self.tile_n)
-        mult = 2 if top2 else 1
-        if n_pools <= 0:
-            n_pools = max(1, min(-(-k_cand // (mult * self.tile_n)),
-                                 max(slot_budget // (mult * self.tile_n), 1), p_tiles))
-        l_buckets = self._derive_l_buckets(k_cand, mult * n_pools)
-        k_cand = min(k_cand, mult * n_pools * l_buckets)
+        k_cand, n_pools, l_buckets = pq_candidate_budget(
+            k, refine_factor, n_pools, tq, p_tiles, top2, two_stage=two_stage, n=self._n,
+            tile_n=self.tile_n)
         k_stage1 = k if self.refine == "int8" else (k_cand if two_stage else k)
         return two_stage, k_cand, n_pools, l_buckets, k_stage1
 
     def _host_tier_rescore(self, qp: torch.Tensor, v, gids, k: int) -> tuple:
-        """The host tier's exact rescore of the candidates (v, gids): the
-        shortlist's int8 rows gathered from the gid-keyed host store into
-        pinned memory (the only host -> card traffic of the search), then
-        ``_host_rescore`` on the card."""
+        """The host tier's exact rescore of the candidates (v, gids) from the
+        gid-keyed host store (``host_tier_rescore``)."""
         rows, assign = self._host_store()
         g = np.clip(gids.cpu().numpy().astype(np.int64), 0, rows.shape[0] - 1)
-        shape = (*g.shape, self.dim)
-        pinned = self._caches.get("pinned")
-        if pinned is None or pinned.numel() < int(np.prod(shape)):
-            pinned = torch.empty(int(np.prod(shape)), dtype=torch.int8,
-                                 pin_memory=self.device.type == "cuda")
-            self._caches["pinned"] = pinned
-        buf = pinned[: int(np.prod(shape))].view(shape)
-        np.take(rows, g, axis=0, out=buf.numpy())
-        r8 = buf.to(self.device, non_blocking=True)
-        asg = torch.as_tensor(assign[g].astype(np.int64), device=self.device)
         l2 = self.metric == "l2"
-        x_sq = (torch.as_tensor(self._host_row_sq()[g], device=self.device)
-                if l2 and self.residual else None)
-        out = _host_rescore(qp, v, gids, r8, asg, self._device_state()["centroids"],
-                            self._host_scale, x_sq, k=k, resid=self.residual, l2=l2)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()  # the buffer is reused
-        return out
+        return host_tier_rescore(
+            qp, v, gids, rows, assign, g, self._device_state()["centroids"], self._host_scale,
+            self._host_row_sq() if l2 and self.residual else None, k=k, resid=self.residual,
+            l2=l2, cache=self._caches)
 
     def _serve(self, qp: torch.Tensor, k: int, serve_from: str, refine_factor: int,
                p_tiles: int, tq: int, n_pools: int, top2: bool, flt, host_factor: int,

@@ -7,11 +7,10 @@ reads a directory in the shared on-disk format (index/base.py), saved by
 either package, onto an explicit device: the ``flat``, ``ivf_flat``,
 ``ivf_pq``, ``band_ivf`` (residual-int8 and whole-row arenas) and
 ``band_ivf_pq`` kinds (code-major or row-major codes), and the sharded
-``sharded_band_ivf`` and ``sharded_ivf_pq`` artifacts (parallel/persist.py)
-onto a mesh. ``nshards > 0`` builds the sharded wrapper of ``band_ivf`` and
-``ivf_pq`` over a mesh of that many shard slots on ``device``
-(parallel/); the sharded ``band_ivf_pq`` raises and names the part of the
-distribution item it waits for (ROADMAP item 14 (b)).
+``sharded_band_ivf``, ``sharded_ivf_pq`` and ``sharded_band_ivf_pq``
+artifacts (parallel/persist.py) onto a mesh. ``nshards > 0`` builds the
+sharded wrapper of ``band_ivf``, ``ivf_pq`` and ``band_ivf_pq`` over a mesh
+of that many shard slots on ``device`` (parallel/).
 """
 
 from __future__ import annotations
@@ -38,15 +37,15 @@ _KINDS = {"flat": FlatIndex, "ivf_flat": IVFFlatIndex, "ivf_pq": IVFPQIndex,
 def build_index(vectors, cfg: IndexConfig, device: str | torch.device = DEFAULT) -> Index:
     """Build any index kind from (N, D) vectors and ``cfg``, training its
     quantizers inline, on ``device``; ``cfg.nshards > 0`` builds the
-    row-sharded wrapper of ``band_ivf`` or ``ivf_pq`` (parallel/) over
-    ``make_mesh(cfg.nshards)`` on that device (BASELINE config #4's
-    topology), with the same arguments."""
+    row-sharded wrapper of ``band_ivf``, ``ivf_pq`` or ``band_ivf_pq``
+    (parallel/) over ``make_mesh(cfg.nshards)`` on that device (BASELINE
+    config #4's topology, config #5 across shards), with the same
+    arguments."""
     vectors = np.asarray(vectors, np.float32)
     sharded = cfg.nshards > 0
-    if sharded and cfg.kind not in ("band_ivf", "ivf_pq"):
-        if cfg.kind == "band_ivf_pq":
-            raise NotImplementedError(_SHARDED_BAND_PQ)
-        raise ValueError(f"nshards>0 supports kinds band_ivf | ivf_pq, got {cfg.kind!r}")
+    if sharded and cfg.kind not in ("band_ivf", "ivf_pq", "band_ivf_pq"):
+        raise ValueError(f"nshards>0 supports kinds band_ivf | ivf_pq | band_ivf_pq, "
+                         f"got {cfg.kind!r}")
     if sharded and cfg.kind == "ivf_pq" and cfg.opq:
         raise ValueError("the sharded ivf_pq does not rotate (no OPQ)")
     if cfg.kind == "flat":
@@ -56,20 +55,20 @@ def build_index(vectors, cfg: IndexConfig, device: str | torch.device = DEFAULT)
                   seed=cfg.seed, metric=cfg.metric)
     if sharded:
         from cloudvectordb_tpu_torch.parallel import (
-            ShardedBandIndex, ShardedIVFPQIndex, make_mesh)
+            ShardedBandIndex, ShardedBandIVFPQIndex, ShardedIVFPQIndex, make_mesh)
 
         common["mesh"] = make_mesh(cfg.nshards, devices=[device])
-        band_cls, ivfpq_cls = ShardedBandIndex, ShardedIVFPQIndex
+        band_cls, ivfpq_cls, bandpq_cls = ShardedBandIndex, ShardedIVFPQIndex, ShardedBandIVFPQIndex
     else:
         common["device"] = device
-        band_cls, ivfpq_cls = BandIVFIndex, IVFPQIndex
+        band_cls, ivfpq_cls, bandpq_cls = BandIVFIndex, IVFPQIndex, BandIVFPQIndex
     if cfg.kind == "band_ivf":
         dtype = cfg.dtype if cfg.dtype != "float32" else "int8"
         resid = cfg.residual and dtype == "int8"
         return band_cls.build(vectors, nlist, dtype=dtype, residual=resid,
                               slack=(cfg.slack if resid else 0.0), **common)
     if cfg.kind == "band_ivf_pq":
-        return BandIVFPQIndex.build(
+        return bandpq_cls.build(
             vectors, nlist, m=cfg.m, nbits=cfg.nbits, refine=cfg.refine, opq=cfg.opq,
             aniso_eta=cfg.aniso_eta, pq_train_iters=cfg.pq_train_iters, **common)
     if cfg.kind == "ivf_flat":
@@ -87,10 +86,6 @@ def build_index(vectors, cfg: IndexConfig, device: str | torch.device = DEFAULT)
     raise ValueError(f"unknown index kind {cfg.kind!r}")
 
 
-_SHARDED_BAND_PQ = ("the sharded band_ivf_pq (config #5 across cards, ShardedBandIVFPQIndex) "
-                    "is the next part of the distribution item, ROADMAP item 14 (b)")
-
-
 def load_index(path: str | Path, device: str | torch.device = DEFAULT,
                mmap: bool = True, mesh=None) -> Index:
     """Load a saved index onto ``device``. A tuned op point in the manifest
@@ -102,12 +97,12 @@ def load_index(path: str | Path, device: str | torch.device = DEFAULT,
 
     if is_sharded_artifact(path):
         from cloudvectordb_tpu_torch.parallel.dist_band import ShardedBandIndex
+        from cloudvectordb_tpu_torch.parallel.dist_band_pq import ShardedBandIVFPQIndex
         from cloudvectordb_tpu_torch.parallel.dist_ivf import ShardedIVFPQIndex
 
         kind = read_sharded_manifest(path)["kind"]
-        if kind == "sharded_band_ivf_pq":
-            raise NotImplementedError(_SHARDED_BAND_PQ)
-        cls = {"sharded_band_ivf": ShardedBandIndex, "sharded_ivf_pq": ShardedIVFPQIndex}.get(kind)
+        cls = {"sharded_band_ivf": ShardedBandIndex, "sharded_ivf_pq": ShardedIVFPQIndex,
+               "sharded_band_ivf_pq": ShardedBandIVFPQIndex}.get(kind)
         if cls is None:
             raise ValueError(f"unknown sharded index kind {kind!r}")
         return cls.load(path, mesh=mesh, mmap=mmap, device=device)

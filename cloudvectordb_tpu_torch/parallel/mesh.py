@@ -28,6 +28,8 @@ the collective hangs.
 
 from __future__ import annotations
 
+import atexit
+import copy
 import datetime
 import zlib
 
@@ -166,7 +168,11 @@ def init_multihost(coordinator: str, num_processes: int, process_id: int,
     processes share a card or have none, NCCL where each has a card of its
     own (``backend`` overrides). Every failure raises; nothing degrades to
     one process. Returns the world size. Already initialized: checks that
-    the group is this one."""
+    the group is this one. A group opened here is torn down at interpreter
+    exit (``shutdown_multihost``), as ``jax.distributed.initialize``
+    registers its own shutdown: a group left alive into interpreter
+    teardown can abort the process (SIGABRT from its threads) after its
+    work is done."""
     if dist.is_initialized():
         if (dist.get_world_size(), dist.get_rank()) != (num_processes, process_id):
             raise RuntimeError(
@@ -181,7 +187,31 @@ def init_multihost(coordinator: str, num_processes: int, process_id: int,
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s))
+    if not _OWNED["registered"]:
+        atexit.register(shutdown_multihost)
+        _OWNED["registered"] = True
+    _OWNED["group"] = True
     return dist.get_world_size()
+
+
+#: whether init_multihost opened the live group (and registered its teardown)
+_OWNED = {"group": False, "registered": False}
+
+
+def shutdown_multihost() -> None:
+    """End the group ``init_multihost`` opened: a barrier (no process tears
+    the group down while another still uses it; rank 0 hosts its store),
+    then ``destroy_process_group``. Runs once: a second call, or a group
+    this module did not open, does nothing. Registered at exit."""
+    if not _OWNED["group"]:
+        return
+    _OWNED["group"] = False
+    if not dist.is_initialized():
+        return
+    try:
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def _comm_device(group) -> torch.device:
@@ -335,3 +365,105 @@ def gather_shard_meta(local: dict, mesh: Mesh) -> list[dict]:
     if missing:
         raise ValueError(f"no process holds shards {missing}")
     return [merged[si] for si in range(mesh.n_shard)]
+
+
+# -- data parallelism (training and encoding) ---------------------------------
+def _axis_slots(mesh: Mesh, axis_name: str) -> list[tuple[int, torch.device]]:
+    """(global slot index, device) of this process's slots on the 1-D mesh
+    ``axis_name``."""
+    if mesh.axis_names != (axis_name,):
+        raise ValueError(f"a 1-D {axis_name!r} mesh is needed, got axes {mesh.axis_names}")
+    return [(s, d) for _, s, d in mesh.local_slots()]
+
+
+def data_sharding(mesh: Mesh, axis_name: str = "data"):
+    """The batch axis split over this process's slots (the reference's
+    ``NamedSharding(mesh, P(axis_name))``): a function ``x -> [piece, ...]``
+    giving each of this process's slots, in slot order, its contiguous
+    equal slice of ``x`` on its device. ``x`` is this process's own data
+    (the reference's ``make_array_from_process_local_data``); its length
+    must divide by the process's slot count."""
+    devs = [d for _, d in _axis_slots(mesh, axis_name)]
+
+    def place(x) -> list[torch.Tensor]:
+        x = torch.as_tensor(x)
+        if x.shape[0] % len(devs):
+            raise ValueError(f"{x.shape[0]} rows do not split over {len(devs)} slots")
+        per = x.shape[0] // len(devs)
+        return [x[j * per:(j + 1) * per].to(d) for j, d in enumerate(devs)]
+
+    return place
+
+
+def replicated(mesh: Mesh):
+    """A replica per slot of this process (the reference's
+    ``NamedSharding(mesh, P())`` for the parameters): a function ``module
+    -> [replica, ...]`` in slot order, each on its slot's device, the first
+    the module itself, the others deep copies."""
+    devs = [d for _, _, d in mesh.local_slots()]
+
+    def place(module: torch.nn.Module) -> list:
+        return [module.to(devs[0])] + [copy.deepcopy(module).to(d) for d in devs[1:]]
+
+    return place
+
+
+def shard_rows(x, mesh: Mesh, axis_name: str = "shard"):
+    """(N, ...) rows split over the mesh's ``axis_name`` slots, N padded with
+    zero rows to a multiple of the slot count (the reference's
+    ``shard_rows``): (this process's pieces in slot order, each on its
+    slot's device, N). Slot s takes rows [s·N_pad/S, (s+1)·N_pad/S)."""
+    x = torch.as_tensor(x)
+    n = int(x.shape[0])
+    size = mesh.shape[axis_name]
+    pad = (-n) % size
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+    per = x.shape[0] // size
+    return [x[s * per:(s + 1) * per].to(d) for s, d in _axis_slots(mesh, axis_name)], n
+
+
+class _GatherRows(torch.autograd.Function):
+    """All processes' (n, D) rows in rank order, with gradients: the
+    backward hands each process the gradient of its own rows. Every process
+    computes the same loss of the gathered rows, so that slice is the whole
+    gradient of its rows (no reduction over processes)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank: int, nproc: int):
+        ctx.rank, ctx.n = rank, x.shape[0]
+        cdev = _comm_device(group)
+        xc = x.detach().to(cdev).contiguous()
+        out = [torch.empty_like(xc) for _ in range(nproc)]
+        dist.all_gather(out, xc, group=group)
+        return torch.cat(out).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.rank * ctx.n
+        return grad[lo:lo + ctx.n], None, None, None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` of every process concatenated in rank order (equal shapes),
+    differentiable (``_GatherRows``); ``x`` itself with one process. Under
+    gloo the rows cross through host memory."""
+    if mesh.group is None:
+        return x
+    return _GatherRows.apply(x, mesh.group, mesh.rank, mesh.nproc)
+
+
+def all_reduce_sum(ts: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
+    """The elementwise sums over processes of ``ts`` (one flat buffer, one
+    ``all_reduce``; under gloo through host memory), on the tensors' own
+    devices; ``ts`` itself with one process. Every process gets the same
+    sums."""
+    if mesh.group is None:
+        return ts
+    flat = torch.cat([t.reshape(-1) for t in ts]).to(_comm_device(mesh.group))
+    dist.all_reduce(flat, group=mesh.group)
+    out, lo = [], 0
+    for t in ts:
+        out.append(flat[lo:lo + t.numel()].view_as(t).to(t.device))
+        lo += t.numel()
+    return out

@@ -15,14 +15,31 @@ the schedule and the weight decay advance only on update steps.
 Checkpoints carry params, optimizer state, step, the dropout generator's
 state and the data cursor, so ``fit`` resumes exactly: restore, then
 fast-forward the batch stream by the cursor (through its ``skip()`` where it
-has one). One card, no data parallelism (the reference's mesh and DDP come
-with the distribution slice).
+has one).
+
+Data parallelism over a 1-D ``'data'`` mesh (parallel/mesh.py; the
+reference's ``jit`` with the batch sharded and the parameters replicated):
+each slot holds a replica of the model on its device and forwards its
+contiguous slice of the global batch; the slices' embeddings are gathered
+(within a process by a copy, across processes by a gather that carries
+gradients, ``gather_rows``), and the loss is the global batch's (InfoNCE's
+in-batch negatives drawn from the whole global batch, as the reference's
+SPMD program computes it; a stock DDP wrapper averaging each slice's own
+loss would compute another). The parameter gradients sum over the slots
+and then over the processes (``_reduce_grads``), so ``grad_norm`` is global
+and every process takes the same AdamW step; a process's other replicas
+copy the updated parameters of its first. The global batch is the
+processes' batches in rank order, each split over its slots. With one slot
+the step is the one-card step. Slot 0 draws its dropout masks from the
+state's generator; any other slot from one seeded by (seed, step, slot),
+so a resumed run draws the same masks. Rank 0 writes the checkpoints;
+every process reads them on resume.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterator
 
 import numpy as np
@@ -31,6 +48,8 @@ import torch
 from cloudvectordb_tpu_torch.index.base import from_numpy, to_numpy
 from cloudvectordb_tpu_torch.models.encoder import Encoder, init_encoder
 from cloudvectordb_tpu_torch.ops.topk import f32_const
+from cloudvectordb_tpu_torch.parallel.mesh import (
+    Mesh, all_reduce_sum, data_sharding, gather_rows, make_mesh, replicated)
 from cloudvectordb_tpu_torch.train.losses import (
     infonce_loss, triplet_margin_loss, uniformity_loss)
 from cloudvectordb_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -48,7 +67,8 @@ class TrainState:
     model: Encoder
     opt_state: dict  # AdamW.init: count, mu, nu (+ mini_step, acc with grad_accum)
     step: int
-    generator: torch.Generator  # draws every dropout mask
+    generator: torch.Generator  # draws global slot 0's dropout masks
+    replicas: list = field(default_factory=list)  # the models of this process's other slots
 
 
 class AdamW:
@@ -129,11 +149,40 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
     return AdamW(cfg)
 
 
+def default_mesh(cfg: TrainConfig, device: str | torch.device = DEFAULT) -> Mesh:
+    """The trainer's mesh when none is given, by the reference's rule:
+    ``cfg.mesh_data_axis`` 'data' slots over the visible cards (0: one a
+    card; joined processes: one card a process) where ``device`` is plain
+    ``"cuda"``, else on ``device`` (one card, or the CPU, which holds any
+    number: the tests' stand-in for devices). Slots that would share a card
+    raise: each replica is a copy of the model on its card, so N on one card
+    take N times the memory and train no faster; ``mesh=`` shares a card
+    deliberately."""
+    dev = as_device(device)
+    every_card = dev.type == "cuda" and dev.index is None
+    mesh = make_mesh(cfg.mesh_data_axis or None, axis_name="data",
+                     devices=None if every_card else [dev])
+    cards = [d for _, _, d in mesh.local_slots() if d.type == "cuda"]
+    if len(set(cards)) < len(cards):
+        raise ValueError(
+            f"mesh_data_axis={cfg.mesh_data_axis} puts {len(cards)} data slots on "
+            f"{len(set(cards))} card(s) of this process, each replica a copy of the model; "
+            "pass mesh=make_mesh(n, axis_name='data', devices=[...]) to share a card")
+    return mesh
+
+
 class Trainer:
+    """``mesh``: a 1-D ``'data'`` mesh (parallel/mesh.py), by default
+    ``default_mesh(cfg, device)``. The first local slot's device is the
+    trainer's."""
+
     def __init__(self, cfg: TrainConfig, device: str | torch.device = DEFAULT,
-                 metrics: MetricsWriter | None = None):
+                 metrics: MetricsWriter | None = None, mesh: Mesh | None = None):
         self.cfg = cfg
-        self.device = as_device(device)
+        self.mesh = mesh if mesh is not None else default_mesh(cfg, device)
+        self._place = data_sharding(self.mesh)
+        self._slots = [s for _, s, _ in self.mesh.local_slots()]
+        self.device = self.mesh.local_devices()[0]
         self.opt = make_optimizer(cfg)
         self.metrics = metrics or MetricsWriter(None)
 
@@ -142,18 +191,22 @@ class Trainer:
         model = init_encoder(self.cfg.encoder, seed=seed, device=self.device)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
-        return TrainState(model, self.opt.init(model), 0, generator)
+        models = replicated(self.mesh)(model)
+        return TrainState(models[0], self.opt.init(models[0]), 0, generator, models[1:])
 
     # -- one step ------------------------------------------------------------
-    def loss_of(self, model: Encoder, batch: dict, generator: torch.Generator):
-        """(loss, acc) of one stacked 3B forward in training mode."""
-        cfg = self.cfg
+    def _embed(self, model: Encoder, batch: dict, generator: torch.Generator):
+        """(anchor, positive, negative) embeddings of one stacked 3B forward
+        in training mode."""
         ids = torch.cat([batch[f"{leg}_ids"] for leg in _LEGS])
         mask = torch.cat([batch[f"{leg}_mask"] for leg in _LEGS])
         model.train()
         emb = model(ids, mask, deterministic=False, generator=generator)
         b = batch["anchor_ids"].shape[0]
-        a, p, n = emb[:b], emb[b:2 * b], emb[2 * b:]
+        return emb[:b], emb[b:2 * b], emb[2 * b:]
+
+    def _loss(self, a, p, n):
+        cfg = self.cfg
         if cfg.loss == "infonce":
             loss, acc = infonce_loss(a, p, n, temperature=cfg.temperature)
             if cfg.uniformity_weight > 0.0:
@@ -163,21 +216,75 @@ class Trainer:
             acc = (((a - p) ** 2).sum(-1) < ((a - n) ** 2).sum(-1)).float().mean()
         return loss, acc
 
-    def step_fn(self, state: TrainState, batch: dict):
-        """One training step on a placed batch; updates ``state`` in place
-        and returns it with {"loss", "acc", "grad_norm"} as 0-d tensors on
-        the device (no host sync)."""
-        loss, acc = self.loss_of(state.model, batch, state.generator)
+    def loss_of(self, model: Encoder, batch: dict, generator: torch.Generator):
+        """(loss, acc) of one stacked 3B forward in training mode."""
+        return self._loss(*self._embed(model, batch, generator))
+
+    def _slot_generator(self, state: TrainState, j: int) -> torch.Generator:
+        """Local slot j's dropout generator: the state's for global slot 0,
+        else one seeded by (seed, step, slot)."""
+        s = self._slots[j]
+        if s == 0:
+            return state.generator
+        g = torch.Generator(device=self.mesh.local_slots()[j][2])
+        g.manual_seed((self.cfg.seed * 1_000_003 + state.step) * 4099 + s)
+        return g
+
+    def _reduce_grads(self, per_slot: list[list[torch.Tensor]]) -> list[torch.Tensor]:
+        """The gradient all-reduce: per parameter, the sum over this
+        process's slots in slot order on the first slot's device, then over
+        the processes (mesh.py::all_reduce_sum)."""
+        grads = list(per_slot[0])
+        for more in per_slot[1:]:
+            grads = [g + h.to(g.device) for g, h in zip(grads, more)]
+        return all_reduce_sum(grads, self.mesh)
+
+    def step_fn(self, state: TrainState, batch):
+        """One training step on a placed batch (``place_batch``'s: a dict,
+        or one a slot; a dict of this process's whole batch is split here);
+        updates ``state`` in place and returns it with {"loss", "acc",
+        "grad_norm"} as 0-d tensors on the device (no host sync)."""
+        parts = batch if isinstance(batch, list) else (
+            [batch] if len(self._slots) == 1 else self.place_batch(batch))
+        models = [state.model, *state.replicas]
+        embs = [self._embed(m, part, self._slot_generator(state, j))
+                for j, (m, part) in enumerate(zip(models, parts))]
+        if len(embs) == 1:
+            a, p, n = embs[0]
+        else:
+            a, p, n = (torch.cat([e[i].to(self.device) for e in embs]) for i in range(3))
+        a, p, n = (gather_rows(t, self.mesh) for t in (a, p, n))
+        loss, acc = self._loss(a, p, n)
         params = dict(state.model.named_parameters())
-        grads = torch.autograd.grad(loss, list(params.values()))
+        every = [list(m.parameters()) for m in models]
+        flat = torch.autograd.grad(loss, [t for ps in every for t in ps])
+        n_par = len(params)
+        grads = self._reduce_grads([list(flat[j * n_par:(j + 1) * n_par])
+                                    for j in range(len(models))])
         gnorm = torch.sqrt(torch.stack([(g * g).sum() for g in grads]).sum())
         self.opt.update(params, grads, state.opt_state)
+        self._sync_replicas(state)
         state.step += 1
         return state, {"loss": loss.detach(), "acc": acc.detach(), "grad_norm": gnorm}
 
-    def place_batch(self, batch: dict) -> dict:
-        """Host (numpy) or device batch → tensors on the trainer's device."""
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+    @staticmethod
+    def _sync_replicas(state: TrainState) -> None:
+        """This process's other replicas take its first's parameters."""
+        if state.replicas:
+            with torch.no_grad():
+                src = list(state.model.parameters())
+                for r in state.replicas:
+                    for dst, p in zip(r.parameters(), src):
+                        dst.copy_(p)
+
+    def place_batch(self, batch: dict):
+        """This process's host (numpy) or device batch → tensors on the
+        trainer's device (one slot), or split over its slots, one dict a
+        slot on the slot's device (``mesh.py::data_sharding``)."""
+        if len(self._slots) == 1:
+            return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        pieces = {k: self._place(v) for k, v in batch.items()}
+        return [{k: v[j] for k, v in pieces.items()} for j in range(len(self._slots))]
 
     # -- checkpoint state ----------------------------------------------------
     @staticmethod
@@ -208,6 +315,7 @@ class Trainer:
             state.opt_state["mini_step"] = int(arrays["opt.mini_step"])
         state.step = int(arrays["step"])
         state.generator.set_state(torch.from_numpy(np.array(arrays["rng"], np.uint8)))
+        Trainer._sync_replicas(state)
         return state
 
     # -- the loop --------------------------------------------------------------
@@ -250,6 +358,14 @@ class Trainer:
                 log.info("step %d loss %.4f acc %.3f (%.0f ex/s)", step_idx + 1,
                          m["loss"], m["acc"], seen / dt)
             if (step_idx + 1) % cfg.ckpt_every == 0 or step_idx + 1 == cfg.total_steps:
-                save_checkpoint(cfg.ckpt_dir, step_idx + 1, self.state_arrays(state),
-                                meta={"data_cursor": step_idx + 1}, keep_last=cfg.keep_last)
+                self._save(state, step_idx + 1)
         return state
+
+    def _save(self, state: TrainState, step: int) -> None:
+        """The checkpoint, written by rank 0; with several processes every
+        process waits until it is written."""
+        if self.mesh.rank == 0:
+            save_checkpoint(self.cfg.ckpt_dir, step, self.state_arrays(state),
+                            meta={"data_cursor": step}, keep_last=self.cfg.keep_last)
+        if self.mesh.group is not None:
+            torch.distributed.barrier(group=self.mesh.group)

@@ -3,11 +3,10 @@ cloudvectordb_tpu/utils/config.py, which imports no JAX).
 
 The same fields, defaults, JSON round-trip, dotted-path overrides and
 ``config_hash``, so a config saved by either package loads in the other and
-hashes the same. Two fields mean nothing on one card and are kept only so
-the JSON round-trips: ``TrainConfig.rng_impl`` (the TPU's hardware RNG; the
-port draws dropout masks from a ``torch.Generator``) and
-``TrainConfig.mesh_data_axis`` (the port trains on one card). The port
-ignores both.
+hashes the same. ``TrainConfig.rng_impl`` (the TPU's hardware RNG; the
+port draws dropout masks from a ``torch.Generator``) means nothing to the
+port and is kept only so the JSON round-trips. ``TrainConfig.mesh_data_axis``
+sizes the trainer's default data-parallel mesh (train/trainer.py).
 """
 
 from __future__ import annotations
@@ -138,7 +137,7 @@ class TrainConfig(_ConfigBase):
     ckpt_dir: str = "artifacts/ckpt"
     keep_last: int = 3
     log_every: int = 10
-    mesh_data_axis: int = 0        # the reference's mesh size; ignored by the port
+    mesh_data_axis: int = 0        # 'data' slots over the visible cards; 0 → one a card
 
 
 @dataclass

@@ -102,12 +102,17 @@ def test_build_index_clamps_nlist_and_maps_band_dtypes(data):
 @pytest.mark.parametrize("kind", ["band_ivf", "ivf_pq"])
 def test_sharded_config_raises_and_names_distribution(data, kind):
     """Since the distribution slice ported sharded serving, nshards > 0
-    builds band_ivf and ivf_pq sharded over a mesh on the given device; the
-    sharded band_ivf_pq still raises, naming the distribution item's part
-    it waits for."""
+    builds band_ivf and ivf_pq sharded over a mesh on the given device, and
+    since config #5 across shards, band_ivf_pq too; another kind raises,
+    naming the kinds it supports."""
     x = data[0]
     idx = build_index(x, IndexConfig(kind=kind, nshards=2, nlist=16, m=8), device="cpu")
     assert idx.kind == f"sharded_{kind}" and idx.nshards == 2 and idx.ntotal == x.shape[0]
     assert all(sh.device == torch.device("cpu") for sh in idx._shards)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        build_index(x, IndexConfig(kind="band_ivf_pq", nshards=2, m=8), device="cpu")
+    pq = build_index(x, IndexConfig(kind="band_ivf_pq", nshards=2, nlist=16, m=8,
+                                    refine="pq2", kmeans_iters=2, pq_train_iters=2),
+                     device="cpu")
+    assert pq.kind == "sharded_band_ivf_pq" and pq.nshards == 2 and pq.ntotal == x.shape[0]
+    assert all(sh.device == torch.device("cpu") for sh in pq._shards)
+    with pytest.raises(ValueError, match="band_ivf_pq"):
+        build_index(x, IndexConfig(kind="ivf_flat", nshards=2), device="cpu")

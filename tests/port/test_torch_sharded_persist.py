@@ -131,7 +131,7 @@ def test_ivfpq_artifacts_cross_and_reshard(data, tmp_path):
         q, 5, nprobe=8)[1], nr.search(q, 5, nprobe=8)[1])
 
 
-@pytest.mark.parametrize("kind", ["band_ivf", "ivf_pq"])
+@pytest.mark.parametrize("kind", ["band_ivf", "ivf_pq", "band_ivf_pq"])
 def test_build_index_nshards_and_tuned_op_point(data, tmp_path, kind):
     """IndexConfig(nshards=8) builds the sharded wrapper over a mesh on the
     given device; tune() sets an op point that serves by default and
@@ -148,5 +148,3 @@ def test_build_index_nshards_and_tuned_op_point(data, tmp_path, kind):
     loaded = load_index(tmp_path / "idx", device="cpu")
     assert loaded._op_point == rep["op"] and loaded.nshards == 8
     np.testing.assert_array_equal(loaded.search(q, 10)[1], idx.search(q, 10)[1])
-    with pytest.raises(NotImplementedError, match=r"14 \(b\)"):
-        build_index(db, IndexConfig(kind="band_ivf_pq", nshards=2, m=8), device="cpu")
