@@ -1810,6 +1810,10 @@ def sharded_worker(rank: int, world: int, port: int, tmp: str, device: str,
 
     mesh_mod.init_multihost(f"127.0.0.1:{port}", world, rank, timeout_s=120)
     try:
+        # two processes of one host on its one card: the mapping takes gloo
+        if torch.distributed.get_backend() != "gloo":
+            raise AssertionError(f"two processes on one card chose "
+                                 f"{torch.distributed.get_backend()}, not gloo")
         tmp = Path(tmp)
         if task != "band":
             worker = {"cascade": cascade_worker, "dp": dp_worker}[task]

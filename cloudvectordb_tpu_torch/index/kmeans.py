@@ -90,3 +90,11 @@ def train_kmeans(
         respawn = new_c[heavy][None, :] + noise
         centroids = torch.where((counts > 0.0)[:, None], new_c, respawn)
     return centroids, _assign_tiled(xf, centroids, tile)
+
+
+def kmeans_objective(x: torch.Tensor, centroids: torch.Tensor,
+                     assignments: torch.Tensor) -> torch.Tensor:
+    """Mean over the rows of the squared f32 distance to the assigned
+    centroid, a 0-d tensor on the tensors' device (for tests and metrics)."""
+    diffs = x.float() - centroids.float()[assignments.long()]
+    return (diffs * diffs).sum(dim=1).mean()

@@ -1,5 +1,5 @@
 """OPQ: a learned orthogonal rotation before PQ (counterpart of
-cloudvectordb_tpu/index/opq.py::train_opq).
+cloudvectordb_tpu/index/opq.py: ``train_opq``, ``opq_reconstruction_mse``).
 
 Alternating optimisation: fit PQ codebooks on the rotated sample, encode and
 decode it, then solve the orthogonal Procrustes problem R = V·Uᵀ from the
@@ -56,3 +56,20 @@ def train_opq(x, m: int, nbits: int = 8, outer_iters: int = 8, pq_iters: int = 8
         u, _, vt = torch.linalg.svd(x.T @ x_hat, full_matrices=False)
         r = (u @ vt).T
     return r.cpu().numpy(), codebooks.cpu().numpy()
+
+
+def _f32(a, device=None) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device if device is not None else a.device, dtype=torch.float32)
+    return torch.from_numpy(np.array(a, np.float32)).to(device or "cpu")
+
+
+def opq_reconstruction_mse(x, r, codebooks) -> float:
+    """Mean over the rows of the summed squared error of x' = x @ rᵀ against
+    its PQ decode, on the tensors' device (``x`` a tensor, or an array for
+    the CPU)."""
+    x = _f32(x)
+    xr = x @ _f32(r, x.device).T
+    cb = _f32(codebooks, x.device)
+    x_hat = pq_decode(pq_encode(xr, cb), cb)
+    return float(((xr - x_hat) ** 2).sum(dim=1).mean())

@@ -31,6 +31,7 @@ from __future__ import annotations
 import atexit
 import copy
 import datetime
+import os
 import zlib
 
 import numpy as np
@@ -119,13 +120,43 @@ def _world():
         dist.is_available() and dist.is_initialized()) else (None, 1, 0)
 
 
-def _local_devices(devices, rank: int) -> list[torch.device]:
+def local_placement(num_processes: int, process_id: int) -> tuple[int, int]:
+    """(local rank, local world size) of this process: the launcher's
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``, as ``torchrun`` sets them, or,
+    without them, a job on one host (``process_id``, ``num_processes``)."""
+    rank, size = os.environ.get("LOCAL_RANK"), os.environ.get("LOCAL_WORLD_SIZE")
+    if rank is None and size is None:
+        return process_id, num_processes
+    if rank is None or size is None:
+        raise ValueError(f"LOCAL_RANK={rank} and LOCAL_WORLD_SIZE={size}: the launcher "
+                         "sets both or neither")
+    rank, size = int(rank), int(size)
+    if not 0 <= rank < size or size > num_processes:
+        raise ValueError(f"local rank {rank} of {size} on a job of {num_processes} processes")
+    return rank, size
+
+
+def _card_of(local_rank: int, n_cards: int, backend: str) -> int:
+    """The card a process of a group takes: its local rank. Processes that
+    share a card (more of them on the host than cards) do so only under
+    gloo, where the local rank wraps; with NCCL it raises."""
+    if local_rank >= n_cards and backend == "nccl":
+        raise ValueError(f"local rank {local_rank} with NCCL on a host of {n_cards} cards: "
+                         "NCCL takes one card a process")
+    return local_rank % n_cards
+
+
+def _local_devices(devices, rank: int, world: int) -> list[torch.device]:
+    """This process's devices: ``devices``, else every visible card for a
+    process alone on its host (the reference's process owns all of its
+    host's devices), else the card at its local rank."""
     if devices is not None:
         return [as_device(d) for d in devices]
     if torch.cuda.is_available():
         n = torch.cuda.device_count()
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            return [torch.device("cuda", rank % n)]
+        local_rank, local_size = local_placement(world, rank) if world > 1 else (0, 1)
+        if local_size > 1:
+            return [torch.device("cuda", _card_of(local_rank, n, dist.get_backend()))]
         return [torch.device("cuda", i) for i in range(n)]
     return [as_device(DEFAULT)]  # raises torch's own error: no silent CPU mesh
 
@@ -136,7 +167,7 @@ def _place(shape: tuple, axis_names: tuple, devices) -> Mesh:
     if n < world:
         raise ValueError(f"{n} mesh slots for {world} processes: every process needs one")
     owners = (np.arange(n) * world // n).reshape(shape)
-    local = _local_devices(devices, rank)
+    local = _local_devices(devices, rank, world)
     devs = np.empty(n, dtype=object)
     mine = np.flatnonzero(owners.reshape(-1) == rank)
     for j, f in enumerate(mine):
@@ -147,11 +178,12 @@ def _place(shape: tuple, axis_names: tuple, devices) -> Mesh:
 def make_mesh(n: int | None = None, axis_name: str = "shard", devices=None) -> Mesh:
     """1-D mesh of ``n`` shard slots over the processes (contiguous blocks)
     and, within a process, over ``devices`` (default: every visible card,
-    or with several processes the card ``rank % device_count``)
-    round-robin. ``n`` defaults to one slot per device of every process."""
+    or the card at the local rank of a process that shares its host with
+    others) round-robin. ``n`` defaults to one slot per device of every
+    process."""
     _, world, rank = _world()
     if n is None:
-        n = len(_local_devices(devices, rank)) * world
+        n = len(_local_devices(devices, rank, world)) * world
     return _place((int(n),), (axis_name,), devices)
 
 
@@ -165,10 +197,13 @@ def init_multihost(coordinator: str, num_processes: int, process_id: int,
                    backend: str | None = None, timeout_s: float = 600.0) -> int:
     """Join ``num_processes`` processes into one ``torch.distributed`` group
     (``coordinator`` as ``host:port``, rank ``process_id``): gloo where the
-    processes share a card or have none, NCCL where each has a card of its
-    own (``backend`` overrides). Every failure raises; nothing degrades to
-    one process. Returns the world size. Already initialized: checks that
-    the group is this one. A group opened here is torn down at interpreter
+    processes of a host share a card or have none, NCCL where each has a
+    card of its own (``backend`` overrides), and then the card at its local
+    rank (``local_placement``: the launcher's ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE``, or one host). NCCL across cards is not measured
+    (one card). Every failure raises; nothing degrades to one process.
+    Returns the world size. Already initialized: checks that the group is
+    this one. A group opened here is torn down at interpreter
     exit (``shutdown_multihost``), as ``jax.distributed.initialize``
     registers its own shutdown: a group left alive into interpreter
     teardown can abort the process (SIGABRT from its threads) after its
@@ -179,11 +214,12 @@ def init_multihost(coordinator: str, num_processes: int, process_id: int,
                 f"torch.distributed already up as rank {dist.get_rank()} of "
                 f"{dist.get_world_size()}, asked for {process_id} of {num_processes}")
         return num_processes
+    local_rank, local_size = local_placement(num_processes, process_id)
     if backend is None:
-        distinct_cards = torch.cuda.is_available() and torch.cuda.device_count() >= num_processes
+        distinct_cards = torch.cuda.is_available() and torch.cuda.device_count() >= local_size
         backend = "nccl" if distinct_cards else "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+        torch.cuda.set_device(_card_of(local_rank, torch.cuda.device_count(), backend))
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s))

@@ -152,8 +152,9 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 def default_mesh(cfg: TrainConfig, device: str | torch.device = DEFAULT) -> Mesh:
     """The trainer's mesh when none is given, by the reference's rule:
     ``cfg.mesh_data_axis`` 'data' slots over the visible cards (0: one a
-    card; joined processes: one card a process) where ``device`` is plain
-    ``"cuda"``, else on ``device`` (one card, or the CPU, which holds any
+    card; joined processes: the cards ``make_mesh`` gives each, one at its
+    local rank or all of a host's to its only process) where ``device`` is
+    plain ``"cuda"``, else on ``device`` (one card, or the CPU, which holds any
     number: the tests' stand-in for devices). Slots that would share a card
     raise: each replica is a copy of the model on its card, so N on one card
     take N times the memory and train no faster; ``mesh=`` shares a card

@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from cloudvectordb_tpu.data.synthetic import clustered_vectors
+from cloudvectordb_tpu.index.kmeans import kmeans_objective as jax_kmeans_objective
 from cloudvectordb_tpu.index.kmeans import train_kmeans as jax_train_kmeans
 from cloudvectordb_tpu.ops.assign import assign_clusters as jax_assign_clusters
-from cloudvectordb_tpu_torch.index.kmeans import _segment_sums, train_kmeans
+from cloudvectordb_tpu_torch.index.kmeans import _segment_sums, kmeans_objective, train_kmeans
 from cloudvectordb_tpu_torch.ops.assign import assign_clusters
 
 
@@ -73,3 +74,19 @@ def test_segment_sums_match_a_float64_sum(k):
     np.testing.assert_allclose(sums.numpy(), ref, rtol=2e-6, atol=2e-5)
     again, _ = _segment_sums(torch.from_numpy(x), torch.from_numpy(a), k)
     assert torch.equal(again, sums)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_kmeans_objective_matches_reference(dtype):
+    """The mean squared distance to the assigned centroid, from the same
+    rows, centroids and assignments (rows of another type are widened to
+    f32 first), within rtol 1e-5."""
+    rng = np.random.default_rng(41)
+    x = clustered_vectors(2000, 16, n_clusters=8, seed=40).astype(dtype)
+    c = rng.normal(size=(8, 16)).astype(np.float32)
+    a = rng.integers(0, 8, size=2000).astype(np.int32)
+    want = float(jax_kmeans_objective(jax.numpy.asarray(x), jax.numpy.asarray(c),
+                                      jax.numpy.asarray(a)))
+    got = kmeans_objective(torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(a))
+    assert got.dtype == torch.float32 and got.ndim == 0
+    assert float(got) == pytest.approx(want, rel=1e-5)

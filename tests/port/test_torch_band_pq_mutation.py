@@ -24,6 +24,18 @@ from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
 from test_torch_band_pq_index import (
     KW, _assert_same_arena, _assert_same_search, _assert_same_tiers, _same_quantizers)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch here: the tiny CPU shapes gain nothing
+    from more, and under several test workers on one machine the extra
+    threads only contend."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 #: the refine tiers mutated: build kwargs
 TIERS = {"resid_int8": dict(refine="int8"), "whole_int8": dict(refine="int8", residual=False),
          "none_opq": dict(refine="none", opq=True), "pq2_l2": dict(refine="pq2", m2=16,

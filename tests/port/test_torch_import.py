@@ -173,15 +173,23 @@ def test_device_measurement_refuses_the_cpu():
 
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
-    """Read statically: no module of the port (``parallel/`` included) and
-    not ``chip_smoke.py`` imports jax, flax or the JAX package, at any
-    depth of a function."""
+    """Read statically: no module of the port (``parallel/`` included), not
+    ``chip_smoke.py`` and no ``scripts/torch_*.py`` (the measuring entry
+    points and the card's tools) imports jax, flax or the JAX package, at
+    any depth of a function."""
     import re
 
     pat = re.compile(r"^\s*(?:from|import)\s+(?:jax|flax|cloudvectordb_tpu)(?:[.\s]|$)",
                      re.MULTILINE)
-    files = sorted((REPO / "cloudvectordb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    files = (sorted((REPO / "cloudvectordb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + scripts)
     assert any(f.parent.name == "parallel" for f in files)
+    assert {f.stem for f in scripts} >= {
+        "torch_bench_latency", "torch_bench_build_budget", "torch_bench_text_serving",
+        "torch_bench_encoder_real", "torch_bench_encode", "torch_bench_config2",
+        "torch_bench_config5", "torch_eval_sift", "torch_pq_hold_faults", "torch_pq_scan_ab",
+        "torch_scan_checkout_times", "torch_scan_hold_faults", "torch_wordpiece_runs"}
     hits = [(f.relative_to(REPO), m.group(0).strip()) for f in files
             for m in pat.finditer(f.read_text())]
     assert hits == []

@@ -18,8 +18,12 @@ processes with their gradients, the gradients all-reduced), equal to one
 process of two slots on the concatenated batch and, in loss, to the
 one-slot step on it; and the encode over the two processes' slots. Each
 worker has a timeout of its own, so a hung collective fails the test, and
-ends through ``shutdown_multihost``. A last test holds the exit: two
-processes that never tear their group down themselves exit with rc 0."""
+ends through ``shutdown_multihost``. A test holds the exit: two processes
+that never tear their group down themselves exit with rc 0. The last ones
+hold the mapping of processes to cards on the CPU (patched card counts and
+launcher variables, the group's opening recorded instead of made): the
+backend ``init_multihost`` picks, the card it sets and each process's
+mesh devices."""
 
 import json
 import os
@@ -315,3 +319,91 @@ def test_shutdown_without_a_group_does_nothing():
     assert not mesh_mod._OWNED["group"]
     mesh_mod.shutdown_multihost()
     mesh_mod.shutdown_multihost()
+
+
+def _cards(monkeypatch, n_cards: int, env: dict) -> None:
+    """``n_cards`` visible cards and the launcher's environment ``env``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    for key in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, str(value))
+
+
+def _join(monkeypatch, world: int, rank: int, n_cards: int, env: dict,
+          backend: str | None = None) -> dict:
+    """``init_multihost`` as process ``rank`` of ``world`` on a host of
+    ``n_cards`` cards, the group's opening recorded instead of made; then
+    the mesh of one slot a device of every process. The backend, the card
+    ``set_device`` took and this process's mesh devices."""
+    _cards(monkeypatch, n_cards, env)
+    seen = {"card": None}
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: seen.__setitem__("card", i))
+    monkeypatch.setattr(mesh_mod.dist, "is_initialized", lambda: "backend" in seen)
+    monkeypatch.setattr(mesh_mod.dist, "init_process_group",
+                        lambda backend, **kw: seen.update(backend=backend, **kw))
+    monkeypatch.setattr(mesh_mod.dist, "get_world_size", lambda group=None: world)
+    monkeypatch.setattr(mesh_mod.dist, "get_rank", lambda group=None: rank)
+    monkeypatch.setattr(mesh_mod.dist, "get_backend", lambda group=None: seen["backend"])
+    monkeypatch.setattr(mesh_mod, "_OWNED", {"group": False, "registered": True})
+    assert mesh_mod.init_multihost("127.0.0.1:1", world, rank, backend=backend) == world
+    assert (seen["world_size"], seen["rank"]) == (world, rank)
+    monkeypatch.setattr(mesh_mod, "_world", lambda: ("world", world, rank))
+    mesh = make_mesh()
+    seen["devices"] = mesh.local_devices()
+    seen["slots"] = mesh.n_shard
+    return seen
+
+
+def test_two_hosts_of_eight_cards_one_process_a_card(monkeypatch):
+    """torchrun on two hosts of 8 cards, 8 processes each: NCCL, and global
+    rank 9 (local rank 1) takes cuda:1, where the global rank chose gloo."""
+    got = _join(monkeypatch, 16, 9, 8, {"LOCAL_RANK": 1, "LOCAL_WORLD_SIZE": 8})
+    assert got["backend"] == "nccl" and got["card"] == 1
+    assert got["devices"] == [torch.device("cuda", 1)] and got["slots"] == 16
+
+
+def test_one_process_a_host_owns_every_card(monkeypatch):
+    """One process on each of two hosts: it owns all 8 of its host's cards,
+    as the reference's process owns all of its host's devices."""
+    got = _join(monkeypatch, 2, 1, 8, {"LOCAL_RANK": 0, "LOCAL_WORLD_SIZE": 1})
+    assert got["backend"] == "nccl" and got["card"] == 0
+    assert got["devices"] == [torch.device("cuda", i) for i in range(8)]
+    assert got["slots"] == 16
+
+
+@pytest.mark.parametrize("env", [{}, {"LOCAL_RANK": 1, "LOCAL_WORLD_SIZE": 2}])
+def test_two_processes_on_one_card_take_gloo(monkeypatch, env):
+    """Two processes on a host of one card (chip_smoke.py's two-process
+    cells): gloo, both on cuda:0, with or without the launcher's variables."""
+    got = _join(monkeypatch, 2, 1, 1, env)
+    assert got["backend"] == "gloo" and got["card"] is None
+    assert got["devices"] == [torch.device("cuda", 0)]
+
+
+@pytest.mark.parametrize("world,rank,n_cards,backend,card", [
+    (4, 3, 8, "nccl", 3), (16, 9, 8, "gloo", 1), (2, 0, 1, "gloo", 0)])
+def test_without_launcher_variables_the_job_is_one_host(monkeypatch, world, rank, n_cards,
+                                                         backend, card):
+    """No ``LOCAL_RANK``/``LOCAL_WORLD_SIZE``: every process is taken to be
+    on one host, the mapping before the launcher's variables were read
+    (NCCL where the host has a card a process, the card ``rank % cards``)."""
+    got = _join(monkeypatch, world, rank, n_cards, {})
+    assert got["backend"] == backend
+    assert got["card"] == (card if backend == "nccl" else None)
+    assert got["devices"] == [torch.device("cuda", card)]
+
+
+def test_clashing_mappings_raise(monkeypatch):
+    """NCCL asked for where two processes of a host would share its one
+    card, and a launcher that sets only one of the two variables, raise:
+    nothing wraps or falls back silently."""
+    with pytest.raises(ValueError, match="NCCL"):
+        _join(monkeypatch, 2, 1, 1, {"LOCAL_RANK": 1, "LOCAL_WORLD_SIZE": 2}, backend="nccl")
+    _cards(monkeypatch, 8, {"LOCAL_RANK": 1})
+    with pytest.raises(ValueError, match="both or neither"):
+        mesh_mod.local_placement(16, 9)
+    _cards(monkeypatch, 8, {"LOCAL_RANK": 8, "LOCAL_WORLD_SIZE": 8})
+    with pytest.raises(ValueError, match="local rank 8 of 8"):
+        mesh_mod.local_placement(16, 9)

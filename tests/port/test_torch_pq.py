@@ -21,10 +21,12 @@ import pytest
 import torch
 
 from cloudvectordb_tpu.data.synthetic import clustered_vectors
+from cloudvectordb_tpu.index.opq import opq_reconstruction_mse as jax_opq_reconstruction_mse
 from cloudvectordb_tpu.index.opq import train_opq as jax_train_opq
 from cloudvectordb_tpu.index.pq import (
     pq_decode as jax_pq_decode, pq_encode as jax_pq_encode, train_pq as jax_train_pq)
-from cloudvectordb_tpu_torch.index.opq import init_codebooks_from_perm, train_opq
+from cloudvectordb_tpu_torch.index.opq import (
+    init_codebooks_from_perm, opq_reconstruction_mse, train_opq)
 from cloudvectordb_tpu_torch.index.pq import (
     pq_decode, pq_encode, pq_reconstruction_mse, train_pq)
 
@@ -101,3 +103,15 @@ def test_train_pq_aniso_from_the_reference_init(x, eta):
                         seed=3, init_codebooks=init)
     assert cb.shape == cb_j.shape
     np.testing.assert_allclose(cb.numpy(), cb_j, atol=1e-3, rtol=0)
+
+
+def test_opq_reconstruction_mse_matches_reference(x):
+    """Rotate, PQ-encode, decode, mean summed squared error: the reference's
+    rotation and codebooks on the same rows, within rtol 1e-5, as a Python
+    float, from arrays and from tensors."""
+    r, cb = jax_train_opq(x, M, NBITS, outer_iters=2, pq_iters=3, seed=4)
+    want = jax_opq_reconstruction_mse(x, r, cb)
+    got = opq_reconstruction_mse(x, r, cb)
+    assert isinstance(got, float) and got == pytest.approx(want, rel=1e-5)
+    assert opq_reconstruction_mse(torch.from_numpy(x), torch.tensor(r),
+                                  torch.tensor(cb)) == got

@@ -13,6 +13,7 @@ not recur across shards, where an add merges at once."""
 
 import numpy as np
 import pytest
+import torch
 
 from cloudvectordb_tpu.data.synthetic import clustered_vectors, queries_from
 from cloudvectordb_tpu.eval.recall import brute_force_topk, recall_at_k
@@ -24,6 +25,18 @@ from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
 from cloudvectordb_tpu_torch.index.registry import load_index
 from cloudvectordb_tpu_torch.parallel.dist_band_pq import ShardedBandIVFPQIndex
 from cloudvectordb_tpu_torch.parallel.mesh import make_2d_mesh, make_mesh
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch here: the tiny CPU shapes gain nothing
+    from more, and under several test workers on one machine the extra
+    threads only contend."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 KW = dict(nlist=16, m=8, nbits=4, kmeans_iters=6, pq_train_iters=6, tile_n=256, tile_q=16,
           seed=3)

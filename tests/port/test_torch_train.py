@@ -35,6 +35,18 @@ from cloudvectordb_tpu_torch.utils.checkpoint import restore_checkpoint, save_ch
 from cloudvectordb_tpu_torch.utils.config import EncoderConfig, TrainConfig
 from cloudvectordb_tpu_torch.utils.metrics import MetricsWriter
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch here: the tiny CPU shapes gain nothing
+    from more, and under several test workers on one machine the extra
+    threads only contend."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ENC = dict(vocab_size=64, hidden_dim=32, num_layers=2, num_heads=4, mlp_dim=64,
            max_len=8, dropout=0.0, dtype="float32")
 TRAIN = dict(loss="infonce", temperature=0.1, batch_size=16, lr=3e-3, warmup_steps=1,

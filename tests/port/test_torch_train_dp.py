@@ -49,6 +49,18 @@ from cloudvectordb_tpu_torch.utils.config import EncoderConfig, TrainConfig
 
 from test_torch_train import _cfgs, toy_batches
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch here: the tiny CPU shapes gain nothing
+    from more, and under several test workers on one machine the extra
+    threads only contend."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 #: the DP step against the one-slot step: relative on loss and grad_norm,
 #: absolute on the parameters (f32; the same sums in other orders)
 DP_TOL = 1e-5
