@@ -36,7 +36,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    int8, hybrid and bf16 pairs), K7 (band_topk:
    clamped bands, the same shapes), K5 (pq_tiles_topk: residual or not,
    pools 1-3, top-2 on and off, R 1 and 4, repeated entries, n_valid
-   cutting a tile, D 768 at m 64, D 64, and D 30 at dsub 5) and K6
+   cutting a tile, D 768 at m 64, D 64, and D 30 at dsub 5; its segmented
+   dispatch over a five-tile arena cut at two tiles, residual, masked, l2
+   and top-2 with two pools, the view form equal to the reference's tuple
+   form with pad tiles) and K6
    (pq_topk: ragged N, D 768 and D 30); one line per kernel;
 5. the residual serving path: a 12.5M x 768 corpus generated on the device
    (the process of bench.py: latent 32, 256 centres, noise 0.3/sqrt(32),
@@ -139,17 +142,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    then cell 13, BASELINE config #5 at its per-card share (``run_config5``):
    125M x 768 rows (chunks 0-249 of the corpus) through
    ``BandIVFPQIndex.build_device_streaming`` (nlist 16384, m 64, OPQ,
-   refine 'pq2' m2 32, tile_n 1024), ``tune(gt=)`` at B 4096 against the
-   exact f32 top-10, recall@10 and device QPS at the op point beside the
-   same plan's recall without the pq2 rescore (the run fails if pq2 reads
-   more than 0.005 below it), the random 10% and correlated filters (no
+   refine 'pq2' m2 32, tile_n 1024; past the 28·2^20-row segment cap, so
+   K5 dispatches five segments, each with its own pools), ``tune(gt=)`` at
+   B 4096 against the exact f32 top-10, recall@10 and device QPS at the op
+   point beside the same plan's recall without the pq2 rescore (the run
+   fails if pq2 reads more than 0.005 below it) and beside the joined
+   dispatch's on the same arena (the cap set past its rows; the run fails
+   if the segmented recall reads more than 0.005 below it), the random
+   10% and correlated filters (no
    disallowed id, (-inf, -1) unfilled slots), 131,072 added rows pending
    (plain and filtered batches; the allowed pending rows find themselves),
    ``merge_pending``, 8,192 removes (no removed id back), 1,024
    ``reconstruct`` calls (equal to the decode, cosine >= 0.8 to their
-   source rows), each timed; then K5 at the op plan against its plain
-   version plain, masked (10%), masked with top-2 and l2, through exact
-   f64 scores, each timed, with its bound; then its smaller checks
+   source rows), each timed; then K5's segmented dispatch at the op plan
+   against its plain version plain, masked (10%), masked with top-2 and
+   l2, through exact f64 scores, each timed (the five launches of a call
+   together), with its bound; then its smaller checks
    (``c5_small_checks``): (a) l2 at 500,000 rows with row norms in [0.5, 3.0]
    (pq2 and int8 builds, both routes, against the exact l2 truth; K5's l2
    bias kernel against its plain version and the exact f64 bias), (b) the
@@ -384,16 +392,19 @@ KERNELS["K5b"] = {"name": "pq_row_bias", "route": "cuda", "source": _PQ,
 #: (cells 1 and 2); K1 over the slack arena after its removes (cell 9); K3's
 #: top-2 on the CUDA-core body over f32 rows and deep hybrid rows; K5's
 #: filtered and l2 searches (cell 13); K1 and K5 at shard 0's plan (cells 14
-#: and 15); K4 forward and backward in a data-parallel replica (cell 16)
+#: and 15); K4 forward and backward in a data-parallel replica (cell 16);
+#: K5's segmented dispatch at cell 13's op plan (its launches: the
+#: segmented dispatch's)
 SHAPE_RECORDS = {"K1 refine": "K1", "K2 int8": "K2", "K2 ip": "K2", "K1 precise": "K1",
                  "K1 masked": "K1", "K1 l2": "K1", "K1 top2": "K1", "K3 top2": "K3",
                  "K1 mutated": "K1", "K3 top2 f32": "K3", "K3 top2 deep": "K3",
                  "K5 masked": "K5", "K5 l2": "K5", "K1 sharded": "K1", "K5 sharded": "K5",
-                 "K4 dp": "K4", "K4 bwd dp": "K4 bwd"}
+                 "K4 dp": "K4", "K4 bwd dp": "K4 bwd", "K5 seg": "K5"}
 KERNELS.update({key: dict(KERNELS[base], **({"name": f"{KERNELS[base]['name']} "
                                                      f"{' '.join(key.split()[1:])}"}
                                             if key.split()[1] in VARIANTS else {}))
                 for key, base in SHAPE_RECORDS.items()})
+KERNELS["K5 seg"]["name"] = "pq_tiles_topk segmented"
 WRAPPERS = {"K1": band.tiles_topk_resid, "K2": flat.flat_topk,
             "K3": band.tiles_topk, "K7": band.band_topk, "K5": pq.pq_tiles_topk,
             "K6": pq.pq_topk, "K1b": band.resid_row_bias, "K5b": pq.pq_row_bias}
@@ -653,6 +664,7 @@ def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     attn.mha_small_head.launches = attn.mha_small_head.bwd_launches = 0
+    pq.pq_tiles_topk.seg_launches = 0
 
 
 def bound(n_bytes: float, ops: float, kind: str) -> dict:
@@ -1147,6 +1159,7 @@ def pq_checks(dev) -> tuple[float, float]:
                     a["tile_n"])
             err5 = max(err5, pq_bias_compare(f"D{a['queries_sorted'].shape[1]} resid={resid}",
                                              *args, quiet=True))
+    err5 = max(err5, pq_segment_checks(dev))
     err6 = 0.0
     for seed, (n, lb, m, dsub) in enumerate(((5000, 0, PQ_M, 12), (7777, 512, PQ_M, 12),
                                              (3001, 256, 6, 5))):
@@ -1161,6 +1174,61 @@ def pq_checks(dev) -> tuple[float, float]:
             f"K6 N{n} L{lb} D{d}", lambda: pq.pq_topk(codes, cb, q, K, l_buckets=lb),
             lambda: pq.pq_topk_reference(codes, cb, q, K, l_buckets=lb), quiet=True))
     return err5, err6
+
+
+#: K5's segmented dispatch in the small checks: a five-tile arena cut at two
+#: tiles (segments of 2, 2 and 1 tiles); (residual, top2, mask, l2), two pools
+SEG_CASES = ((True, False, False, False), (True, False, True, False),
+             (True, False, False, True), (True, True, False, False), (True, True, True, True),
+             (False, True, True, True))
+
+
+def pq_segment_checks(dev) -> float:
+    """K5's segmented dispatch against its plain version (SEG_CASES), the
+    table reading every segment; a launch a segment; the view form (the
+    index's) equal outright to the reference's tuple form, each segment
+    with a trailing pad tile its entries never read."""
+    err = 0.0
+    for seed, (resid, top2, mask, l2) in enumerate(SEG_CASES):
+        a = random_pq_inputs(700 + seed, dev, residual=resid, p=6)
+        tile_n = a["tile_n"]
+        a["tile_table"][0] = torch.arange(6, device=dev) % 5  # every segment
+        n = a["codes_cm"].shape[0]
+        if mask:
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            a["row_mask"] = (torch.rand(n, generator=g, device=dev) < 0.2).to(torch.int8)
+        rows = (2 * tile_n, 2 * tile_n, tile_n)
+        kw = dict(k=4 * K, l_buckets=256, n_pools=2, top2=top2, l2=l2)
+        before = pq.pq_tiles_topk.seg_launches
+        err = max(err, compare(
+            f"K5 seg resid={resid} top2={top2} mask={mask} l2={l2}",
+            lambda: pq.pq_tiles_topk(**a, **kw, segments=rows),
+            lambda: pq.pq_tiles_topk_reference(**a, **kw, segments=rows), quiet=True,
+            allow=a.get("row_mask")))
+        if pq.pq_tiles_topk.seg_launches - before != len(rows):
+            raise AssertionError("K5 seg: not a launch a segment")
+        pad = lambda x: torch.cat([x, torch.zeros_like(x[:tile_n])])  # noqa: E731
+        tup = dict(a, codes_cm=[], centroid_tiles=[] if resid else None,
+                   local_ids=[] if resid else None, row_mask=[] if mask else None, n_valid=[])
+        off = 0
+        for r in rows:
+            sl = slice(off, off + r)
+            tup["codes_cm"].append(pad(a["codes_cm"][sl]))
+            if resid:
+                ct = a["centroid_tiles"][off // tile_n:(off + r) // tile_n]
+                tup["centroid_tiles"].append(torch.cat([ct, torch.zeros_like(ct[:1])]))
+                tup["local_ids"].append(pad(a["local_ids"][sl]))
+            if mask:
+                tup["row_mask"].append(pad(a["row_mask"][sl]))
+            tup["n_valid"].append(min(max(a["n_valid"] - off, 0), r))
+            off += r
+        v1, i1 = pq.pq_tiles_topk(**a, **kw, segments=rows)
+        v2, i2 = pq.pq_tiles_topk(**{k: tuple(v) if isinstance(v, list) else v
+                                     for k, v in tup.items()}, **kw)
+        if not (torch.equal(v1, v2) and torch.equal(i1, i2)):
+            raise AssertionError("K5 seg: the view form differs from the tuple form")
+    return err
 
 
 def small_kernel_checks(dev) -> dict:
@@ -2927,6 +2995,9 @@ C5_KW = dict(nlist=C5_NLIST, m=PQ_M, nbits=PQ_NBITS, opq=True, refine="pq2", m2=
              tile_n=C5_TILE_N, train_sample=262_144, kmeans_iters=8, pq_train_iters=6)
 #: pq2's recall may not fall below the same plan's tier-1 recall by more
 PQ2_SLACK = 0.005
+#: the segmented dispatch's recall may not fall below the joined
+#: dispatch's on the same arena by more (its pools only widen)
+C5_SEG_SLACK = 0.005
 #: the reference's best recall@10 at this cell (VERDICT.md:117-119, TPU r4,
 #: the pq2+host cascade), quoted as recall only; not a floor
 C5_REF_RECALL = 0.928
@@ -3024,24 +3095,27 @@ def tier1_search(idx, queries, k: int, p_tiles: int, tq: int, rf: int, top2: boo
         qp, st["centroids"], st["codes"], st["codebooks"], st["refine"], st["ids"],
         st["tile_window"], st["centroid_tiles"], idx._n, st["local"], k=k, k_cand=k_cand,
         p_tiles=p_tiles, tile_n=idx.tile_n, tile_q=tq, refine_scale=0.0, n_pools=n_pools,
-        l_buckets=l_buckets, top2=top2)
+        l_buckets=l_buckets, top2=top2, segments=idx._seg_rows())
 
 
 def c5_k5_holds(idx, queries, op: dict, rm10) -> dict:
-    """K5 against its plain version at the op point's plan in four forms:
-    plain, masked (the 10% filter's arena mask), masked with top-2, and l2
+    """K5's segmented dispatch (the index's five segments) against its plain
+    version at the op point's plan in four forms: plain (the record 'K5
+    seg'), masked (the 10% filter's arena mask), masked with top-2, and l2
     (its row bias from the bias kernel, the plain version's from the decoded
-    rows); ids held through exact f64 scores (``pq_exact``), each timed,
-    with its bound: each distinct tile's codes, local bytes and centroid
-    tiles, a mask byte or four bias bytes a row, the queries and slots."""
+    rows); ids held through exact f64 scores (``pq_exact``), each timed (a
+    call's launches together), with its bound: each distinct tile's codes,
+    local bytes and centroid tiles, a mask byte or four bias bytes a row,
+    the queries and slots."""
     st = idx._device_state()
     p_tiles, tq, rf = op["p_tiles"], op.get("tile_q", idx.tile_q), op.get("refine_factor", 16)
     q_s, _, _, table = _plan_tiles(idx._rotate(queries), st["centroids"], st["tile_window"],
                                    tq, p_tiles)
     used, rows_scored = table_work(table, tq, idx.tile_n, 1)
     w = st["centroid_tiles"].shape[1]
-    forms = {"K5 c5": (False, False, False), "K5 masked": (True, False, False),
+    forms = {"K5 seg": (False, False, False), "K5 masked": (True, False, False),
              "K5 masked top2": (True, True, False), "K5 l2": (False, False, True)}
+    segments = idx._seg_rows()
     out = {}
     for key, (masked, top2, l2) in forms.items():
         _, k_cand, n_pools, l_buckets, _ = idx._pq_stage_plan(K, rf, 0, tq, p_tiles, top2)
@@ -3049,13 +3123,13 @@ def c5_k5_holds(idx, queries, op: dict, rm10) -> dict:
                     tile_table=table, k=k_cand, centroid_tiles=st["centroid_tiles"],
                     tile_n=idx.tile_n, tile_q=tq, l_buckets=l_buckets, n_valid=idx._n,
                     row_major=True, local_ids=st["local"], n_pools=n_pools, top2=top2,
-                    row_mask=rm10 if masked else None, l2=l2)
+                    row_mask=rm10 if masked else None, l2=l2, segments=segments)
         kern = dict(args)
         if l2:
             kern["row_bias"] = pq.pq_row_bias(st["codes"], st["local"], st["codebooks"],
                                               st["centroid_tiles"], idx.tile_n)
         label = (f"{key[3:]} B{queries.shape[0]} p{p_tiles} tq{tq} k_cand {k_cand} "
-                 f"L{l_buckets} pools {n_pools}")
+                 f"L{l_buckets} pools {n_pools} segments {len(segments or (0,))}")
         hold = dict(allow=rm10 if masked else None, id_floor=C5_ID_FLOOR,
                     exact=pq_exact(st["codes"], st["local"], st["codebooks"],
                                    st["centroid_tiles"], idx.tile_n, q_s, l2=l2))
@@ -3066,10 +3140,12 @@ def c5_k5_holds(idx, queries, op: dict, rm10) -> dict:
         if key not in KERNELS:  # held, not a record
             out[key] = dict(err=err)
             continue
+        before = pq.pq_tiles_topk.seg_launches
         r = dict(err=err, ms=time_ms(lambda: pq.pq_tiles_topk(**kern), 3),
                  plain_ms=plain.ms, shape=label)
-        log(f"[kernel] K5 {label}: kernel {r['ms']:.3f} ms, plain version {r['plain_ms']:.3f} ms "
-            f"(one call)")
+        per_call = (pq.pq_tiles_topk.seg_launches - before) // 4
+        log(f"[kernel] K5 {label}: kernel {r['ms']:.3f} ms ({per_call} launches a call, "
+            f"together), plain version {r['plain_ms']:.3f} ms (one call)")
         side = (1 if masked else 0) + (4 if l2 else 0)
         n_slots = (2 if top2 else 1) * n_pools
         r.update(pq_bound(PQ_M + 1 + side, rows_scored, used * idx.tile_n, used * w * D * 2,
@@ -3119,6 +3195,20 @@ def run_config5(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
     top2 = bool(op.get("top2"))
     recall, qps = serve(idx, queries, gts["built"], reps, "c5 pq2")
     launches["K5"] = pq.pq_tiles_topk.launches  # build, tune and serve
+    launches["K5 seg"] = pq.pq_tiles_topk.seg_launches
+    if idx._seg_rows() is None or launches["K5 seg"] != launches["K5"]:
+        raise AssertionError(f"c5: the arena's {idx._n_pad_rows} rows are not dispatched in "
+                             f"segments ({launches['K5 seg']} of {launches['K5']} launches)")
+    # the joined dispatch on the same arena: the cap past its rows, no rebuild
+    idx.seg_rows_cap = idx._n_pad_rows
+    recall_j, qps_j = serve(idx, queries, gts["built"], 3, "c5 pq2 joined dispatch")
+    del idx.seg_rows_cap
+    log(f"[c5] {card}: {len(idx._seg_rows())} segments ({idx._seg_n_valid()} rows) against "
+        f"the joined dispatch on the same arena: recall@{K} {recall:.4f} against "
+        f"{recall_j:.4f}, device QPS {qps['qps']:.1f} against {qps_j['qps']:.1f}")
+    if recall < recall_j - C5_SEG_SLACK:
+        raise AssertionError(f"c5: segmented recall {recall:.4f} below the joined dispatch's "
+                             f"{recall_j:.4f} by more than {C5_SEG_SLACK}")
     _, ids1 = tier1_search(idx, queries, K, p_tiles, tq, rf, top2)
     recall1 = recall_at_k(ids1[:NQ_GT].cpu().numpy(), gts["built"])
     t0 = time.perf_counter()
@@ -3205,7 +3295,8 @@ def run_config5(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     del idx, gts, added, masks, flts
     return dict(launches=launches, mp=mp,
-                report=dict(recall=recall, recall1=recall1, qps=qps, op=op, oracle=oracle))
+                report=dict(recall=recall, recall1=recall1, qps=qps, op=op, oracle=oracle,
+                            recall_joined=recall_j, qps_joined=qps_j))
 
 
 def l2_corpus(chunk_fn, dev):

@@ -7,7 +7,10 @@
 //         (body _pq_tiles_kernel :94): step j of query tile qt reads
 //         tile_table[qt, j] and merges into pool j % n_pools; optional
 //         residual centroid term, row mask (filtered search), l2 key and
-//         top-2 slots;
+//         top-2 slots; an entry at or past n_live (a segment's pad tile,
+//         :162-167) is skipped whole: no code, local byte or centroid row
+//         of it is read, nothing is scored or merged (ops/pq.py calls the
+//         scan once a segment, over a view of the segment's rows);
 //   ALL   cloudvectordb_tpu/ops/pallas_pq.py:510 pq_topk_pallas
 //         (body _pq_scan_kernel :33): step j reads tile j, no residual
 //         term, one pool.
@@ -123,6 +126,7 @@ struct ScanArgs {
   float* out_v;             // (n_slots, n_qt * tile_q, L)
   int32_t* out_i;
   int nq, tile_q, steps, tile_n, l_buckets, m, ncode, dsub, w, n_valid, n_pools;
+  int n_live;               // table entries at or past it are skipped
   int code_copy;            // CodeCopy
 };
 
@@ -262,6 +266,18 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
     const long long hi = min((long long)min(SB, L - b0), (long long)a.n_valid - x.row0);
     x.n_rows = x.row0 < 0 ? 0 : (int)max(0LL, hi);
     return x;
+  };
+
+  // the first iteration at or after `it` whose table entry is below n_live
+  // (n_it if none): an entry past it is skipped whole, its table word the
+  // only thing read of it. The same for every thread of the block.
+  auto next_live = [&](int it) {
+    while (SRC == TABLE && it < n_it) {
+      const int js = it / R;
+      if (a.table[(size_t)qt * a.steps + pid + js * a.n_pools] < a.n_live) break;
+      it = (js + 1) * R;
+    }
+    return it;
   };
 
   // the codes (as CodeCopy says), local bytes, l2 biases and mask bytes of
@@ -457,16 +473,18 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
     }
   };
 
-  if (n_it > 0) {
-    Block cur = block_of(0), nxt = cur;
+  int it = next_live(0);
+  if (it < n_it) {
+    Block cur = block_of(it), nxt = cur;
     stage(cur, 0);
     cp_commit();
-    for (int it = 0; it < n_it; ++it) {
+    for (int k = 0; it < n_it; ++k) {  // k: the live iterations, whose parity picks the buffer
       cp_wait_all();
       __syncthreads();  // this block's codes and local bytes are in; the score tile is free
-      if (it + 1 < n_it) {
-        nxt = block_of(it + 1);
-        stage(nxt, (it + 1) & 1);
+      const int it_next = next_live(it + 1);
+      if (it_next < n_it) {
+        nxt = block_of(it_next);
+        stage(nxt, (k + 1) & 1);
       }
       cp_commit();
       if (RESID && cur.r == 0) {  // C[q, w] = q . ct[t, w], 64 centroid rows at a time
@@ -491,10 +509,11 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
       const int lo = kh * nks / 2, hi = (kh + 1) * nks / 2;
       const bool live = 16 * mt < cur.n_rows;  // else: dead rows
       start(lo);
-      if (live) kloop(row_loader(cur, it & 1), lo, hi);
+      if (live) kloop(row_loader(cur, k & 1), lo, hi);
       reduce(mt, kh, 2, live);
-      merge(cur, it & 1);
+      merge(cur, k & 1);
       cur = nxt;
+      it = it_next;
     }
   }
 
@@ -582,13 +601,14 @@ int cvdb_pq_scan_smem_bytes(int m, int dsub, int w, int top2, int mask, int l2) 
 // Launches the scan on `stream`; returns the launch's cudaGetLastError()
 // (cudaErrorInvalidValue for a source/option pair it does not take: ALL is
 // the non-residual, unmasked, one-pool ip scan). `ct` null means no
-// residual term, `mask` null no row mask, `bias` null the ip key.
+// residual term, `mask` null no row mask, `bias` null the ip key; table
+// entries at or past `n_live` are skipped (INT_MAX: none).
 int cvdb_pq_scan(int source, int top2, const void* codes, long long row_stride,
                  long long sub_stride, const void* local, const void* cb, const void* ct,
                  const void* q, const void* table, const void* mask, const void* bias,
                  void* out_v, void* out_i, int n_qt, int tile_q, int steps, int tile_n,
                  int l_buckets, int m, int ncode, int dsub, int w, int n_valid, int n_pools,
-                 int device, void* stream) {
+                 int n_live, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const uintptr_t p = reinterpret_cast<uintptr_t>(codes);
@@ -601,7 +621,7 @@ int cvdb_pq_scan(int source, int top2, const void* codes, long long row_stride,
                    static_cast<const int32_t*>(table), static_cast<const uint8_t*>(mask),
                    static_cast<const float*>(bias), static_cast<float*>(out_v),
                    static_cast<int32_t*>(out_i), n_qt * tile_q, tile_q, steps, tile_n,
-                   l_buckets, m, ncode, dsub, w, n_valid, n_pools, copy};
+                   l_buckets, m, ncode, dsub, w, n_valid, n_pools, n_live, copy};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool resid = ct != nullptr;
   if (source == ALL && !resid && !top2 && !mask && !bias && n_pools == 1)

@@ -98,7 +98,7 @@ def pq_tier1(idx, q: torch.Tensor, *, k: int, k_cand: int, n_pools: int, l_bucke
         q, st["centroids"], st["codes"], st["codebooks"], st["refine"], st["ids"],
         st["tile_window"], st["centroid_tiles"], idx._n, st["local"], k=k, k_cand=k_cand,
         p_tiles=p_tiles, tile_n=idx.tile_n, tile_q=tile_q, refine_scale=0.0, n_pools=n_pools,
-        l_buckets=l_buckets, top2=top2)
+        l_buckets=l_buckets, top2=top2, segments=idx._seg_rows())
 
 
 def sync(dev: torch.device) -> None:
@@ -145,6 +145,7 @@ def p50_p99(values) -> tuple[float, float]:
 _COUNTERS = {"K1": (band.tiles_topk_resid, "launches"), "K1b": (band.resid_row_bias, "launches"),
              "K2": (flat_topk.flat_topk, "launches"), "K3": (band.tiles_topk, "launches"),
              "K7": (band.band_topk, "launches"), "K5": (pq.pq_tiles_topk, "launches"),
+             "K5 seg": (pq.pq_tiles_topk, "seg_launches"),
              "K5b": (pq.pq_row_bias, "launches"), "K6": (pq.pq_topk, "launches"),
              "K4": (attn.mha_small_head, "launches"),
              "K4 bwd": (attn.mha_small_head, "bwd_launches")}

@@ -236,12 +236,15 @@ def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
                    k_cand: int, p_tiles: int, tile_n: int, tile_q: int,
                    refine_scale: float, n_pools: int = 1, l_buckets: int = 0,
                    refine_residual: bool = False, l2: bool = False, top2: bool = False,
-                   row_bias=None):
+                   row_bias=None, segments=None):
     """The PQ-tiles search without the arena-row → global-id map: device
     planning, K5 (ops/pq.py) over the row-major (N_pad, m) codes for
     ``k_cand`` candidates, the int8 refine rescore, the unsort and the l2
     key's conversion. Returns (v, rows) in caller query order, rows as
-    arena rows.
+    arena rows. ``segments`` (the row count of each segment of an arena
+    past the index's segment cap, index/ivf_band_pq.py) makes K5 dispatch a
+    segment at a time over views of the joined arena, each with its own
+    pools; every other step sees the joined arena.
 
     ``row_mask`` ((1, N_pad) int8 allow bits, the index's cached form):
     tiles with no allowed row leave the plan and K5 masks the rest. ``l2``:
@@ -268,7 +271,7 @@ def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
         codes, codebooks, q_s, tile_table, k_cand, centroid_tiles=centroid_tiles,
         tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets, n_valid=n_valid,
         row_major=True, local_ids=local_ids, n_pools=n_pools, row_mask=row_mask, l2=l2,
-        top2=top2, row_bias=row_bias)
+        top2=top2, row_bias=row_bias, segments=segments)
     if refine_scale > 0:
         valid = v > NEG_INF
         rows = rows.long().clamp(0, refine_rows.shape[0] - 1)

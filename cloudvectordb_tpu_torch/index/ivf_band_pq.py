@@ -40,12 +40,19 @@ surface.
 
 The port keeps one code layout: row-major (N_pad, m) uint8 codes and a
 separate (N_pad,) uint8 local-list byte in residual mode. The reference
-keeps code-major (m+1, N_pad) codes for host builds and segments row-major
-arenas past 28·2^20 rows, both for the TPU's lanes and DMA descriptors;
-either layout loads here (a segmented artifact is saved joined). So at 125M
-rows the kernel's candidate pools are the whole arena's, where the
-reference merges five segments' pools. Its ``_fit_tile_n_to_skew`` keeps
-tile_n a multiple of 128, which the reference does not (ADVICE.md r5).
+keeps code-major (m+1, N_pad) codes for host builds, for the TPU's lanes;
+either layout loads here. Past ``seg_rows_cap`` (28·2^20 rows) the
+reference stores the arena as segments, for Mosaic's DMA descriptors, and
+K5 keeps each segment's candidate pools apart (``_seg_layout``). The port
+keeps the arena, the local bytes and the centroid tiles joined (one tensor
+each: no copy, no pad tile) and K5 dispatches a segment at a time over
+views of them, so its pools are the reference's: five segments at 125M
+rows. The segmentation follows ``_n_pad_rows`` wherever it changes (merge,
+remove, merge_from, build_streaming, load), and an artifact is saved
+joined, as the reference's. Unlike the reference, an int8 refine index
+past the cap builds, grows and serves (its rows fit on the card; ROADMAP
+queue 3). ``_fit_tile_n_to_skew`` keeps tile_n a multiple of 128, which the
+reference does not (ADVICE.md r5).
 """
 
 from __future__ import annotations
@@ -146,6 +153,9 @@ def host_tier_rescore(q: torch.Tensor, v, gids, rows: np.ndarray, assign: np.nda
 
 class BandIVFPQIndex(BandIVFIndex):
     kind = "band_ivf_pq"
+    #: arenas past this many rows are searched a segment at a time (the
+    #: reference's cap, ivf_band.py:2167; tests patch it on the class)
+    seg_rows_cap = 28 * 1024 * 1024
 
     def __init__(
         self,
@@ -673,6 +683,31 @@ class BandIVFPQIndex(BandIVFIndex):
         window = np.minimum(fl[:, None] + np.arange(w)[None, :], ll[:, None])
         return np.clip(window, 0, self.nlist - 1).astype(np.int32)
 
+    def _seg_layout(self, n_pad: int) -> tuple[list[int], list[int]]:
+        """(row counts, first rows) of the segments of an arena of ``n_pad``
+        rows: the cap rounded down to whole tiles (at least one), then the
+        rest (the reference's ``_seg_layout``)."""
+        cap = max(self.seg_rows_cap // self.tile_n, 1) * self.tile_n
+        rows, offs = [], []
+        for off in range(0, n_pad, cap):
+            rows.append(min(cap, n_pad - off))
+            offs.append(off)
+        return rows, offs
+
+    @property
+    def _segmented(self) -> bool:
+        return self._n_pad_rows > self.seg_rows_cap
+
+    def _seg_rows(self) -> tuple | None:
+        """K5's ``segments=``: the segments' row counts past the cap, else
+        None (one arena)."""
+        return tuple(self._seg_layout(self._n_pad_rows)[0]) if self._segmented else None
+
+    def _seg_n_valid(self) -> tuple:
+        """Each segment's real row count (the reference's ``_seg_n_valid``)."""
+        rows, offs = self._seg_layout(self._n_pad_rows)
+        return tuple(int(np.clip(self._n - off, 0, r)) for r, off in zip(rows, offs))
+
     def _tune_n_tiles(self) -> int:
         return self._n_pad_rows // self.tile_n
 
@@ -1173,7 +1208,7 @@ class BandIVFPQIndex(BandIVFIndex):
             k=k_stage1, k_cand=k_cand, p_tiles=p_tiles, tile_n=self.tile_n, tile_q=tq,
             refine_scale=self._scale if self.refine == "int8" else 0.0, n_pools=n_pools,
             l_buckets=l_buckets, refine_residual=self._refine_residual, l2=l2, top2=top2,
-            row_bias=self._row_bias("pq") if l2 else None)
+            row_bias=self._row_bias("pq") if l2 else None, segments=self._seg_rows())
         have_host = host and self._have_host()
         if two_stage and self._have_tier2():
             # the cascade: tier 2 keeps a k·host_factor shortlist on the card

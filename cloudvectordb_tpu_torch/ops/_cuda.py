@@ -51,7 +51,7 @@ _SIGNATURES = {
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "pq_scan": {
-        "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 9 + [_CI] * 12 + [_VP], _CI),
+        "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 9 + [_CI] * 13 + [_VP], _CI),
         "cvdb_pq_scan_smem_bytes": ([_CI] * 6, _CI),
         "cvdb_pq_row_bias": ([_VP, _CLL, _CLL] + [_VP] * 4 + [_CLL] + [_CI] * 6 + [_VP], _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
@@ -311,7 +311,7 @@ def _pq_side(codes, local, cb, ct) -> None:
 
 def pq_scan_slots(source: int, codes, local, cb, ct, q, table, row_mask=None, row_bias=None,
                   *, n_qt: int, tile_q: int, steps: int, tile_n: int, l_buckets: int,
-                  n_valid: int, n_pools: int, top2: bool):
+                  n_valid: int, n_pools: int, top2: bool, n_live_tiles: int | None = None):
     """Launch the PQ scan (K5 with ``source`` TABLE, K6 with ALL, numbered
     as ops/band.py's SCAN_*): (n_slots, Q, L) f32 slot values and int32
     arena rows, on the tensors' device and PyTorch's current stream.
@@ -319,8 +319,9 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, row_mask=None, ro
     row-major arena, or a code-major matrix transposed); ``local`` (N,)
     uint8 and ``ct`` (n_tiles, W, D) bf16 are both None without a residual
     term; ``row_mask`` (N,) uint8 allow bytes and ``row_bias`` (N,) f32 l2
-    bias are optional (K5). Shapes are checked by ops/pq.py; this checks
-    what the kernel reads raw. Offsets into the codes are 64-bit."""
+    bias are optional (K5); table entries at or past ``n_live_tiles`` are
+    skipped. Shapes are checked by ops/pq.py; this checks what the kernel
+    reads raw. Offsets into the codes are 64-bit."""
     dev = codes.device
     _pq_side(codes, local, cb, ct)
     _need(q, "queries", torch.bfloat16, dev)
@@ -356,7 +357,7 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, row_mask=None, ro
         None if table is None else table.data_ptr(), _ptr(row_mask), _ptr(row_bias),
         out_v.data_ptr(), out_i.data_ptr(),
         n_qt, tile_q, steps, tile_n, l_buckets, m, ncode, dsub, w, n_valid, n_pools,
-        _device_index(dev),
+        2**31 - 1 if n_live_tiles is None else n_live_tiles, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "pq_scan")
     return out_v, out_i

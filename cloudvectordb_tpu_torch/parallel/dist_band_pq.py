@@ -28,8 +28,12 @@ only its own shards' host rows.
 
 Differences from the reference, by design:
 - No padded (S·n_pad, ...) stack: each shard is staged at its own size
-  (the SPMD program needs one shape; a card does not). Segmented arenas are
-  not staged: a segmented artifact loads joined (index/ivf_band_pq.py).
+  (the SPMD program needs one shape; a card does not). A shard past the
+  segment cap is segmented by its own n_pad (index/ivf_band_pq.py) where
+  the reference stages common segments over the largest shard's rows: the
+  boundaries are multiples of the cap from row 0 either way, so K5's pools
+  are the same; a shorter shard has fewer segments, where the reference's
+  extra ones are all pad and give no candidates.
 - Unfilled slots are (-inf, -1). The reference maps them through a shard's
   padded id table (``np.pad`` with 0s) when no filter is given, so a query
   short of candidates can get id 0.
@@ -457,7 +461,8 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
             p_tiles=min(plan["p_tiles"], sh._tune_n_tiles()), tile_n=sh.tile_n,
             tile_q=plan["tq"], refine_scale=plan["refine_scale"], n_pools=plan["n_pools"],
             l_buckets=plan["l_buckets"], refine_residual=plan["refine_residual"], l2=l2,
-            top2=plan["top2"], row_bias=sh._row_bias("pq") if l2 else None)
+            top2=plan["top2"], row_bias=sh._row_bias("pq") if l2 else None,
+            segments=sh._seg_rows())
         if plan["tier2"]:
             # a range search's escalated k can pass a small shard's candidates
             v, rows = _pq2_rescore(q, v, rows, st["codes2"], st["codebooks2"], st.get("s2"),

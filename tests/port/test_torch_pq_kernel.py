@@ -130,17 +130,24 @@ def test_pq_topk_matches_the_reference(n, l_buckets):
 
 
 def test_unported_options_raise():
-    """Segmented arenas (a Mosaic DMA-descriptor workaround the card does not
-    need) still raise; a bad mask, a bias without l2 and residual codes
-    without local ids are refused."""
+    """What K5 refuses: a bad mask, a bias without l2, residual codes
+    without local ids, and malformed segments (a cut that is not whole
+    tiles or misses rows, a parallel tuple of the wrong length, a segment
+    without its pad tile, n_live_tiles past the arena)."""
     a = _tiles_inputs(seed=1)
     args = (torch.from_numpy(a["codes"]), torch.from_numpy(a["codebooks"]),
             torch.from_numpy(a["queries"]), torch.from_numpy(a["table"]), 10)
     kw = dict(tile_n=a["tile_n"], tile_q=a["tile_q"], row_major=True)
-    with pytest.raises(NotImplementedError, match="segmented"):
-        pq.pq_tiles_topk(*args, **kw, n_live_tiles=3)
-    with pytest.raises(NotImplementedError, match="segmented"):
-        pq.pq_tiles_topk((args[0], args[0]), *args[1:], **kw)
+    tile_n = a["tile_n"]
+    for bad in (dict(segments=[tile_n, 3 * tile_n]), dict(segments=[100, 5 * tile_n - 100]),
+                dict(n_live_tiles=6)):
+        with pytest.raises(ValueError):
+            pq.pq_tiles_topk(*args, **kw, **bad)
+    two = (args[0][:2 * tile_n], args[0][2 * tile_n:])
+    with pytest.raises(ValueError):  # three n_valid for two segments
+        pq.pq_tiles_topk(two, *args[1:], **kw, n_valid=(1, 2, 3))
+    with pytest.raises(ValueError):  # a one-tile segment has no pad tile
+        pq.pq_tiles_topk((args[0][:tile_n],), *args[1:], **kw)
     n = a["codes"].shape[0]
     for bad in (dict(row_mask=torch.ones(1, n - 1, dtype=torch.int8)),
                 dict(row_bias=torch.zeros(n))):
@@ -349,3 +356,174 @@ def test_split_form_variants_hold_to_the_reference(m, dsub, nbits, masked, l2):
     same = i == i_ref
     assert same.mean() >= 0.999
     assert np.all(diff[~same & live] <= 1e-4)
+
+
+#: K5's segmented dispatch held to the reference's (pallas_pq.py:364-388):
+#: (residual, n_pools, top2, l_buckets, masked, l2)
+SEGMENT_CASES = [
+    (True, 1, False, 0, False, False),   # ip
+    (True, 2, False, 32, False, True),   # l2, two pools
+    (True, 1, False, 0, True, False),    # row mask
+    (True, 2, True, 32, True, False),    # row mask, top-2, two pools
+    (False, 2, True, 16, True, True),    # all at once, no residual term
+]
+#: the segment cap of these cases, in tiles: 5 tiles -> segments of 2, 2, 1
+SEG_TILES = 2
+
+
+def _segmented(a: dict, mask):
+    """The reference's segmented form of a joined row-major arena: each
+    segment of SEG_TILES tiles (the last shorter) with a trailing zero pad
+    tile, and the parallel tuples of centroid tiles (a zero pad tile),
+    local bytes and mask bytes (zero on the pad tile) and real row counts;
+    with the row counts of the cut (``segments=``)."""
+    tile_n, n = a["tile_n"], a["codes"].shape[0]
+    rows = [min(SEG_TILES * tile_n, n - off) for off in range(0, n, SEG_TILES * tile_n)]
+    pad = lambda x: np.concatenate([x, np.zeros((tile_n, *x.shape[1:]), x.dtype)])  # noqa: E731
+    out = dict(codes=[], ct=[], local=[], mask=[], n_valid=[])
+    off = 0
+    for r in rows:
+        out["codes"].append(pad(a["codes"][off:off + r]))
+        ct = a["centroid_tiles"][off // tile_n:(off + r) // tile_n]
+        out["ct"].append(np.concatenate([ct, np.zeros_like(ct[:1])]))
+        out["local"].append(pad(a["local"][off:off + r])[None, :])
+        if mask is not None:
+            out["mask"].append(pad(mask[off:off + r])[None, :])
+        out["n_valid"].append(int(np.clip(a["n_valid"] - off, 0, r)))
+        off += r
+    return out, rows
+
+
+def _segment_table(a: dict) -> np.ndarray:
+    """A tile table whose query tiles read tiles of every segment, one of
+    them only tiles of the first, with a repeated entry."""
+    t = np.array(a["table"])
+    n_tiles = a["codes"].shape[0] // a["tile_n"]
+    t[0] = np.arange(t.shape[1]) % n_tiles
+    t[1] = 0
+    t[1, 1] = 1
+    return t
+
+
+@pytest.mark.parametrize("residual,n_pools,top2,l_buckets,masked,l2", SEGMENT_CASES)
+def test_pq_tiles_segmented_matches_the_reference(residual, n_pools, top2, l_buckets, masked,
+                                                  l2):
+    """The reference's segmented form (a tuple of segments, each with its
+    pad tile, and parallel tuples) into both packages: ids equal but at
+    ties, scores within 1e-5 relative, unfilled slots equal, no disallowed
+    row in a filled slot. The port's view form (one joined arena cut by
+    ``segments=``) equals its tuple form exactly, and K5 with every table
+    entry skipped (``n_live_tiles`` 0) fills no slot."""
+    a = _tiles_inputs(seed=31 + n_pools + 10 * top2 + 100 * masked + 1000 * l2, n_tiles=5)
+    a["table"] = _segment_table(a)
+    n = a["codes"].shape[0]
+    mask = _mask(n, n_pools) if masked else None
+    seg, rows = _segmented(a, mask)
+    assert len(rows) == 3
+    kw = dict(tile_n=a["tile_n"], tile_q=a["tile_q"], l_buckets=l_buckets, row_major=True,
+              n_pools=n_pools, top2=top2, l2=l2)
+    k = 40
+    v_j, i_j = pq_tiles_topk_pallas(
+        tuple(jnp.asarray(c) for c in seg["codes"]), jnp.asarray(a["codebooks"]),
+        jnp.asarray(a["queries"]), jnp.asarray(a["table"]), k,
+        centroid_tiles=tuple(jnp.asarray(c, jnp.bfloat16) for c in seg["ct"]) if residual
+        else None,
+        local_ids=tuple(jnp.asarray(x) for x in seg["local"]) if residual else None,
+        n_valid=tuple(seg["n_valid"]),
+        row_mask=tuple(jnp.asarray(x) for x in seg["mask"]) if masked else None,
+        interpret=True, **kw)
+    t = torch.from_numpy
+    head = (t(a["codebooks"]), t(a["queries"]), t(a["table"]), k)
+    v_t, i_t = pq.pq_tiles_topk(
+        tuple(t(c) for c in seg["codes"]), *head,
+        centroid_tiles=tuple(t(c) for c in seg["ct"]) if residual else None,
+        local_ids=tuple(t(x) for x in seg["local"]) if residual else None,
+        n_valid=tuple(seg["n_valid"]),
+        row_mask=tuple(t(x) for x in seg["mask"]) if masked else None, **kw)
+    assert pq.pq_tiles_topk.launches == pq.pq_tiles_topk.seg_launches == 0
+    _assert_same_topk(v_t.numpy(), i_t.numpy(), v_j, i_j)
+    if masked:
+        filled = np.isfinite(v_t.numpy())
+        assert (mask[i_t.numpy()[filled]] == 1).all()
+    v_w, i_w = pq.pq_tiles_topk(
+        t(a["codes"]), *head, centroid_tiles=t(a["centroid_tiles"]) if residual else None,
+        local_ids=t(a["local"]) if residual else None, n_valid=a["n_valid"],
+        row_mask=t(mask) if masked else None, segments=rows, **kw)
+    assert torch.equal(v_w, v_t) and torch.equal(i_w, i_t)
+    v_r, i_r = pq.pq_tiles_topk_reference(
+        t(a["codes"]), *head, centroid_tiles=t(a["centroid_tiles"]) if residual else None,
+        local_ids=t(a["local"]) if residual else None, n_valid=a["n_valid"],
+        row_mask=t(mask) if masked else None, segments=rows, **kw)
+    assert torch.equal(v_r, v_t) and torch.equal(i_r, i_t)
+    if l2:  # the kernel's route: the joined arena's bias, cut with it
+        bias = pq.pq_row_bias(t(a["codes"]), t(a["local"]) if residual else None,
+                              head[0], t(a["centroid_tiles"]) if residual else None,
+                              a["tile_n"])
+        v_b, i_b = pq.pq_tiles_topk_reference(
+            t(a["codes"]), *head, centroid_tiles=t(a["centroid_tiles"]) if residual else None,
+            local_ids=t(a["local"]) if residual else None, n_valid=a["n_valid"],
+            row_mask=t(mask) if masked else None, segments=rows, row_bias=bias, **kw)
+        _assert_same_topk(v_b.numpy(), i_b.numpy(), v_t.numpy(), i_t.numpy())
+    v0, _ = pq.pq_tiles_topk(
+        t(a["codes"]), *head, centroid_tiles=t(a["centroid_tiles"]) if residual else None,
+        local_ids=t(a["local"]) if residual else None, n_valid=a["n_valid"],
+        n_live_tiles=0, **{**kw, "row_major": True})
+    assert not np.isfinite(v0.numpy()).any()
+
+
+def test_pq_tiles_segments_widen_the_joined_pools():
+    """Each segment keeps its own pools, so the segmented candidates are a
+    superset of the joined arena's: every filled slot of the joined
+    dispatch is among the segmented dispatch's, with the same score (k at
+    the joined dispatch's slot count, R 1, one pool)."""
+    a = _tiles_inputs(seed=77, n_tiles=5)
+    a["table"] = _segment_table(a)
+    t = torch.from_numpy
+    args = (t(a["codes"]), t(a["codebooks"]), t(a["queries"]), t(a["table"]))
+    kw = dict(tile_n=a["tile_n"], tile_q=a["tile_q"], n_valid=a["n_valid"], row_major=True,
+              centroid_tiles=t(a["centroid_tiles"]), local_ids=t(a["local"]))
+    k = a["tile_n"]
+    vj, ij = pq.pq_tiles_topk(*args, k, **kw)
+    _, rows = _segmented(a, None)
+    vs, is_ = pq.pq_tiles_topk(*args, 3 * k, segments=rows, **kw)
+    for b in range(vj.shape[0]):
+        got = {i: v for i, v in zip(is_[b].tolist(), vs[b].tolist()) if np.isfinite(v)}
+        for i, v in zip(ij[b].tolist(), vj[b].tolist()):
+            if np.isfinite(v):
+                assert got[i] == v
+
+
+def test_pq_tiles_segmented_unfilled_slots():
+    """A reference fault, recorded: the reference adds each segment's row
+    offset to every slot of its top-k (pallas_pq.py:384), unfilled ones too,
+    so where k exceeds a segment's slot count (n_pools·L) and the merge
+    reaches a later segment's unfilled slots, they carry that segment's
+    first row, a real row. The port adds the offset to filled slots only:
+    its unfilled slots keep the joined dispatch's row 0. In an index k
+    never exceeds the slot count, so the first segment's unfilled slots
+    come first and the fault does not show there."""
+    a = _tiles_inputs(seed=78, n_tiles=5)
+    a["table"] = _segment_table(a)
+    a["table"][:, :] = 0  # one tile read: at most tile_n candidates
+    seg, rows = _segmented(a, None)
+    k, l_buckets = 48, 16  # 16 slots a segment, 48 over three
+    kw = dict(tile_n=a["tile_n"], tile_q=a["tile_q"], l_buckets=l_buckets, row_major=True)
+    v_j, i_j = pq_tiles_topk_pallas(
+        tuple(jnp.asarray(c) for c in seg["codes"]), jnp.asarray(a["codebooks"]),
+        jnp.asarray(a["queries"]), jnp.asarray(a["table"]), k,
+        centroid_tiles=tuple(jnp.asarray(c, jnp.bfloat16) for c in seg["ct"]),
+        local_ids=tuple(jnp.asarray(x) for x in seg["local"]), n_valid=tuple(seg["n_valid"]),
+        interpret=True, **kw)
+    t = torch.from_numpy
+    v_t, i_t = pq.pq_tiles_topk(
+        t(a["codes"]), t(a["codebooks"]), t(a["queries"]), t(a["table"]), k,
+        centroid_tiles=t(a["centroid_tiles"]), local_ids=t(a["local"]),
+        n_valid=a["n_valid"], segments=rows, **kw)
+    v_j, i_j, v_t, i_t = np.asarray(v_j), np.asarray(i_j), v_t.numpy(), i_t.numpy()
+    unfilled = ~np.isfinite(v_j)
+    np.testing.assert_array_equal(unfilled, ~np.isfinite(v_t))
+    assert unfilled[:, :16].sum() == 0 and unfilled[:, 16:].all()
+    starts = {0, rows[0], rows[0] + rows[1]}
+    assert set(np.unique(i_j[unfilled])) == starts - {0}  # real rows of segments 1, 2
+    assert (i_t[unfilled] == 0).all()  # the joined dispatch's unfilled row
+    _assert_same_topk(v_t, i_t, v_j, i_j)

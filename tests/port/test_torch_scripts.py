@@ -1,12 +1,13 @@
 """The measuring entry points (``scripts/torch_*.py``, counterparts of the
-reference's ``scripts/bench_*.py`` and ``scripts/eval_sift.py``) on the CPU
+reference's ``scripts/bench_*.py``, ``scripts/eval_sift.py`` and ``scripts/sweep_*.py``) on the CPU
 at a tiny size: each ``main(device="cpu")`` runs to its closing JSON line,
 with its module's sizes patched down (the encoder, the corpus, the
 batches). The scripts' own arithmetic is held against the reference
 scripts, imported by path: ``gen_passages`` string for string,
 ``geometry_stats`` within 1e-12, the latency reduction and the build-budget
-projection against the reference's own statements (read from its source),
-and eval_sift's exact row against the reference's on the same synthetic
+projection and the sweeps' p_tiles against the reference's own statements
+(read from its source), the pools sweep's rows against its list, and
+eval_sift's exact row against the reference's on the same synthetic
 base. On the CPU every kernel wrapper runs its plain version, so the
 launch counts read 0."""
 
@@ -27,7 +28,7 @@ REPO = Path(__file__).resolve().parents[2]
 SCRIPTS = REPO / "scripts"
 ENTRY_POINTS = ("bench_latency", "bench_build_budget", "bench_text_serving",
                 "bench_encoder_real", "bench_encode", "bench_config2", "bench_config5",
-                "eval_sift")
+                "eval_sift", "sweep_headline", "sweep_pq_pools")
 TINY_ENCODER = dict(hidden_dim=32, num_layers=1, num_heads=2, mlp_dim=64, dtype="float32")
 
 
@@ -163,6 +164,53 @@ def test_config5(monkeypatch, capsys, refine, attach):
     assert out["refine"] == ("pq2+host" if refine == "pq2" else "host")
     assert [h["k_host"] for h in out["host"]] == [40, 160]  # hf 0: no host_factor
     assert out["add_self_hit"] >= 0.9
+
+
+def test_sweep_headline(monkeypatch, capsys):
+    mod = _load("torch_sweep_headline")
+    out = _run(mod, monkeypatch, capsys,
+               {"SWEEP_TILE_N": "128", "SWEEP_TQ": "16,32", "SWEEP_P": "1.0,1.4"},
+               {"D": 32, "B": 64, "NQ_GT": 32, "CHUNK": 1000, "NLIST": 16, "REPS": 1},
+               ["0.0045"])
+    assert out["N"] == 4000 and [b["n_tiles"] for b in out["builds"]] == [32]
+    assert [(r["tq"], r["p"]) for r in out["rows"]] == [(16, 32), (16, 32), (32, 32), (32, 32)]
+    assert min(r["recall"] for r in out["rows"]) >= 0.9  # every tile scanned
+
+
+def test_sweep_pq_pools(monkeypatch, capsys):
+    mod = _load("torch_sweep_pq_pools")
+    out = _run(mod, monkeypatch, capsys, {},
+               {"D": 32, "M": 8, "B": 64, "NQ_GT": 32, "CHUNK": 1500, "TRAIN_SAMPLE": 2000,
+                "TILE_N": 256, "TILE_Q": 16, "KMEANS_ITERS": 5, "REPS": 1},
+               ["0.004", "16", "0"])
+    assert out["N"] == 4000 and out["p_tiles"] == 8 and out["n_tiles"] == 16
+    assert [(r["n_pools"], r["refine_factor"], r["top2"]) for r in out["rows"]] == list(
+        mod.ROWS)
+    assert set(out["train"]) == {"opq_s", "kmeans_s", "pq_s"}
+    assert max(r["recall"] for r in out["rows"]) >= 0.8
+
+
+def test_sweep_p_and_rows_match_the_reference():
+    """The sweeps' p_tiles against the reference's own statements
+    (sweep_headline.py:87, :100; sweep_pq_pools.py:93-94) and the pools
+    sweep's rows against its list (:102-106)."""
+    head, pools = _load("torch_sweep_headline"), _load("torch_sweep_pq_pools")
+    src = SCRIPTS / "sweep_headline.py"
+    ns = {}
+    exec(_statements(src, "ref_cov", "ref_cov"), ns)  # noqa: S102
+    assert head.REF_COV == ns["ref_cov"]
+    for n_tiles in (100, 305, 6104, 12207):
+        for frac in (0.7, 1.0, 1.4, 3.0):
+            got = dict(ns, n_tiles=n_tiles, frac=frac)
+            exec(_statements(src, "p", "p"), got)  # noqa: S102
+            assert head.sweep_p(n_tiles, frac) == got["p"]
+    for n_pad, arg in ((2_000_896, 0), (51_200, 0), (2_000_896, 64)):
+        ns = {"idx": type("Idx", (), {"_n_pad_rows": n_pad, "tile_n": 1024}), "p_tiles_arg": arg}
+        exec(_statements(SCRIPTS / "sweep_pq_pools.py", "n_tiles", "p_tiles"), ns)  # noqa: S102
+        assert pools.sweep_p(ns["n_tiles"], arg) == ns["p_tiles"]
+    loops = [n for n in ast.walk(ast.parse((SCRIPTS / "sweep_pq_pools.py").read_text()))
+             if isinstance(n, ast.For) and isinstance(n.target, ast.Tuple)]
+    assert tuple(tuple(r) for r in ast.literal_eval(loops[0].iter)) == pools.ROWS
 
 
 def test_eval_sift(monkeypatch, capsys):

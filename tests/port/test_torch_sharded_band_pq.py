@@ -5,8 +5,9 @@ the reference's quantizers (``centroids=``, ``codebooks=``,
 ``codebooks2=``), the port's mesh eight shards on the CPU: ids equal the
 reference's on at least ID_FLOOR of the slots and their scores within
 SCORE_TOL (the K5 and rescore sums in other orders), with the reference's
-own recall rules beside. The segmented-staging case becomes a segmented
-reference artifact loading joined. Two faults of the reference are
+own recall rules beside. The segmented-staging case holds the port's
+shards, each segmented by its own rows, to the reference's common
+segments. Two faults of the reference are
 recorded: its unfilled slots carry real ids (the port's are (-inf, -1)),
 and its PQ route's unfiltered pending rows (ivf_band.py:3800, :3898) do
 not recur across shards, where an add merges at once."""
@@ -293,23 +294,28 @@ def test_sharded_pq_l2_metric(data, refine):
         assert r >= r1 + 0.02, (r, r1)
 
 
-def test_sharded_pq_segmented_artifact_loads_joined(data, monkeypatch, tmp_path):
-    """The port stages no segments; a reference index whose shards were
-    segmented (arenas past seg_rows_cap: here one tile) saves them as one
-    row-major matrix, and the port loads it joined and answers as the
-    port's own build on its quantizers, within the reference's 0.02 of the
-    reference's segmented search."""
+def test_sharded_pq_segmented_matches_the_reference(data, monkeypatch, tmp_path):
+    """Shards past seg_rows_cap (here one tile, so two segments a shard):
+    the reference stages common segments over the largest shard's rows, the
+    port segments each shard by its own, at the same boundaries (multiples
+    of the cap from row 0), so K5's pools are the same and the ids are the
+    reference's segmented search's. The reference's artifact (its shards saved as one
+    row-major matrix each) loads here segmented, with the same ids."""
     db, q, gt = data
     monkeypatch.setattr(JaxBandIVFPQIndex, "seg_rows_cap", KW["tile_n"])
+    monkeypatch.setattr(BandIVFPQIndex, "seg_rows_cap", KW["tile_n"])
     j, t = build_pair(db, "pq2", m2=16)
     assert j._common_layout()[4] is True  # segmented
+    assert all(sh._segmented for sh in t._shards)
     skw = dict(p_tiles=full_p(t), refine_factor=16)
-    _, ij = j.search(q, 10, **skw)
+    ref = j.search(q, 10, **skw)
+    got = t.search(q, 10, **skw)
+    assert_same(ref, got)
+    assert recall_at_k(got[1], gt) >= recall_at_k(ref[1], gt) - 0.005
     j.save(tmp_path / "seg")
     loaded = load_index(tmp_path / "seg", mesh=cpu_mesh())
-    got = loaded.search(q, 10, **skw)
-    np.testing.assert_array_equal(got[1], t.search(q, 10, **skw)[1])
-    assert recall_at_k(got[1], gt) >= recall_at_k(ij, gt) - 0.02
+    assert all(sh._segmented for sh in loaded._shards)
+    np.testing.assert_array_equal(loaded.search(q, 10, **skw)[1], got[1])
 
 
 def test_sharded_pq_2d_mesh(data):
