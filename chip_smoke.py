@@ -289,6 +289,7 @@ import torch.nn.functional as F
 from cloudvectordb_tpu_torch import cli
 from cloudvectordb_tpu_torch.data.tokenize import TextTokenizer
 from cloudvectordb_tpu_torch.data.triplets import Triplets
+from cloudvectordb_tpu_torch.eval.harness import direct_corpus
 from cloudvectordb_tpu_torch.eval.qps import qps_device
 from cloudvectordb_tpu_torch.eval.recall import recall_at_k
 from cloudvectordb_tpu_torch.eval.sweep import nprobe_sweep, operating_point
@@ -4052,22 +4053,6 @@ IVFPQ_REMOVE = 8192
 #: cell 11 tunes on the first C3_TUNE_Q queries, and its sweeps time one
 #: pass of the 4096 queries an nprobe
 C3_TUNE_Q, C3_TIME_ITERS = 512, 1
-
-
-def direct_corpus(dev, n: int, d: int, nq: int, seed: int = 0):
-    """(rows, queries) of scripts/bench_ivf.py's process on the device: unit
-    rows about 256 unit centres (noise 0.3/sqrt(d)), and noisy copies of
-    random rows (noise 0.1/sqrt(d)), drawn from a seeded torch.Generator."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    centers = torch.randn((NCENTERS, d), generator=g, device=dev)
-    centers = centers / centers.norm(dim=1, keepdim=True)
-    a = torch.randint(0, NCENTERS, (n,), generator=g, device=dev)
-    x = centers[a] + (0.3 / d ** 0.5) * torch.randn((n, d), generator=g, device=dev)
-    x = x / x.norm(dim=1, keepdim=True)
-    sel = torch.randint(0, n, (nq,), generator=g, device=dev)
-    q = x[sel] + (0.1 / d ** 0.5) * torch.randn((nq, d), generator=g, device=dev)
-    return x, q / q.norm(dim=1, keepdim=True)
 
 
 def check_sweep(rows: list, label: str) -> None:

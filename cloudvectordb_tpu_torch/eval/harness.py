@@ -1,8 +1,8 @@
 """What the measuring scripts (``scripts/torch_*.py``) share: the synthetic
-corpus of the reference's benches drawn on the device, its noisy queries,
-the exact top-k over a chunked corpus, fenced timing, the kernels' launch
-counts and the closing JSON line. The JAX package keeps these inside each
-of its scripts.
+corpora of the reference's benches drawn on the device, their noisy
+queries, the exact (optionally filtered) top-k over a chunked corpus,
+fenced timing, the kernels' launch counts and the closing JSON line. The
+JAX package keeps these inside each of its scripts.
 
 Timing on the card is fenced: ``torch.cuda.synchronize()`` around a
 host-clock span, or CUDA events around a device span. On the CPU (the
@@ -21,7 +21,7 @@ import torch
 
 from cloudvectordb_tpu_torch.index.ivf_band import _pq_tiles_plan_search, _scan_topk
 from cloudvectordb_tpu_torch.ops import attn, band, flat_topk, pq
-from cloudvectordb_tpu_torch.ops.topk import _score_block, merge_topk
+from cloudvectordb_tpu_torch.ops.topk import NEG_INF, _score_block, merge_topk
 
 #: the generating process of the reference's benches (bench.py): a 32-d
 #: latent of 256 unit centres, noise 0.3/sqrt(32), a random linear map to D,
@@ -74,17 +74,40 @@ def noisy_queries(base: torch.Tensor, batch: int, seed: int = 7777,
     return q / q.norm(dim=1, keepdim=True)
 
 
+def direct_corpus(dev: torch.device, n: int, d: int, nq: int, seed: int = 0):
+    """(rows, queries) of scripts/bench_band.py's and bench_ivf.py's process
+    on the device: unit rows about 256 unit centres in D (noise 0.3/sqrt(d)),
+    and noisy copies of random rows (noise 0.1/sqrt(d)), drawn from a seeded
+    torch.Generator."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    centers = torch.randn((NCENTERS, d), generator=g, device=dev)
+    centers = centers / centers.norm(dim=1, keepdim=True)
+    a = torch.randint(0, NCENTERS, (n,), generator=g, device=dev)
+    x = centers[a] + (0.3 / d ** 0.5) * torch.randn((n, d), generator=g, device=dev)
+    x = x / x.norm(dim=1, keepdim=True)
+    sel = torch.randint(0, n, (nq,), generator=g, device=dev)
+    q = x[sel] + (0.1 / d ** 0.5) * torch.randn((nq, d), generator=g, device=dev)
+    return x, q / q.norm(dim=1, keepdim=True)
+
+
 def exact_topk_chunks(chunk_fn, n_chunks: int, q: torch.Tensor, k: int,
-                      metric: str = "ip") -> tuple[torch.Tensor, torch.Tensor]:
+                      metric: str = "ip", allow: torch.Tensor | None = None,
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The exact f32 top-k (scores, global row ids) of ``q`` over the chunks
-    (TF32 off), ties to the lower id."""
+    (TF32 off), ties to the lower id. ``allow`` (N,) bool by global row
+    restricts it to the allowed rows: the others score -inf, and a slot no
+    allowed row fills holds (-inf, -1)."""
     best, base = None, 0
     for ci in range(n_chunks):
         x = chunk_fn(ci)
+        ok = None if allow is None else allow[base:base + x.shape[0]]
         v, pos = _scan_topk(lambda lo, hi: _score_block(q, x[lo:hi], metric), x.shape[0],
-                            k, q.shape[0])
+                            k, q.shape[0], ok)
         best = (v, pos + base) if best is None else merge_topk(*best, v, pos + base, k)
         base += x.shape[0]
+    if allow is not None:
+        best = best[0], torch.where(best[0] > NEG_INF, best[1], -1)
     return best
 
 

@@ -28,7 +28,8 @@ REPO = Path(__file__).resolve().parents[2]
 SCRIPTS = REPO / "scripts"
 ENTRY_POINTS = ("bench_latency", "bench_build_budget", "bench_text_serving",
                 "bench_encoder_real", "bench_encode", "bench_config2", "bench_config5",
-                "eval_sift", "sweep_headline", "sweep_pq_pools")
+                "eval_sift", "sweep_headline", "sweep_pq_pools", "bench_band", "bench_scale",
+                "bench_filtered", "bench_fold", "bench_remove", "bench_ivf")
 TINY_ENCODER = dict(hidden_dim=32, num_layers=1, num_heads=2, mlp_dim=64, dtype="float32")
 
 
