@@ -1,0 +1,7 @@
+"""K5's share of its roofline (csrc/pq_scan.cu), from the trace."""
+
+from cvdb_bench import readers
+
+
+def read(ctx):
+    return readers.kernel_roofline_pct(ctx, "K5")
