@@ -59,6 +59,7 @@ from cloudvectordb_tpu_torch.ops.pq import pq_tiles_topk
 from cloudvectordb_tpu_torch.ops.topk import (
     NEG_INF, f32_const, merge_topk, tiled_topk, topk_stable, topk_stable_select)
 from cloudvectordb_tpu_torch.utils.device import DEFAULT, as_device
+from cloudvectordb_tpu_torch.utils.metrics import SEARCH, span
 from cloudvectordb_tpu_torch.utils.native import arena_sort
 
 #: max list indices one arena tile may span: bounds the per-tile window W
@@ -94,18 +95,19 @@ def _plan_tiles(q: torch.Tensor, centroids: torch.Tensor,
     n_tiles = tile_window.shape[0]
     if not 0 < p_tiles <= n_tiles:
         raise ValueError(f"p_tiles={p_tiles} outside 1..{n_tiles} arena tiles")
-    dots = q @ centroids.T
-    c_sq = (centroids * centroids).sum(dim=1)
-    coarse = dots - 0.5 * c_sq[None, :]
-    top1 = torch.argmax(coarse, dim=1)
-    order = torch.argsort(top1, stable=True)
-    q_s = q[order]
-    g_max = coarse[order].reshape(n_qt, tile_q, -1).amax(dim=1)
-    ts = g_max[:, tile_window.T].amax(dim=1)  # (n_qt, n_tiles)
-    if tile_live is not None:
-        ts = torch.where(tile_live[None, :], ts, NEG_INF)
-    _, tile_table = topk_stable(ts, p_tiles)
-    return q_s, order, dots, tile_table.to(torch.int32).contiguous()
+    with span("cvdb.plan"):
+        dots = q @ centroids.T
+        c_sq = (centroids * centroids).sum(dim=1)
+        coarse = dots - 0.5 * c_sq[None, :]
+        top1 = torch.argmax(coarse, dim=1)
+        order = torch.argsort(top1, stable=True)
+        q_s = q[order]
+        g_max = coarse[order].reshape(n_qt, tile_q, -1).amax(dim=1)
+        ts = g_max[:, tile_window.T].amax(dim=1)  # (n_qt, n_tiles)
+        if tile_live is not None:
+            ts = torch.where(tile_live[None, :], ts, NEG_INF)
+        _, tile_table = topk_stable(ts, p_tiles)
+        return q_s, order, dots, tile_table.to(torch.int32).contiguous()
 
 
 def train_ordered_centroids(x: torch.Tensor, nlist: int, train_sample: int, iters: int,
@@ -135,6 +137,28 @@ def auto_p_tiles(n: int, nlist: int, tile_n: int, tile_q: int, nq: int, nprobe: 
     span = min(nlist * g / max(nq, 1), float(g) * nprobe)
     margin = max(8.0, nprobe * max(r, 0.25))
     return int(min(n_tiles, max(8, int(np.ceil(span * r + margin)))))
+
+
+def _queries_in(queries: np.ndarray, tq: int, device, rotate: np.ndarray | None = None):
+    """``search()``'s way in: the (Q, D) f32 host queries (times
+    ``rotate``ᵀ on the host when given), padded to a multiple of ``tq`` by
+    repeating the last, copied to ``device``; the ``cvdb.search.in``
+    span."""
+    nq = queries.shape[0]
+    q_pad = -(-nq // tq) * tq
+    with span("cvdb.search.in"):
+        if rotate is not None:
+            queries = queries @ rotate.T
+        if q_pad != nq:
+            queries = np.concatenate([queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
+        return torch.as_tensor(queries, device=device)
+
+
+def _answers_out(v: torch.Tensor, gids: torch.Tensor):
+    """``search()``'s way out: scores and ids as host f32 and int64 numpy
+    arrays; the ``cvdb.search.out`` span."""
+    with span("cvdb.search.out"):
+        return v.cpu().numpy(), gids.cpu().numpy().astype(np.int64)
 
 
 def _unsort(order, v, gids):
@@ -273,40 +297,42 @@ def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
         row_major=True, local_ids=local_ids, n_pools=n_pools, row_mask=row_mask, l2=l2,
         top2=top2, row_bias=row_bias, segments=segments)
     if refine_scale > 0:
-        valid = v > NEG_INF
-        rows = rows.long().clamp(0, refine_rows.shape[0] - 1)
-        b, kc = rows.shape
-        scale = f32_const(refine_scale, q)
-        half = f32_const(0.5, q)
-        lists = None
-        if refine_residual:  # row -> local byte -> list id
-            lists = tile_window[rows // tile_n, local_ids.reshape(-1)[rows].long()].long()
-        # l2 residual rows gather their centroids too: half the sub-batch
-        sub = _rescore_cap(kc, b, halve=l2 and refine_residual)
-        parts = []
-        for s in range(0, b, sub):
-            cand = refine_rows[rows[s:s + sub]].float()  # (sub, k_cand, D), int8 values
+        with span("cvdb.rescore"):
+            valid = v > NEG_INF
+            rows = rows.long().clamp(0, refine_rows.shape[0] - 1)
+            b, kc = rows.shape
+            scale = f32_const(refine_scale, q)
+            half = f32_const(0.5, q)
+            lists = None
+            if refine_residual:  # row -> local byte -> list id
+                lists = tile_window[rows // tile_n, local_ids.reshape(-1)[rows].long()].long()
+            # l2 residual rows gather their centroids too: half the sub-batch
+            sub = _rescore_cap(kc, b, halve=l2 and refine_residual)
+            parts = []
+            for s in range(0, b, sub):
+                cand = refine_rows[rows[s:s + sub]].float()  # (sub, k_cand, D), int8 values
+                if refine_residual:
+                    qb = q_s[s:s + sub].to(torch.bfloat16).float()
+                    ex = torch.bmm(cand, qb[:, :, None])[:, :, 0] * scale
+                    if l2:
+                        ca = centroids[lists[s:s + sub]]
+                        ex = ex - half * (
+                            (ca * ca).sum(dim=2)
+                            + f32_const(2.0 * refine_scale, q) * (ca * cand).sum(dim=2)
+                            + f32_const(refine_scale * refine_scale, q)
+                            * (cand * cand).sum(dim=2))
+                else:
+                    cand = cand * scale
+                    ex = torch.bmm(cand, q_s[s:s + sub, :, None])[:, :, 0]
+                    if l2:
+                        ex = ex - half * (cand * cand).sum(dim=2)
+                parts.append(ex)
+            ex = torch.cat(parts)
             if refine_residual:
-                qb = q_s[s:s + sub].to(torch.bfloat16).float()
-                ex = torch.bmm(cand, qb[:, :, None])[:, :, 0] * scale
-                if l2:
-                    ca = centroids[lists[s:s + sub]]
-                    ex = ex - half * ((ca * ca).sum(dim=2)
-                                      + f32_const(2.0 * refine_scale, q) * (ca * cand).sum(dim=2)
-                                      + f32_const(refine_scale * refine_scale, q)
-                                      * (cand * cand).sum(dim=2))
-            else:
-                cand = cand * scale
-                ex = torch.bmm(cand, q_s[s:s + sub, :, None])[:, :, 0]
-                if l2:
-                    ex = ex - half * (cand * cand).sum(dim=2)
-            parts.append(ex)
-        ex = torch.cat(parts)
-        if refine_residual:
-            ex = ex + torch.gather(dots[order], 1, lists)
-        ex = torch.where(valid, ex, NEG_INF)
-        v, pos = topk_stable(ex, k)
-        rows = torch.gather(rows, 1, pos)
+                ex = ex + torch.gather(dots[order], 1, lists)
+            ex = torch.where(valid, ex, NEG_INF)
+            v, pos = topk_stable(ex, k)
+            rows = torch.gather(rows, 1, pos)
     else:
         v, rows = v[:, :k], rows[:, :k].long()
     v, rows = _unsort(order, v, rows)
@@ -1380,34 +1406,36 @@ class BandIVFIndex(Index):
         their top-k, so a query keeps its best allowed rows however many
         disallowed ones outrank them (the reference masks after the top-k
         and can lose them); unfilled slots are (-inf, -1)."""
-        extra_v, extra_i = [], []
-        l2 = self.metric == "l2"
         pdev = self._pending_device()
-        if pdev is not None:
-            rows, _, pids_dev, n = pdev
-            pv, pi = _pending_scan(queries, rows, self._pending_scan_scale(), k=min(k, n),
-                                   l2=l2, allow=None if flt is None else flt.allowed_dev(pids_dev))
-            extra_v.append(pv)
-            extra_i.append(pids_dev[pi])
         ax = self._annex
-        if ax is not None and ax["n"]:
-            n = ax["n"]
-            ids_dev = self._annex_ids_device()
-            av, ap = _annex_scan(queries, ax["rows"][:n], ax["assign"][:n],
-                                 self._device_state()["centroids"], self._scale, k=min(k, n),
-                                 resid=self.residual, l2=l2,
-                                 allow=None if flt is None else flt.allowed_dev(ids_dev))
-            extra_v.append(av)
-            extra_i.append(ids_dev[ap])
-        if not extra_v:
+        n_annex = ax["n"] if ax is not None else 0
+        if pdev is None and not n_annex:
             return v, gids
-        all_v = torch.cat([v, *extra_v], dim=1)
-        all_i = torch.cat([gids.to(torch.int32), *extra_i], dim=1)
-        v2, pos = topk_stable(all_v, k)
-        out_i = torch.gather(all_i, 1, pos)
-        if flt is not None:
-            out_i = torch.where(v2 > NEG_INF, out_i, -1)
-        return v2, out_i
+        with span("cvdb.pending"):
+            extra_v, extra_i = [], []
+            l2 = self.metric == "l2"
+            if pdev is not None:
+                rows, _, pids_dev, n = pdev
+                pv, pi = _pending_scan(
+                    queries, rows, self._pending_scan_scale(), k=min(k, n), l2=l2,
+                    allow=None if flt is None else flt.allowed_dev(pids_dev))
+                extra_v.append(pv)
+                extra_i.append(pids_dev[pi])
+            if n_annex:
+                ids_dev = self._annex_ids_device()
+                av, ap = _annex_scan(queries, ax["rows"][:n_annex], ax["assign"][:n_annex],
+                                     self._device_state()["centroids"], self._scale,
+                                     k=min(k, n_annex), resid=self.residual, l2=l2,
+                                     allow=None if flt is None else flt.allowed_dev(ids_dev))
+                extra_v.append(av)
+                extra_i.append(ids_dev[ap])
+            all_v = torch.cat([v, *extra_v], dim=1)
+            all_i = torch.cat([gids.to(torch.int32), *extra_i], dim=1)
+            v2, pos = topk_stable(all_v, k)
+            out_i = torch.gather(all_i, 1, pos)
+            if flt is not None:
+                out_i = torch.where(v2 > NEG_INF, out_i, -1)
+            return v2, out_i
 
     # -- search -----------------------------------------------------------
     def _device_state(self) -> dict:
@@ -1458,27 +1486,26 @@ class BandIVFIndex(Index):
         assert self._n, "empty index"
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
-        flt = self.make_filter(where) if where is not None else None
-        if strategy == "band":
-            if self.residual:
-                raise ValueError("band strategy lacks the centroid term; use tiles")
-            if flt is not None:
-                raise ValueError("filtered search: use strategy='tiles' (residual arenas) "
-                                 "or index.filters.filtered_search")
-            v, gids = self._search_band(queries, k, nprobe)
-            q = torch.as_tensor(queries, device=self.device)
-            v, gids = (torch.as_tensor(a, device=self.device) for a in (v, gids))
-        elif strategy == "tiles":
-            p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
-            q_pad = -(-nq // tq) * tq
-            qp = torch.as_tensor(queries if q_pad == nq else np.concatenate(
-                [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)]), device=self.device)
-            v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
-            q, v, gids = qp[:nq], v[:nq], gids[:nq]
-        else:
-            raise ValueError(f"unknown strategy {strategy!r}")
-        v, gids = self._merge_pending_topk(v, gids, q, k, flt)
-        return v.cpu().numpy(), gids.cpu().numpy().astype(np.int64)
+        with span(SEARCH):
+            flt = self.make_filter(where) if where is not None else None
+            if strategy == "band":
+                if self.residual:
+                    raise ValueError("band strategy lacks the centroid term; use tiles")
+                if flt is not None:
+                    raise ValueError("filtered search: use strategy='tiles' (residual "
+                                     "arenas) or index.filters.filtered_search")
+                v, gids = self._search_band(queries, k, nprobe)
+                q = torch.as_tensor(queries, device=self.device)
+                v, gids = (torch.as_tensor(a, device=self.device) for a in (v, gids))
+            elif strategy == "tiles":
+                p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
+                qp = _queries_in(queries, tq, self.device)
+                v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
+                q, v, gids = qp[:nq], v[:nq], gids[:nq]
+            else:
+                raise ValueError(f"unknown strategy {strategy!r}")
+            v, gids = self._merge_pending_topk(v, gids, q, k, flt)
+            return _answers_out(v, gids)
 
     def search_device(self, queries, k: int, nprobe: int = 32,
                       p_tiles: int = 0, scoring: str = "hybrid",
@@ -1489,15 +1516,16 @@ class BandIVFIndex(Index):
         once a filter's mask and the pending rows are staged. Knobs resolve
         as in ``search()``; pending and annex rows merge in as there."""
         assert self._n, "empty index"
-        flt = self.make_filter(where) if where is not None else None
-        queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
-        nq = queries.shape[0]
-        p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
-        q_pad = -(-nq // tq) * tq
-        qp = queries if q_pad == nq else torch.cat(
-            [queries, queries[-1:].expand(q_pad - nq, -1)])
-        v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
-        return self._merge_pending_topk(v[:nq], gids[:nq], queries, k, flt)
+        with span(SEARCH):
+            flt = self.make_filter(where) if where is not None else None
+            queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+            nq = queries.shape[0]
+            p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
+            q_pad = -(-nq // tq) * tq
+            qp = queries if q_pad == nq else torch.cat(
+                [queries, queries[-1:].expand(q_pad - nq, -1)])
+            v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
+            return self._merge_pending_topk(v[:nq], gids[:nq], queries, k, flt)
 
     def _resolve_knobs(self, nq: int, nprobe: int, p_tiles: int, tile_q, top2=None):
         """Tuned op point for knobs left at their sentinels, then

@@ -63,8 +63,8 @@ import torch
 from cloudvectordb_tpu_torch.index.arena import grow_scatter_gid, normalize_remove_ids
 from cloudvectordb_tpu_torch.index.base import to_numpy
 from cloudvectordb_tpu_torch.index.ivf_band import (
-    BandIVFIndex, _host_rescore, _next_pow2, _pq2_rescore, _pq_tiles_plan_search,
-    _tiles_resid_plan_search, host_rows_sq)
+    BandIVFIndex, _answers_out, _host_rescore, _next_pow2, _pq2_rescore, _pq_tiles_plan_search,
+    _queries_in, _tiles_resid_plan_search, host_rows_sq)
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
 from cloudvectordb_tpu_torch.index.opq import train_opq
 from cloudvectordb_tpu_torch.index.pq import (
@@ -74,6 +74,7 @@ from cloudvectordb_tpu_torch.ops.band import order_centroids, resid_row_bias
 from cloudvectordb_tpu_torch.ops.pq import pq_row_bias
 from cloudvectordb_tpu_torch.ops.topk import f32_const
 from cloudvectordb_tpu_torch.utils.device import DEFAULT, as_device
+from cloudvectordb_tpu_torch.utils.metrics import SEARCH, span
 from cloudvectordb_tpu_torch.utils.native import arena_sort, gather_rows
 
 _REFINES = ("none", "int8", "pq2", "host", "pq2+host")
@@ -1237,21 +1238,17 @@ class BandIVFPQIndex(BandIVFIndex):
         (-inf, -1) tails. Pending rows are scanned exactly and merged in."""
         assert self._n, "empty index"
         queries = np.asarray(queries, np.float32)
-        if self.opq_matrix is not None:
-            queries = queries @ self.opq_matrix.T
         nq = queries.shape[0]
-        flt = self.make_filter(where) if where is not None else None
-        serve_from, refine_factor, p_tiles, tq, n_pools, top2, host_factor = \
-            self._resolve_pq_knobs(nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
-                                   serve_from, top2, host_factor)
-        q_pad = -(-nq // tq) * tq
-        qp = queries if q_pad == nq else np.concatenate(
-            [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
-        qp = torch.as_tensor(qp, device=self.device)
-        v, gids = self._serve(qp, k, serve_from, refine_factor, p_tiles, tq, n_pools, top2,
-                              flt, host_factor, host=True)
-        v, gids = self._merge_pending_topk(v[:nq], gids[:nq], qp[:nq], k, flt)
-        return v.cpu().numpy(), gids.cpu().numpy().astype(np.int64)
+        with span(SEARCH):
+            flt = self.make_filter(where) if where is not None else None
+            serve_from, refine_factor, p_tiles, tq, n_pools, top2, host_factor = \
+                self._resolve_pq_knobs(nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
+                                       serve_from, top2, host_factor)
+            qp = _queries_in(queries, tq, self.device, rotate=self.opq_matrix)
+            v, gids = self._serve(qp, k, serve_from, refine_factor, p_tiles, tq, n_pools,
+                                  top2, flt, host_factor, host=True)
+            v, gids = self._merge_pending_topk(v[:nq], gids[:nq], qp[:nq], k, flt)
+            return _answers_out(v, gids)
 
     def search_device(self, queries, k: int, nprobe: int = 32, p_tiles: int = 0,
                       refine_factor: int | None = None, n_pools: int = 0,
@@ -1264,18 +1261,20 @@ class BandIVFPQIndex(BandIVFIndex):
         prefix (kernel and tier 2); refine='host' raises ValueError (its
         rows are in host memory: ``search()``)."""
         assert self._n, "empty index"
-        queries = self._rotate(torch.as_tensor(queries, dtype=torch.float32).to(self.device))
-        nq = queries.shape[0]
-        flt = self.make_filter(where) if where is not None else None
-        serve_from, refine_factor, p_tiles, tq, n_pools, top2, host_factor = \
-            self._resolve_pq_knobs(nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
-                                   serve_from, top2)
-        q_pad = -(-nq // tq) * tq
-        qp = queries if q_pad == nq else torch.cat(
-            [queries, queries[-1:].expand(q_pad - nq, -1)])
-        v, gids = self._serve(qp, k, serve_from, refine_factor, p_tiles, tq, n_pools, top2,
-                              flt, host_factor, host=False)
-        return self._merge_pending_topk(v[:nq], gids[:nq], queries, k, flt)
+        with span(SEARCH):
+            queries = self._rotate(
+                torch.as_tensor(queries, dtype=torch.float32).to(self.device))
+            nq = queries.shape[0]
+            flt = self.make_filter(where) if where is not None else None
+            serve_from, refine_factor, p_tiles, tq, n_pools, top2, host_factor = \
+                self._resolve_pq_knobs(nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
+                                       serve_from, top2)
+            q_pad = -(-nq // tq) * tq
+            qp = queries if q_pad == nq else torch.cat(
+                [queries, queries[-1:].expand(q_pad - nq, -1)])
+            v, gids = self._serve(qp, k, serve_from, refine_factor, p_tiles, tq, n_pools,
+                                  top2, flt, host_factor, host=False)
+            return self._merge_pending_topk(v[:nq], gids[:nq], queries, k, flt)
 
     # -- op-point tuning (eval/tune.py) -----------------------------------------
     def _tune_candidates(self, nq: int) -> list[dict]:

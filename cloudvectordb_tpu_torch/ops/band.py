@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const, topk_stable
+from cloudvectordb_tpu_torch.utils.metrics import span
 
 #: where step j of a whole-row scan reads, as csrc/tiles_scan.cu numbers it:
 #: tile j (K2), tile_table[qt, j] (K3), band_start[qt] + j (K7)
@@ -379,6 +380,22 @@ def tiles_topk_resid_reference(
     return _final_topk(out_v, out_i, k)
 
 
+#: queries one block of K1 or K5 holds (csrc/tc_scan.cuh ``Narrow::QB``,
+#: csrc/pq_scan.cu ``QB``); each block reads every tile of its query
+#: tile's table once
+SCAN_QB = 32
+
+
+def scan_span(tile_table, tile_q: int, tile_bytes: int):
+    """The ``cvdb.scan`` span of one K1 or K5 dispatch over ``tile_table``
+    (n_qt, P): ``tile_reads``, the whole-tile reads its grid schedules,
+    n_qt · P · ceil(tile_q / SCAN_QB) (slot blocks split a tile's buckets,
+    not its reads), and ``tile_read_bytes``, those reads times
+    ``tile_bytes``. A kernel that changes its schedule changes this count."""
+    reads = tile_table.shape[0] * tile_table.shape[1] * -(-tile_q // SCAN_QB)
+    return span("cvdb.scan", tile_reads=reads, tile_read_bytes=reads * tile_bytes)
+
+
 def tiles_topk_resid(
     db_resid,        # (N_pad, D) int8 residual rows
     local_ids,       # (1, N_pad) or (N_pad,) uint8: per-row local list idx
@@ -400,27 +417,28 @@ def tiles_topk_resid(
     """Top-k over residual-int8 arena tiles: (Q_pad, k) f32 scores and
     (Q_pad, k) int32 arena rows (module docstring). CUDA tensors launch the
     hand-written kernel; CPU tensors run the plain version."""
-    l_buckets, q_bf16, q_dot, row_scale, row_mask, row_bias = _resid_prepare(
-        db_resid, local_ids, centroid_tiles, resid_scale, queries_sorted, tile_table,
-        valid_end, tile_n, tile_q, l_buckets, int8_q, row_mask, l2, row_bias,
-        resid_row_bias)
     dev = db_resid.device
-    if dev.type == "cuda":
-        from cloudvectordb_tpu_torch.ops import _cuda
+    with scan_span(tile_table, tile_q, tile_n * (db_resid.shape[1] + 1)):
+        l_buckets, q_bf16, q_dot, row_scale, row_mask, row_bias = _resid_prepare(
+            db_resid, local_ids, centroid_tiles, resid_scale, queries_sorted, tile_table,
+            valid_end, tile_n, tile_q, l_buckets, int8_q, row_mask, l2, row_bias,
+            resid_row_bias)
+        if dev.type == "cuda":
+            from cloudvectordb_tpu_torch.ops import _cuda
 
-        out_v, out_i = _cuda.tiles_resid_slots(
-            db_resid, local_ids, centroid_tiles.to(torch.bfloat16), q_bf16, q_dot,
-            row_scale, tile_table.to(torch.int32), valid_end.to(torch.int32),
-            row_mask, row_bias, tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets,
-            top2=top2)
-        tiles_topk_resid.launches += 1
-    elif dev.type == "cpu":
-        out_v, out_i = _slots_reference(
-            db_resid, local_ids, centroid_tiles, q_bf16, q_dot, row_scale,
-            tile_table, valid_end, tile_n, tile_q, l_buckets, row_mask, row_bias, top2)
-    else:
-        raise NotImplementedError(f"no tiles_topk_resid path for {dev.type} tensors")
-    return _final_topk(out_v, out_i, k)
+            out_v, out_i = _cuda.tiles_resid_slots(
+                db_resid, local_ids, centroid_tiles.to(torch.bfloat16), q_bf16, q_dot,
+                row_scale, tile_table.to(torch.int32), valid_end.to(torch.int32),
+                row_mask, row_bias, tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets,
+                top2=top2)
+            tiles_topk_resid.launches += 1
+        elif dev.type == "cpu":
+            out_v, out_i = _slots_reference(
+                db_resid, local_ids, centroid_tiles, q_bf16, q_dot, row_scale,
+                tile_table, valid_end, tile_n, tile_q, l_buckets, row_mask, row_bias, top2)
+        else:
+            raise NotImplementedError(f"no tiles_topk_resid path for {dev.type} tensors")
+        return _final_topk(out_v, out_i, k)
 
 
 #: kernel launches since the last reset (the card run resets and reads it)

@@ -57,7 +57,8 @@ from __future__ import annotations
 import torch
 
 from cloudvectordb_tpu_torch.ops.band import (
-    SCAN_ALL, SCAN_TABLE, _bucket_merge, _bucket_merge_top2, _final_topk, _resolve_buckets)
+    SCAN_ALL, SCAN_TABLE, _bucket_merge, _bucket_merge_top2, _final_topk, _resolve_buckets,
+    scan_span)
 from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const
 
 def _decode_rows(codes, local, cbf, ctf, g, tile_n: int):
@@ -426,11 +427,14 @@ def pq_tiles_topk(
     ``centroid_tiles``, ``local_ids``, ``n_valid``, ``row_mask`` and
     ``row_bias`` are then parallel tuples. CUDA tensors launch the
     hand-written kernel, once a segment; CPU tensors run the plain
-    version."""
-    return _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k,
-                          centroid_tiles, tile_n, tile_q, l_buckets, n_valid, row_major,
-                          local_ids, n_pools, n_live_tiles, row_mask, l2, top2, plain=False,
-                          row_bias=row_bias, segments=segments)
+    version. A table entry lies in one segment, so the segments' launches
+    read its tile once between them (``scan_span``'s count)."""
+    row_bytes = codebooks.shape[0] + (centroid_tiles is not None)  # codes, local byte
+    with scan_span(tile_table, tile_q, tile_n * row_bytes):
+        return _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k,
+                              centroid_tiles, tile_n, tile_q, l_buckets, n_valid, row_major,
+                              local_ids, n_pools, n_live_tiles, row_mask, l2, top2,
+                              plain=False, row_bias=row_bias, segments=segments)
 
 
 def pq_tiles_topk_reference(codes_cm, codebooks, queries_sorted, tile_table, k: int,
