@@ -39,8 +39,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cutting a tile, D 768 at m 64, D 64, and D 30 at dsub 5; its segmented
    dispatch over a five-tile arena cut at two tiles, residual, masked, l2
    and top-2 with two pools, the view form equal to the reference's tuple
-   form with pad tiles) and K6
-   (pq_topk: ragged N, D 768 and D 30); one line per kernel;
+   form with pad tiles), K6
+   (pq_topk: ragged N, D 768 and D 30) and K8 (rescore_int8, the PQ route's
+   int8 rescore: residual or whole rows, ip or l2, 40 and 9,000 slots a
+   query); one line per kernel;
 5. the residual serving path: a 12.5M x 768 corpus generated on the device
    (the process of bench.py: latent 32, 256 centres, noise 0.3/sqrt(32),
    L2-normalised), ``BandIVFIndex.build_device_streaming`` with nlist 4096
@@ -128,13 +130,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4096, m 64, nbits 8, OPQ, residual int8 refine, k-means 10 and PQ 8
    iterations), ``tune``, the refine route (K1) at the op point (recall@10
    >= 0.90 against the exact f32 ground truth on 512 queries), then the PQ
-   route (K5, then the exact int8 rescore) at the tuned p_tiles and tile_q
-   with refine_factor 16, 64 and 64 with top-2 (K5 must launch; recall@10
-   >= 0.70, 0.85 and 0.85), device QPS of each; then on that plan K1 over
-   the refine arena and K5 at each of the three candidate budgets against
-   their plain versions, each timed, with its bound (K5's ids held to the
-   plain version's through their exact f64 scores, as EXACT_TIE says, and
-   each score to its id's exact score); the index is freed before the next
+   route (K5, then the exact int8 rescore, K8) at the tuned p_tiles and
+   tile_q with refine_factor 16, 64 and 64 with top-2 (K5 must launch, and
+   K8 once a K5 launch; recall@10 >= 0.70, 0.85 and 0.85), device QPS of
+   each; then on that plan K1 over the refine arena and K5 at each of the
+   three candidate budgets against their plain versions, each timed, with
+   its bound (K5's ids held to the plain version's through their exact f64
+   scores, as EXACT_TIE says, and each score to its id's exact score), and
+   K8 on K5's refine_factor-64 candidates against its plain version
+   (scores within 1e-5 of max(1, |score|), the same after the stable
+   top-k), both timed, with its bound; the index is freed before the next
    phase;
 10. K6 (``pq_topk``, ``run_k6``): codebooks trained (m 64) on 65,536
    corpus rows, 1M rows encoded, the 4096 queries, k 10: recall against the
@@ -305,11 +310,11 @@ from cloudvectordb_tpu_torch.index.registry import load_index
 from cloudvectordb_tpu_torch.models.embed import encode_corpus_streaming, make_encode_fn
 from cloudvectordb_tpu_torch.models.encoder import Encoder
 from cloudvectordb_tpu_torch.models.presets import get_preset
-from cloudvectordb_tpu_torch.ops import attn, band, flat_topk as flat, pq
+from cloudvectordb_tpu_torch.ops import attn, band, flat_topk as flat, pq, rescore
 from cloudvectordb_tpu_torch.pipeline import run as pipeline_run
 from cloudvectordb_tpu_torch.pipeline.run import Pipeline
 from cloudvectordb_tpu_torch.ops.topk import (
-    _score_block, merge_topk, tiled_topk, topk_stable, topk_stable_select)
+    NEG_INF, _score_block, merge_topk, tiled_topk, topk_stable, topk_stable_select)
 from cloudvectordb_tpu_torch.train.trainer import Trainer
 from cloudvectordb_tpu_torch.utils.checkpoint import restore_checkpoint
 from cloudvectordb_tpu_torch.utils.config import (
@@ -386,6 +391,11 @@ KERNELS["K1b"] = {"name": "resid_row_bias", "route": "cuda",
 #: reference's K5 body)
 KERNELS["K5b"] = {"name": "pq_row_bias", "route": "cuda", "source": _PQ,
                   "replaces": "cloudvectordb_tpu/ops/pallas_pq.py:205"}
+#: the PQ route's int8 rescore (no Pallas counterpart: the reference leaves
+#: the step to XLA)
+KERNELS["K8"] = {"name": "rescore_int8", "route": "cuda",
+                 "source": "cloudvectordb_tpu_torch/csrc/rescore_int8.cu",
+                 "replaces": "none: the XLA rescore at cloudvectordb_tpu/index/ivf_band.py:146-170"}
 #: a kernel's other main-path shapes and contract variants, each a record of
 #: its own in the kernels line: K1 over config #3's refine arena (cell 7),
 #: K2 over int8 rows (cell 4) and over the encoded passages (cell 6); K1's
@@ -408,7 +418,8 @@ KERNELS.update({key: dict(KERNELS[base], **({"name": f"{KERNELS[base]['name']} "
 KERNELS["K5 seg"]["name"] = "pq_tiles_topk segmented"
 WRAPPERS = {"K1": band.tiles_topk_resid, "K2": flat.flat_topk,
             "K3": band.tiles_topk, "K7": band.band_topk, "K5": pq.pq_tiles_topk,
-            "K6": pq.pq_topk, "K1b": band.resid_row_bias, "K5b": pq.pq_row_bias}
+            "K6": pq.pq_topk, "K1b": band.resid_row_bias, "K5b": pq.pq_row_bias,
+            "K8": rescore.rescore_int8}
 #: the least time the card could take (NVIDIA's H100 SXM data sheet, dense
 #: rates): bytes over the memory rate against
 #: operations over the peak rate of their type
@@ -1232,12 +1243,135 @@ def pq_segment_checks(dev) -> float:
     return err
 
 
+# -- K8: the PQ route's int8 rescore --------------------------------------------
+#: K8 against its plain version (both sum the same exact f32 products in f32,
+#: in other orders): every score within RESCORE_TOL x max(1, |plain|), -inf
+#: exactly where the plain version has it; after the stable top-k the same,
+#: a differing id only between scores within that, and at most
+#: RESCORE_ID_DIFF of the filled slots (tests/port/test_torch_rescore.py's rule)
+RESCORE_TOL = 1e-5
+RESCORE_ID_DIFF = 0.01
+#: (residual, l2), as ops/rescore.py's options
+RESCORE_VARIANTS = {"resid-ip": (True, False), "resid-l2": (True, True),
+                    "whole-ip": (False, False), "whole-l2": (False, True)}
+
+
+def rescore_inputs(seed: int, dev, *, b: int, kc: int, d: int, n: int, nlist: int = 64,
+                   tile_n: int = 16, w: int = 4) -> dict:
+    """Random ``rescore.rescore_int8`` arguments on the device: int8 rows over
+    the whole range, unit-scale queries and centroids, a planner order,
+    per-tile windows and local bytes, 10% of the slots unfilled."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    kw = dict(device=dev, generator=g)
+    v = torch.rand((b, kc), **kw)
+    v = torch.where(torch.rand((b, kc), **kw) < 0.1, NEG_INF, v)
+    return dict(
+        q_s=torch.randn((b, d), **kw) / d ** 0.5, v=v, rows=torch.randint(0, n, (b, kc), **kw),
+        refine_rows=torch.randint(-128, 128, (n, d), dtype=torch.int8, **kw),
+        refine_scale=0.004, centroids=torch.randn((nlist, d), **kw) / d ** 0.5,
+        dots=torch.randn((b, nlist), **kw), order=torch.randperm(b, **kw),
+        tile_window=torch.randint(0, nlist, (-(-n // tile_n), w), **kw),
+        local_ids=torch.randint(0, w, (n,), dtype=torch.uint8, **kw), tile_n=tile_n)
+
+
+def rescore_compare(name: str, args: dict, residual: bool, l2: bool) -> float:
+    """K8 (``rescore.rescore_int8`` on CUDA tensors, one launch) against its
+    plain version (no launch) on ``args``, held as RESCORE_TOL says, the
+    candidates' rows standing for ids after the top-k; returns max
+    |Δscore| over the filled slots. Every failed criterion is named."""
+    kw = dict(args, residual=residual, l2=l2)
+    before = rescore.rescore_int8.launches
+    ref = rescore.rescore_int8_reference(**kw)
+    if rescore.rescore_int8.launches != before:
+        raise AssertionError(f"{name}: the plain version launched the kernel")
+    ex = rescore.rescore_int8(**kw)
+    sync()
+    if rescore.rescore_int8.launches != before + 1:
+        raise AssertionError(f"{name}: not one kernel launch")
+    faults = []
+
+    def held(what, x, x_ref):
+        live = torch.isfinite(x_ref)
+        if not torch.equal(live, torch.isfinite(x)) or bool((x[~live] != NEG_INF).any()):
+            faults.append(f"{what}: unfilled slots differ")
+            return float("inf")
+        gap = (x[live].double() - x_ref[live].double()).abs()
+        tol = RESCORE_TOL * x_ref[live].double().abs().clamp_min(1.0)
+        if bool((gap > tol).any()):
+            faults.append(f"{what}: {int((gap > tol).sum())} scores past the tolerance, "
+                          f"max |dscore| {float(gap.max()):.3g}")
+        return float(gap.max()) if gap.numel() else 0.0
+
+    err = held("scores", ex, ref)
+    v, pos = topk_stable(ex, K)
+    v_ref, pos_ref = topk_stable(ref, K)
+    held("top-k", v, v_ref)
+    rows = args["rows"]
+    diff = (torch.gather(rows, 1, pos) != torch.gather(rows, 1, pos_ref)) & torch.isfinite(v_ref)
+    share = float(diff.float().mean())
+    if share > RESCORE_ID_DIFF:
+        faults.append(f"{share:.4f} of the top-k ids differ > {RESCORE_ID_DIFF}")
+    if faults:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version: "
+                             + "; ".join(faults))
+    return err
+
+
+def rescore_checks(dev) -> float:
+    """K8 in its four variants against its plain version: a tiny shape, and
+    9,000 slots a query (more than the kernel stages in shared memory at
+    once); one line."""
+    err, n = 0.0, 0
+    for seed, (b, kc, d) in enumerate(((24, 40, 32), (6, 9000, 64))):
+        for name, (residual, l2) in RESCORE_VARIANTS.items():
+            a = rescore_inputs(800 + seed, dev, b=b, kc=kc, d=d, n=200)
+            err = max(err, rescore_compare(f"K8 {name} B{b} k_cand {kc} D {d}", a, residual, l2))
+            n += 1
+    log(f"[kernel] K8 (rescore_int8) against its plain version on {n} small shapes: max "
+        f"|dscore| {err:.3g} (tolerance {RESCORE_TOL} x max(1, |score|))")
+    return err
+
+
+def rescore_main_check(idx, st, queries, k5_args: dict, p_tiles: int, tq: int) -> dict:
+    """K8 on K5's candidates at a PQ-route plan of config #3's index, with the
+    arguments ``_pq_tiles_core`` gives it (rows clamped to the refine rows,
+    the plan's order and query-centroid products), against its plain
+    version, both timed (CUDA events), with its bound: the filled slots'
+    int8 rows read once, plus the slots' row ids, values and scores and the
+    queries, against one multiply-add a byte at the f32 rate."""
+    _, order, dots, _ = _plan_tiles(idx._rotate(queries), st["centroids"], st["tile_window"],
+                                    tq, p_tiles)
+    v, rows = pq.pq_tiles_topk(**k5_args)
+    q_s, refine = k5_args["queries_sorted"], st["refine"]
+    args = dict(q_s=q_s, v=v, rows=rows.long().clamp(0, refine.shape[0] - 1),
+                refine_rows=refine, refine_scale=idx._scale, centroids=st["centroids"],
+                dots=dots, order=order, tile_window=st["tile_window"], local_ids=st["local"],
+                tile_n=idx.tile_n)
+    residual, l2 = idx._refine_residual, idx.metric == "l2"
+    label = (f"resid={residual} l2={l2} B{q_s.shape[0]} p{p_tiles} tq{tq} k_cand "
+             f"{rows.shape[1]} D {q_s.shape[1]}")
+    err = rescore_compare(f"K8 {label}", args, residual, l2)
+    kw = dict(args, residual=residual, l2=l2)
+    plain_ms = time_ms(lambda: rescore.rescore_int8_reference(**kw), 1)
+    ms = time_ms(lambda: rescore.rescore_int8(**kw), 5, inner=5)
+    filled = int(torch.isfinite(v).sum())
+    r = dict(err=err, ms=ms, plain_ms=plain_ms, shape=label,
+             **bound(filled * q_s.shape[1] + v.numel() * (8 + 4 + 4) + nbytes(q_s),
+                     2.0 * filled * q_s.shape[1], "f32"))
+    log(f"[kernel] K8 {label}: kernel {ms:.3f} ms, plain version {plain_ms:.3f} ms; "
+        f"{filled} of {v.numel()} slots filled; max |dscore| {err:.3g}; bound "
+        f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return r
+
+
 def small_kernel_checks(dev) -> dict:
     err = {"K1": max(resid_checks(dev), resid_variant_checks(dev)), "K2": flat_checks(dev),
            "K1b": bias_checks(dev)}
     err["K3"], err["K7"] = table_checks(dev)
     err["K5"], err["K6"] = pq_checks(dev)
     err["K5b"] = CHECKS["K5b"][2]
+    err["K8"] = rescore_checks(dev)
     for key, (n, match, worst, own, own_plain) in CHECKS.items():
         if key == "K5b":
             log(f"[kernel] K5b (pq_row_bias) against its plain version on {n} small shapes: "
@@ -2864,13 +2998,14 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
     """BASELINE config #3 (10M x 768, OPQ + IVF-PQ, m 64, nbits 8, residual
     int8 refine): ``build_device_streaming`` on the first 10M rows of the
     corpus, ``tune``, the refine route (K1) at the op point, then the PQ
-    route (K5 + int8 rescore) at the tuned p_tiles and tile_q with
+    route (K5 + int8 rescore, K8) at the tuned p_tiles and tile_q with
     refine_factor 16, 64 and 64 with top-2; the launch counts are reset
-    just before the build and read after the PQ route. Then, on the plan
-    both routes serve, K1 over the refine arena and K5 at each of the three
-    candidate budgets against their plain versions, each timed; K5's
-    record is refine_factor 64's, and every check's error joins its
-    kernel's max_abs_err."""
+    just before the build and read after the PQ route (K8 one a K5
+    launch). Then, on the plan both routes serve, K1 over the refine arena
+    and K5 at each of the three candidate budgets against their plain
+    versions, each timed; K5's record is refine_factor 64's, and every
+    check's error joins its kernel's max_abs_err; then K8 on K5's
+    refine_factor-64 candidates against its plain version, both timed."""
     n_chunks = PQ_ROWS // CHUNK
     t0 = time.perf_counter()
     gt = exact_gt(chunk_fn, n_chunks, CHUNK, queries[:NQ_GT])
@@ -2895,15 +3030,17 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
         routes[name] = serve(idx, queries, gt, reps, f"pq route {name} p{p_tiles} tq{tq}",
                              serve_from="pq", p_tiles=p_tiles, tile_q=tq, refine_factor=rf,
                              top2=top2)
-    launches = {"K5": pq.pq_tiles_topk.launches, "K1": band.tiles_topk_resid.launches}
+    launches = {"K5": pq.pq_tiles_topk.launches, "K1": band.tiles_topk_resid.launches,
+                "K8": rescore.rescore_int8.launches}
     log(f"[pq] {card}: build {build_s:.1f} s, op {op}, refine route recall@{K} "
         f"{recall_rf:.4f} at {qps_rf['qps']:.1f} QPS; PQ route "
         + "; ".join(f"{k}: {r:.4f} at {q_['qps']:.1f} QPS" for k, (r, q_) in routes.items())
         + f"; launches {launches}")
     low = {n: routes[n][0] for n, floor in PQ_ROUTE_FLOORS.items() if routes[n][0] < floor}
-    if launches["K5"] <= 0 or low:
-        raise AssertionError(f"config #3 PQ route: K5 launches {launches['K5']}, recall@{K} "
-                             f"below its floor {PQ_ROUTE_FLOORS}: {low}")
+    if launches["K5"] <= 0 or launches["K8"] != launches["K5"] or low:
+        raise AssertionError(f"config #3 PQ route: K5 launches {launches['K5']}, K8 launches "
+                             f"{launches['K8']} (one a K5 launch), recall@{K} below its floor "
+                             f"{PQ_ROUTE_FLOORS}: {low}")
 
     # K1 and K5 against their plain versions on the plan both routes serve
     st, q_s, table, exact, plans = pq_holds(idx, queries, p_tiles, tq)
@@ -2931,8 +3068,10 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
             f"{used} of {idx._tune_n_tiles()} tiles read, {rows_scored:.4g} (query, row) pairs "
             f"scored")
         mp["K5" if name == "rf64" else f"K5 {name}"] = r
+    mp["K8"] = rescore_main_check(idx, st, queries, plans["rf64"], p_tiles, tq)
     del idx, st, args, plans, k1_args, exact
-    return dict(launches={"K5": launches["K5"], "K1 refine": launches["K1"]}, mp=mp)
+    return dict(launches={"K5": launches["K5"], "K1 refine": launches["K1"],
+                          "K8": launches["K8"]}, mp=mp)
 
 
 def k6_inputs(chunk_fn):

@@ -56,6 +56,7 @@ from cloudvectordb_tpu_torch.ops.band import (
     band_topk, order_centroids, resid_row_bias, tiles_topk, tiles_topk_resid)
 from cloudvectordb_tpu_torch.ops.flat_topk import quantize_queries
 from cloudvectordb_tpu_torch.ops.pq import pq_tiles_topk
+from cloudvectordb_tpu_torch.ops.rescore import _rescore_cap, rescore_int8
 from cloudvectordb_tpu_torch.ops.topk import (
     NEG_INF, f32_const, merge_topk, tiled_topk, topk_stable, topk_stable_select)
 from cloudvectordb_tpu_torch.utils.device import DEFAULT, as_device
@@ -244,17 +245,6 @@ def _tiles_plan_search(q, centroids, payload, ids, tile_window, db_scale, n_vali
     return _unsort(order, v, ids[rows.long().clamp(0, ids.shape[0] - 1)])
 
 
-def _rescore_cap(k_cand: int, b: int, halve: bool = False) -> int:
-    """Query sub-batch of the refine rescore: the largest divisor of b not
-    above min(512, 2^20 / k_cand) (halved with ``halve``), so one gathered
-    (sub, k_cand, D) block stays near 1 GB of f32 at D 768 (the reference's
-    cap, ivf_band.py:173-181)."""
-    cap = max(1, min(512, (1 << 20) // max(k_cand, 1)))
-    if halve:
-        cap = max(1, cap // 2)
-    return max(s for s in range(1, min(cap, b) + 1) if b % s == 0)
-
-
 def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
                    centroid_tiles, n_valid, local_ids, row_mask=None, *, k: int,
                    k_cand: int, p_tiles: int, tile_n: int, tile_q: int,
@@ -277,15 +267,15 @@ def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
     return as -‖q - x̂‖² (-inf stays -inf); two-stage callers (pq2, host)
     receive the k_cand candidates in that form.
 
-    The rescore (``refine_scale > 0``) gathers each candidate's int8 refine
-    row, in query sub-batches (``_rescore_cap``; halved for l2 residual
-    rows, whose centroid gather doubles the temporaries). Residual rows
-    (``refine_residual``): bf16(q)·bf16(r) as exact f32 products summed in
-    f32, times the scale, plus the exact centroid term ``dots[order]``
-    gathered by the row's list (its local byte through the tile window);
-    l2 subtracts ‖c + s·r‖²/2 expanded as the reference does. Whole rows:
-    q·(r·scale) in f32 (l2: less ‖r·scale‖²/2). Unfilled kernel slots (-inf)
-    stay -inf. Then a stable top-k."""
+    The rescore (``refine_scale > 0``) scores each candidate against its
+    int8 refine row (ops/rescore.py: the kernel ``csrc/rescore_int8.cu`` on
+    CUDA, one launch a batch). Residual rows (``refine_residual``):
+    bf16(q)·bf16(r) as exact f32 products summed in f32, times the scale,
+    plus the exact centroid term ``dots[order]`` gathered by the row's list
+    (its local byte through the tile window); l2 subtracts ‖c + s·r‖²/2
+    expanded as the reference does. Whole rows: q·(r·scale) in f32 (l2:
+    less ‖r·scale‖²/2). Unfilled kernel slots (-inf) stay -inf. Then a
+    stable top-k."""
     tile_live = None
     if row_mask is not None:
         tile_live = row_mask.reshape(-1, tile_n).amax(dim=1) > 0
@@ -298,39 +288,11 @@ def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
         top2=top2, row_bias=row_bias, segments=segments)
     if refine_scale > 0:
         with span("cvdb.rescore"):
-            valid = v > NEG_INF
             rows = rows.long().clamp(0, refine_rows.shape[0] - 1)
-            b, kc = rows.shape
-            scale = f32_const(refine_scale, q)
-            half = f32_const(0.5, q)
-            lists = None
-            if refine_residual:  # row -> local byte -> list id
-                lists = tile_window[rows // tile_n, local_ids.reshape(-1)[rows].long()].long()
-            # l2 residual rows gather their centroids too: half the sub-batch
-            sub = _rescore_cap(kc, b, halve=l2 and refine_residual)
-            parts = []
-            for s in range(0, b, sub):
-                cand = refine_rows[rows[s:s + sub]].float()  # (sub, k_cand, D), int8 values
-                if refine_residual:
-                    qb = q_s[s:s + sub].to(torch.bfloat16).float()
-                    ex = torch.bmm(cand, qb[:, :, None])[:, :, 0] * scale
-                    if l2:
-                        ca = centroids[lists[s:s + sub]]
-                        ex = ex - half * (
-                            (ca * ca).sum(dim=2)
-                            + f32_const(2.0 * refine_scale, q) * (ca * cand).sum(dim=2)
-                            + f32_const(refine_scale * refine_scale, q)
-                            * (cand * cand).sum(dim=2))
-                else:
-                    cand = cand * scale
-                    ex = torch.bmm(cand, q_s[s:s + sub, :, None])[:, :, 0]
-                    if l2:
-                        ex = ex - half * (cand * cand).sum(dim=2)
-                parts.append(ex)
-            ex = torch.cat(parts)
-            if refine_residual:
-                ex = ex + torch.gather(dots[order], 1, lists)
-            ex = torch.where(valid, ex, NEG_INF)
+            ex = rescore_int8(q_s, v, rows, refine_rows, refine_scale,
+                              residual=refine_residual, l2=l2, centroids=centroids,
+                              dots=dots, order=order, tile_window=tile_window,
+                              local_ids=local_ids, tile_n=tile_n)
             v, pos = topk_stable(ex, k)
             rows = torch.gather(rows, 1, pos)
     else:

@@ -1,6 +1,6 @@
 """Build and bind the hand-written kernels in ``csrc/*.cu`` (the CUDA side of
-ops/band.py, ops/flat_topk.py, ops/pq.py and ops/attn.py; the JAX package has no
-counterpart: Pallas compiled its kernels inside jit).
+ops/band.py, ops/flat_topk.py, ops/pq.py, ops/rescore.py and ops/attn.py; the JAX
+package has no counterpart: Pallas compiled its kernels inside jit).
 
 nvcc compiles each source into a shared library of its own with a plain C
 interface, on first use, into the package's gitignored ``_build/``
@@ -12,8 +12,8 @@ stream pass as ``c_void_p``. Each C function returns ``cudaGetLastError()``
 after its launch and the wrapper raises if it is not 0. Nothing here falls
 back to a plain version: a kernel that does not build or launch is an error.
 
-The kernel wrappers (ops/band.py, ops/flat_topk.py, ops/pq.py, ops/attn.py) import
-this module only for CUDA tensors.
+The kernel wrappers (ops/band.py, ops/flat_topk.py, ops/pq.py, ops/rescore.py,
+ops/attn.py) import this module only for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -54,6 +54,11 @@ _SIGNATURES = {
         "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 9 + [_CI] * 13 + [_VP], _CI),
         "cvdb_pq_scan_smem_bytes": ([_CI] * 6, _CI),
         "cvdb_pq_row_bias": ([_VP, _CLL, _CLL] + [_VP] * 4 + [_CLL] + [_CI] * 6 + [_VP], _CI),
+        "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
+    },
+    "rescore_int8": {
+        "cvdb_rescore_int8": ([_VP] * 10 + [_CI] * 6 + [_CF] * 3 + [_CI] * 3 + [_VP], _CI),
+        "cvdb_rescore_int8_smem_bytes": ([_CI] * 2, _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
     "mha_small_head": {
@@ -379,6 +384,53 @@ def pq_row_bias(codes, local, cb, ct, *, tile_n: int):
         _ptr(ct), out.data_ptr(), n, tile_n, m, ncode, dsub, w, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "pq_row_bias")
+    return out
+
+
+def rescore_int8(refine_rows, cand, v, q, scale: float, *, l2: bool, residual=None):
+    """Launch the int8 rescore: (B, k_cand) f32 scores of each query's
+    candidates against their refine rows, -inf where ``v`` is -inf, on the
+    tensors' device and PyTorch's current stream. ``refine_rows`` (N, D)
+    int8, D a multiple of 4 (the kernel loads a row by 4-byte words),
+    ``cand`` (B, k_cand) int64 arena rows in [0, N) where ``v`` is live,
+    ``v`` (B, k_cand) f32, ``q`` (B, D) f32 in planner order. ``residual``
+    is None for whole rows, else (local (>= N,) uint8, tile_window
+    (n_tiles, W) int64, dots (B, nlist) f32, order (B,) int64, centroids
+    (nlist, D) f32, tile_n). Shapes are checked by ops/rescore.py; this
+    checks what the kernel reads raw."""
+    dev = refine_rows.device
+    checks = [(refine_rows, "refine_rows", torch.int8), (cand, "cand", torch.int64),
+              (v, "v", torch.float32), (q, "q", torch.float32)]
+    local = window = dots = order = cents = None
+    tile_n = 1
+    if residual is not None:
+        local, window, dots, order, cents, tile_n = residual
+        local = local.reshape(-1)
+        checks += [(local, "local_ids", torch.uint8), (window, "tile_window", torch.int64),
+                   (dots, "dots", torch.float32), (order, "order", torch.int64),
+                   (cents, "centroids", torch.float32)]
+    for t, name, dt in checks:
+        _need(t, name, dt, dev)
+    d = refine_rows.shape[1]
+    b, kc = cand.shape
+    if d % 4:
+        raise ValueError(f"D={d} must be a multiple of 4")
+    if not 0 < b < 2**31 or kc == 0:
+        raise ValueError(f"{b} queries of {kc} candidates: nothing to launch, or past the grid")
+    lib = _load("rescore_int8")
+    smem = lib.cvdb_rescore_int8_smem_bytes(d, kc)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"D={d} needs {smem} B of shared memory > {_SMEM_MAX}")
+    out = torch.empty((b, kc), dtype=torch.float32, device=dev)
+    # the f32 constants (ctypes rounds each to f32, as ops/topk.py::f32_const)
+    rc = lib.cvdb_rescore_int8(
+        refine_rows.data_ptr(), cand.data_ptr(), v.data_ptr(), q.data_ptr(),
+        _ptr(local), _ptr(window), _ptr(dots), _ptr(order), _ptr(cents), out.data_ptr(),
+        b, kc, d, tile_n, 0 if window is None else window.shape[1],
+        0 if dots is None else dots.shape[1], scale, 2.0 * scale, scale * scale,
+        int(residual is not None), int(l2), _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, rc, "rescore_int8")
     return out
 
 
