@@ -1771,10 +1771,10 @@ def run_resid_variants(dev, idx, chunk_fn, n_chunks, queries, gt, card, p_tiles:
     for name, m in masks.items():
         flts[name] = flt = idx.make_filter(m.cpu().numpy())
         t0 = time.perf_counter()
-        rm = idx._arena_row_mask(flt)
+        rm = idx._arena_filter(flt)[0]
         sync()
         gather_s = time.perf_counter() - t0
-        hit = idx._arena_row_mask(flt) is rm
+        hit = idx._arena_filter(flt)[0] is rm
         (v, ids), n = counted(lambda: idx.search_device(queries, K, where=flt))
         qps = qps_device(lambda q: idx.search_device(q, K, where=flt), queries, reps=reps)
         check_filtered(v, ids, m, f"resid filtered {name}")
@@ -1854,7 +1854,7 @@ def run_resid_variants(dev, idx, chunk_fn, n_chunks, queries, gt, card, p_tiles:
                        st["centroid_tiles"], idx._scale, idx.tile_n)
     n_pad = st["payload"].shape[0]
     mp["K1b"] = dict(err=err, shape=f"{n_pad} x {D} arena", **bias_times(st, idx))
-    rm10 = idx._arena_row_mask(flts[name10])
+    rm10 = idx._arena_filter(flts[name10])[0]
     for key, variant in (("K1 precise", "precise"), ("K1 masked", "masked"),
                          ("K1 l2", "l2"), ("K1 top2", "top2")):
         args = dict(k1_plan(idx, queries, p_tiles, tq,
@@ -3428,7 +3428,7 @@ def run_config5(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
         raise AssertionError(f"c5: reconstruct off the decode by {off:.3g}, cosine {cos:.5f}")
     launches["K5 masked"] = k5m
 
-    mp = c5_k5_holds(idx, queries, op, idx._arena_row_mask(flt_add))
+    mp = c5_k5_holds(idx, queries, op, idx._arena_filter(flt_add)[0])
     log(f"[c5] {card}: build {build_s:.1f} s; op {op}; recall@{K} {recall:.4f} (tier-1 "
         f"{recall1:.4f}); {qps['qps']:.1f} QPS; add {C5_ADD / add_s:,.0f} rows/s, merge "
         f"{merge_s:.3f} s, remove {C5_REMOVE / rem_s:,.0f} rows/s; peak device memory "

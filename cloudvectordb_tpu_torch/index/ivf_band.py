@@ -175,7 +175,7 @@ def _arena_mask_from_ids(ids: torch.Tensor, allowed: torch.Tensor, n_pad: int | 
     cover every arena row, pad rows included (``n_pad``, a tile_n multiple;
     the id table may be shorter); pad rows and gid -1 (holes) are 0. A
     random-access (N,) gather, so the index caches the result per filter
-    and arena state (``BandIVFIndex._arena_row_mask``)."""
+    and arena state (``BandIVFIndex._arena_filter``)."""
     g = ids.long()
     ok = allowed[g.clamp(0, allowed.shape[0] - 1)]
     ok = torch.where(g >= 0, ok, 0).to(torch.int8)
@@ -185,11 +185,17 @@ def _arena_mask_from_ids(ids: torch.Tensor, allowed: torch.Tensor, n_pad: int | 
     return ok[None, :]
 
 
+def _tile_live(row_mask: torch.Tensor, tile_n: int) -> torch.Tensor:
+    """(n_tiles,) bool: the arena tiles holding a row ``row_mask``
+    allows."""
+    return row_mask.reshape(-1, tile_n).amax(dim=1) > 0
+
+
 def _tiles_resid_plan_search(
     q, centroids, payload, local_ids, centroid_tiles, resid_scale, ids,
     tile_window, valid_end, allowed=None, row_mask=None, *, k: int,
     p_tiles: int, tile_n: int, tile_q: int, int8_q: bool = True,
-    l2: bool = False, top2: bool = False, row_bias=None,
+    l2: bool = False, top2: bool = False, row_bias=None, tile_live=None,
 ):
     """One-dispatch residual-int8 search: device planning, the tile scan
     (ops/band.py), the arena-row → global-id map and the unsort to caller
@@ -198,15 +204,15 @@ def _tiles_resid_plan_search(
 
     Filtered search: ``row_mask`` ((1, N_pad) arena-order allow bits, the
     index's cached form) or ``allowed`` (the gid-keyed bitmap, gathered
-    here); tiles with no allowed row leave the plan, and unfilled slots
-    return (-inf, -1). ``l2``: K1 ranks by q·x̂ - ‖x̂‖²/2 over ``row_bias``
+    here); tiles with no allowed row leave the plan (``tile_live``, the
+    mask's ``_tile_live``, computed if None), and unfilled slots return
+    (-inf, -1). ``l2``: K1 ranks by q·x̂ - ‖x̂‖²/2 over ``row_bias``
     (computed if None) and the scores return as -‖q - x̂‖² (-inf stays
     -inf). ``top2``: two slots a bucket in K1."""
     if row_mask is None and allowed is not None:
         row_mask = _arena_mask_from_ids(ids, allowed, n_pad=payload.shape[0])
-    tile_live = None
-    if row_mask is not None:
-        tile_live = row_mask.reshape(-1, tile_n).amax(dim=1) > 0
+    if row_mask is not None and tile_live is None:
+        tile_live = _tile_live(row_mask, tile_n)
     q_s, order, _, tile_table = _plan_tiles(
         q, centroids, tile_window, tile_q, p_tiles, tile_live=tile_live)
     v, rows = tiles_topk_resid(
@@ -278,7 +284,7 @@ def _pq_tiles_core(q, centroids, codes, codebooks, refine_rows, tile_window,
     stable top-k."""
     tile_live = None
     if row_mask is not None:
-        tile_live = row_mask.reshape(-1, tile_n).amax(dim=1) > 0
+        tile_live = _tile_live(row_mask, tile_n)
     q_s, order, dots, tile_table = _plan_tiles(q, centroids, tile_window, tile_q, p_tiles,
                                                tile_live=tile_live)
     v, rows = pq_tiles_topk(
@@ -1501,22 +1507,31 @@ class BandIVFIndex(Index):
             top2 = bool(op.get("top2", False))
         return (*self._resolve_tiles_knobs(nq, nprobe, p_tiles, tile_q), top2)
 
-    def _arena_row_mask(self, flt):
-        """K1's arena-order allow bits for ``flt``, cached per (filter, device
-        id table, the table's version): the (N,) gid gather runs once per
-        filter and arena state. The version counts in-place writes to the
-        ids tensor, so a mutation that keeps the tensor still misses."""
+    def _arena_filter(self, flt):
+        """(K1's (and K5's) arena-order allow bits for ``flt``, the plan's
+        (n_tiles,) bool live tiles, the filter's counts), cached per
+        (filter, device id table, the table's version): the (N,) gid gather,
+        the tile reduction and the counts' one sync run once per filter and
+        arena state. The version counts in-place writes to the ids tensor,
+        so a mutation that keeps the tensor still misses. The counts are
+        host ints: ``allowed_rows`` (arena rows the filter allows),
+        ``live_tiles`` (tiles holding one) and ``live_rows`` (live_tiles ·
+        tile_n, the rows a plan can choose from)."""
         ids = self._device_state()["ids"]
         key = (id(flt), id(ids), ids._version)
         hit = self._flt_cache.get(key)
         if hit is None:
             if len(self._flt_cache) > 32:  # bound multi-tenant rotation
                 self._flt_cache.clear()
-            rm = self._split_row_mask(_arena_mask_from_ids(
-                ids, flt.mask_device(self.device), n_pad=self._mask_pad_rows()))
+            rm = _arena_mask_from_ids(ids, flt.mask_device(self.device),
+                                      n_pad=self._mask_pad_rows())
+            live = _tile_live(rm, self.tile_n)
+            n_allowed, n_live = torch.stack([rm.sum(), live.sum()]).tolist()
+            counts = {"allowed_rows": n_allowed, "live_tiles": n_live,
+                      "live_rows": n_live * self.tile_n}
             # the entry holds the filter and ids, so their ids stay unique
-            self._flt_cache[key] = hit = (flt, ids, rm)
-        return hit[2]
+            self._flt_cache[key] = hit = (flt, ids, self._split_row_mask(rm), live, counts)
+        return hit[2:]
 
     def _mask_pad_rows(self) -> int:
         """The padded arena row count a filter mask must cover."""
@@ -1547,14 +1562,20 @@ class BandIVFIndex(Index):
         st = self._device_state()
         if self.residual:
             l2 = self.metric == "l2"
+            row_mask = tile_live = None
+            if flt is not None:
+                # the span carries the cached counts: a hit adds no device op
+                with span("cvdb.filter") as sp:
+                    row_mask, tile_live, counts = self._arena_filter(flt)
+                    if sp is not None:
+                        sp.counts.update(counts)
             return _tiles_resid_plan_search(
                 qp, st["centroids"], st["payload"], st["local"],
                 st["centroid_tiles"], self._scale, st["ids"],
-                st["tile_window"], st["valid_end"],
-                row_mask=self._arena_row_mask(flt) if flt is not None else None,
+                st["tile_window"], st["valid_end"], row_mask=row_mask,
                 k=k, p_tiles=p_tiles, tile_n=self.tile_n, tile_q=tq,
                 int8_q=(scoring != "precise"), l2=l2, top2=top2,
-                row_bias=self._arena_row_bias() if l2 else None,
+                row_bias=self._arena_row_bias() if l2 else None, tile_live=tile_live,
             )
         if flt is not None:
             raise ValueError("where= masks at score time in the residual-int8 kernel; for "

@@ -1188,7 +1188,7 @@ class BandIVFPQIndex(BandIVFIndex):
         route, then the refine tiers (``host``: the host tier too, else the
         cascade's on-card prefix)."""
         l2 = self.metric == "l2"
-        row_mask = self._arena_row_mask(flt) if flt is not None else None
+        row_mask = self._arena_filter(flt)[0] if flt is not None else None
         if serve_from == "refine":
             st = self._refine_scan_state()
             return _tiles_resid_plan_search(

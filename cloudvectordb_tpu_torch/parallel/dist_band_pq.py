@@ -456,7 +456,7 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
         v, rows = _pq_tiles_core(
             q, ds["centroids"], ds["codes"], ds["codebooks"], st.get("refine", ds["refine"]),
             ds["tile_window"], ds["centroid_tiles"], sh._n, ds["local"],
-            sh._arena_row_mask(flt) if flt is not None else None,
+            sh._arena_filter(flt)[0] if flt is not None else None,
             k=plan["k_core"], k_cand=plan["k_cand"],
             p_tiles=min(plan["p_tiles"], sh._tune_n_tiles()), tile_n=sh.tile_n,
             tile_q=plan["tq"], refine_scale=plan["refine_scale"], n_pools=plan["n_pools"],

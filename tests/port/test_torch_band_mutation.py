@@ -609,7 +609,7 @@ def test_caches_follow_every_mutation(data):
     flt = IdFilter(np.random.default_rng(2).random(5000) < 0.5)
 
     def check(idx, stage):
-        rm = idx._arena_row_mask(flt)
+        rm = idx._arena_filter(flt)[0]
         st = idx._device_state()
         fresh = _arena_mask_from_ids(st["ids"], flt.mask_device("cpu"),
                                      n_pad=int(idx._payload.shape[0]))

@@ -320,7 +320,7 @@ def test_filters_and_l2_still_refused(data, jax_builds, route):
         assert mask[it[it >= 0]].all() and np.isneginf(vt[it < 0]).all()
         vd, idd = t.search_device(torch.from_numpy(q), 10, where=flt, **kw)
         np.testing.assert_array_equal(idd.numpy(), it)
-        assert t._arena_row_mask(flt) is t._arena_row_mask(flt)
+        assert t._arena_filter(flt)[0] is t._arena_filter(flt)[0]
     assert (it < 0).any()  # three allowed rows leave every query short
 
 
