@@ -334,6 +334,18 @@ PQ_ROWS, PQ_M, PQ_NBITS = 10_000_000, 64, 8  # BASELINE config #3
 PQ_REFINE_FLOOR = 0.90
 #: the PQ route's plans (refine_factor, top2) and their recall@10 floors
 PQ_PLANS = {"rf16": (16, False), "rf64": (64, False), "rf64+top2": (64, True)}
+#: the opqpq10m.b4096 cell's plan (cvdb_bench/op_points/opqpq10m.b4096.json):
+#: p_tiles, tile_q and {name: (refine_factor, top2)}, the pools the
+#: candidate budget picks: K5's 64-query block
+PQ_CELL_P, PQ_CELL_TQ, PQ_CELL_PLAN = 320, 64, {"cell": (205, True)}
+#: K5's hold at that plan: 2,050 candidates a query reach deep into each
+#: query's ranking, where exact near-ties within EXACT_TIE reorder about 3x
+#: more positions than at k_cand 640 (an H100 run read 0.93475 by position
+#: on config #3's index, every differing id within the tie window and the
+#: kernel's ids' exact sum above the plain version's: PERF.md section 6; the
+#: 32-query block gives the same ids bit for bit); every other criterion of
+#: ``compare`` holds as at the other plans
+PQ_CELL_ID_FLOOR = 0.92
 PQ_ROUTE_FLOORS = {"rf16": 0.70, "rf64": 0.85, "rf64+top2": 0.85}
 K6_TRAIN, K6_ROWS, K6_TILE_N = 65_536, 1_000_000, 2048
 ID_MATCH_FLOOR = 0.999
@@ -561,9 +573,11 @@ def k4_tensor_core_check(lib: Path) -> None:
         raise AssertionError(f"bf16 K4 kernels without tensor-core instructions: {by_name}")
 
 
-#: pq_scan.cu's scan instantiations: (source, residual, top2, mask, l2) for
-#: TABLE x 16, ALL x 1 (its l2 bias kernel, f64 sums, is not counted)
-PQ_INSTANCES = 17
+#: pq_scan.cu's scan instantiations: (source, residual, top2, mask, l2, QB)
+#: for TABLE x 16 and ALL x 1 at 32 queries a block, and TABLE's 4 unmasked
+#: inner-product variants and ALL at 64 (its l2 bias kernel, f64 sums, is
+#: not counted)
+PQ_INSTANCES = 22
 
 
 def pq_tensor_core_check(lib: Path) -> None:
@@ -572,9 +586,11 @@ def pq_tensor_core_check(lib: Path) -> None:
     counts = {sym: n for sym, n in tensor_core_ops(lib).items()
               if kernel_name(sym) == "pq_scan_kernel"}
     def label(sym: str) -> str:
-        src, *flags = re.search(r"ILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", sym).groups()
+        src, *flags, qb = re.search(r"ILi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d+)E",
+                                    sym).groups()
         return (f"{'TABLE' if src == '1' else 'ALL'}" + "".join(
-            f" {o}" for o, f in zip(("resid", "top2", "mask", "l2"), flags) if f == "1"))
+            f" {o}" for o, f in zip(("resid", "top2", "mask", "l2"), flags) if f == "1")
+            + f" QB{qb}")
 
     log("[build] pq_scan tensor-core instructions of all (cuobjdump --dump-sass): "
         + "; ".join(f"{label(sym)}: {h} of {n}" for sym, (h, n) in sorted(counts.items())))
@@ -1130,12 +1146,33 @@ def random_pq_inputs(seed, dev, *, m=64, nbits=8, dsub=12, tile_n=1024, n_tiles=
         n_valid=n - tile_n // 3, row_major=True)
 
 
+def k5_block_queries(a: dict) -> int:
+    """The queries one block of K5 holds at pq_tiles_topk's arguments
+    ``a`` (csrc/pq_scan.cu's rule, from the library)."""
+    from cloudvectordb_tpu_torch.ops import _cuda
+
+    cb, ct = a["codebooks"], a.get("centroid_tiles")
+    return _cuda._load("pq_scan").cvdb_pq_scan_block_queries(
+        a["tile_q"], a["tile_n"], a.get("l_buckets") or a["tile_n"], cb.shape[0], cb.shape[2],
+        0 if ct is None else ct.shape[1], int(a.get("top2", False)),
+        int(a.get("row_mask") is not None), int(a.get("l2", False)))
+
+
+#: K5's 64-query block in the small checks: (tile_q, residual, pools,
+#: top2, D 30), 256 queries, R = 1
+PQ64_CASES = ((64, True, 2, True, False), (64, True, 1, True, False),
+              (64, False, 2, True, False), (64, False, 1, False, False),
+              (128, True, 2, True, False), (128, False, 1, True, False),
+              (128, True, 1, False, False), (64, True, 2, True, True),
+              (128, False, 2, True, True), (64, False, 1, False, True))
+
+
 def pq_checks(dev) -> tuple[float, float]:
     """K5 (residual and not; pools 1, 2, 3; top-2 on and off; R 1 and > 1;
     repeated table entries; n_valid cutting a tile; D 768 at m 64 and a
     narrow D; dsub 5, D 30: one codebook value at a time, zeros past D,
-    centroid rows of a width not a multiple of 4) and K6 (ragged N, R 1 and
-    4; D 768 and D 30)."""
+    centroid rows of a width not a multiple of 4; at 32 queries a block,
+    and at 64 (PQ64_CASES)) and K6 (ragged N, R 1 and 4; D 768 and D 30)."""
     err5 = 0.0
     cases = [(resid, pools, top2, lb, False, False) for resid in (True, False)
              for pools in (1, 2, 3) for top2 in (False, True) for lb in (0, 256)]
@@ -1171,6 +1208,16 @@ def pq_checks(dev) -> tuple[float, float]:
                     a["tile_n"])
             err5 = max(err5, pq_bias_compare(f"D{a['queries_sorted'].shape[1]} resid={resid}",
                                              *args, quiet=True))
+    for seed, (tq, resid, pools, top2, narrow) in enumerate(PQ64_CASES):
+        shape = dict(m=6, dsub=5, tile_n=512) if narrow else {}
+        a = random_pq_inputs(800 + seed, dev, residual=resid, nq=256, tile_q=tq, **shape)
+        kw = dict(k=4 * K, n_pools=pools, top2=top2)
+        if k5_block_queries({**a, **kw}) != 64:
+            raise AssertionError(f"K5 tq{tq} D{a['queries_sorted'].shape[1]}: not 64 a block")
+        err5 = max(err5, compare(
+            f"K5 tq{tq} resid={resid} pools={pools} top2={top2} D{a['queries_sorted'].shape[1]}",
+            lambda: pq.pq_tiles_topk(**a, **kw), lambda: pq.pq_tiles_topk_reference(**a, **kw),
+            quiet=True))
     err5 = max(err5, pq_segment_checks(dev))
     err6 = 0.0
     for seed, (n, lb, m, dsub) in enumerate(((5000, 0, PQ_M, 12), (7777, 512, PQ_M, 12),
@@ -1519,9 +1566,12 @@ def main_shape_check(key: str, label: str, kernel, plain, reps: int,
                      plain_reps: int, **hold) -> dict:
     """A kernel against its plain version at a main path's shape (``hold``:
     compare's exact, tie and equal), and both times (each the median of
-    CUDA-event repetitions, one process, one card)."""
+    CUDA-event repetitions, one process, one card; with ``plain_reps`` 1
+    the plain version's is its held call's)."""
+    if plain_reps == 1:
+        plain = timed(plain)
     err = compare(f"{key} {label}", kernel, plain, **hold)
-    plain_ms = time_ms(plain, plain_reps)
+    plain_ms = plain.ms if plain_reps == 1 else time_ms(plain, plain_reps)
     ms = time_ms(kernel, reps)
     log(f"[kernel] {key} {label}: kernel {ms:.3f} ms, plain version {plain_ms:.3f} ms")
     return dict(err=err, ms=ms, plain_ms=plain_ms, shape=label)
@@ -2970,17 +3020,17 @@ def build_pq(dev, chunk_fn):
     return idx, time.perf_counter() - t0
 
 
-def pq_holds(idx, queries, p_tiles: int, tq: int):
+def pq_holds(idx, queries, p_tiles: int, tq: int, pq_plans: dict = PQ_PLANS):
     """What K5 is held at on config #3's index at the plan (p_tiles, tq):
     (the index's scan state, the sorted rotated queries, the tile table,
-    ``pq_exact`` on them, {PQ-route plan: K5's arguments})."""
+    ``pq_exact`` on them, {PQ-route plan of ``pq_plans``: K5's arguments})."""
     st = idx._refine_scan_state()
     q_s, _, _, table = _plan_tiles(idx._rotate(queries), st["centroids"], st["tile_window"],
                                    tq, p_tiles)
     exact = pq_exact(st["codes"], st["local"].reshape(-1), st["codebooks"],
                      st["centroid_tiles"], idx.tile_n, q_s)
     plans = {}
-    for name, (rf, top2) in PQ_PLANS.items():
+    for name, (rf, top2) in pq_plans.items():
         _, k_cand, n_pools, l_buckets, _ = idx._pq_stage_plan(K, rf, 0, tq, p_tiles, top2)
         plans[name] = dict(codes_cm=st["codes"], codebooks=st["codebooks"], queries_sorted=q_s,
                            tile_table=table, k=k_cand, centroid_tiles=st["centroid_tiles"],
@@ -3069,7 +3119,17 @@ def run_pq(dev, chunk_fn, queries, card, reps: int = 5) -> dict:
             f"scored")
         mp["K5" if name == "rf64" else f"K5 {name}"] = r
     mp["K8"] = rescore_main_check(idx, st, queries, plans["rf64"], p_tiles, tq)
-    del idx, st, args, plans, k1_args, exact
+    del st, args, plans, k1_args, exact
+    # the cell's plan, where K5 holds 64 queries a block
+    _, _, table, exact, plans = pq_holds(idx, queries, PQ_CELL_P, PQ_CELL_TQ, PQ_CELL_PLAN)
+    args = plans["cell"]
+    if k5_block_queries(args) != 64:
+        raise AssertionError(f"K5 at the cell's plan: {k5_block_queries(args)} queries a block")
+    mp["K5 cell"] = main_shape_check(
+        "K5", pq_plan_label("cell", args, queries.shape[0], PQ_CELL_P) + " (64 a block)",
+        lambda: pq.pq_tiles_topk(**args), lambda: pq.pq_tiles_topk_reference(**args), reps=2,
+        plain_reps=1, exact=exact, id_floor=PQ_CELL_ID_FLOOR)
+    del idx, table, exact, plans, args
     return dict(launches={"K5": launches["K5"], "K1 refine": launches["K1"],
                           "K8": launches["K8"]}, mp=mp)
 

@@ -39,27 +39,48 @@
 // 2 pool, 2 pool + 1 with top-2) lies at out[s, query, b]. The final top-k
 // over the slots is the caller's.
 //
-// How it maps to the card. One block (8 warps) owns QB = 32 queries of one
-// query tile, SB = 64 consecutive slots and one pool, and loops over its
-// pool's table entries itself, so no ordering between blocks is needed. Its
-// queries are staged once in shared memory as bf16. Per step and per r the
-// block's 64 rows are scored by mma.sync m16n8k16 (bf16 in, f32
-// accumulate): rows are the A operand, queries the B operand. A row's A
-// fragments never pass through shared memory: a lane's four values of a
-// k-step are four consecutive dims of one codeword (the k order inside a
-// step is permuted so; dsub % 4 == 0, else one value at a time), fetched by
-// one 8-byte load from the bf16 codebooks addressed by the row's code byte,
-// PF = 4 k-steps ahead of the product. Each warp takes 16 rows and
-// half of the depth; the two halves are summed in shared memory in one
-// fixed order, and every thread then merges 8 (query, slot) pairs in
-// registers (the tile's running best for r < R in shared memory). The
-// codes of the next row block are staged while the current one is scored.
-// In residual mode C is formed once per (block, table entry) on the same
-// path, the tile's W centroid rows standing in for the decoded rows and
-// all 8 warps splitting the depth, and C[q, local(g)] is added to each
-// row's score. A row's mask byte and l2 bias are staged beside its local
-// byte; one instantiation per (residual, mask, l2, top-2) keeps the
-// serving variant as it was.
+// How it maps to the card. One block owns QB queries of one query tile, SB
+// = 2 QB consecutive slots and one pool, and loops over its pool's table
+// entries itself, so no ordering between blocks is needed. Its queries are
+// staged once in shared memory as bf16. Per step and per r the block's SB
+// rows are scored by mma.sync m16n8k16 (bf16 in, f32 accumulate): rows are
+// the A operand, queries the B operand. A row's A fragments never pass
+// through shared memory: a lane's four values of a k-step are four
+// consecutive dims of one codeword (the k order inside a step is permuted
+// so; dsub % 4 == 0, else one value at a time), fetched by one 8-byte load
+// from the bf16 codebooks addressed by the row's code byte, PF k-steps
+// ahead of the product. Each warp takes 16 rows, all QB queries and half of
+// the depth; the two halves are summed in shared memory in one fixed order
+// (the last half first), and every thread then merges SB / 8 (query, slot)
+// pairs, their values in registers (at QB 32 their rows too, and the tile's
+// running best for r < R in shared memory; at QB 64 their rows in shared
+// memory, the thread's own entries). The codes of the next row block are
+// staged while the current one is scored. In residual mode C is formed once
+// per (block, table entry) on the same path, 64 of the tile's W centroid
+// rows at a time standing in for the decoded rows, 8 warps splitting the
+// depth for each 32 queries, and C[q, local(g)] is added to each row's
+// score. A row's mask byte and l2 bias are staged beside its local byte;
+// one instantiation per (residual, mask, l2, top-2) keeps the serving
+// variant as it was.
+//
+// The block width, read from the shape (block_queries): QB = 64 (16 warps,
+// SB 128, one block an SM) where the query tile is a multiple of 64, each
+// slot takes one row of a tile (R = 1: no running best to keep), the launch
+// is unmasked and ranks by inner product, and its shared memory fits; else
+// QB = 32 (8 warps, SB 64, two blocks an SM), whose instantiations and
+// schedule are those the kernel had before it took a second width. QB 64
+// is instantiated only for the variants the 64-query plans reach (TABLE
+// residual or whole rows, top-1 or top-2, and ALL: 5 besides the 17 at QB
+// 32), which keeps nvcc's time for this file near the 32-query build's; a
+// masked or l2 launch at a 64-query tile runs at 32. At QB 64 each
+// gathered A fragment feeds 8 MMAs instead of 4, so every row of a table
+// entry is decoded once per 64 queries, and C and the staging of codes and
+// local bytes happen once per 64 queries and 128 slots. Every (query, row)
+// score is the same f32 sum at either width: the same k-steps of each half
+// (and of each part of C's depth) on the same operands, the parts added in
+// the same order, the merges in the same step order, so ids and scores are
+// bit-identical (tests/port/test_torch_pq_scan_card.py holds a 64- or
+// 128-query tile against its table run at tile_q 32).
 //
 // pq_bias_kernel: the l2 bias -|x|^2 / 2 of every arena row, a warp a row:
 // the lanes take the row's dims in turn, x[e] is the f32 sum of the bf16
@@ -78,33 +99,52 @@
 //     to 6.7 T flop/s on an H100);
 //   - the decode: one 8-byte load per lane a k-step, no integer division
 //     in the loop (a running (sub-space, offset) cursor), no shared-memory
-//     round trip and no barrier per chunk; shared by the block's 32
+//     round trip and no barrier per chunk; shared by the block's 32 or 64
 //     queries. The codebooks (393 KB at m 64) exceed shared memory and
 //     are read through L1/L2: these scattered loads (about 20 sectors a
 //     warp a k-step at dsub 12) and each warp's wait on them are what
-//     bound the kernel now (A/B runs on an H100: PERF.md);
+//     bound the kernel (A/B runs on an H100: PERF.md); QB 64 halves them
+//     for a 64-query tile;
 //   - the centroid term: W rows a table entry, not D adds a row;
-//   - overlap: loads 4 k-steps ahead; the next codes by cp.async, in
+//   - overlap: loads PF k-steps ahead; the next codes by cp.async, in
 //     4-byte runs of a row of the row-major arena (K5) or 16-byte runs of
 //     a sub-space of a code-major matrix (K6) (each 11-13% faster than
-//     staging byte by byte in A/B runs on an H100: PERF.md); two blocks an
-//     SM; three barriers a row block.
+//     staging byte by byte in A/B runs on an H100: PERF.md); 16 warps an
+//     SM at either width; three barriers a row block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "slot_merge.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int QB = 32;        // queries per block: 4 n8 tiles
-constexpr int SB = 64;        // slots (rows) per block: 4 m16 tiles
-constexpr int THREADS = 256;  // 8 warps: 4 row tiles x 2 halves of the depth
-constexpr int RS = SB + 8;    // row stride (f32) of the score tile
-constexpr int PF = 4;         // k-steps whose A fragments are loaded ahead of the product
+constexpr int CW = 64;  // centroid rows of one pass of the residual term C
+constexpr int SMEM_MAX = 232448;  // shared memory one block may use on sm_90 (ops/_cuda.py)
+
+// The block at QB queries (32 or 64; file header).
+template <int QB>
+struct Shape {
+  static constexpr int NT = QB / 8;          // n8 tiles of queries
+  static constexpr int SB = 2 * QB;          // slots (rows) per block
+  static constexpr int MT = SB / 16;         // its m16 tiles
+  static constexpr int THREADS = 64 * MT;    // a warp a row tile and half of the depth
+  static constexpr int RS = SB + 8;          // row stride (f32) of the score tile
+  static constexpr int NJ = SB / 8;          // (query, slot) pairs a thread merges
+  // QB 64: R = 1 only (no running best), and the slots' rows in shared
+  // memory, so that the registers hold 8 x 4 accumulators and the values
+  static constexpr bool WIDE = QB == 64;
+};
+
+// k-steps whose A fragments are loaded ahead of the product: 4, or 2 at QB
+// 64 with top-2, whose second slot values take the registers a deeper ring
+// would (A/B runs on an H100: PERF.md)
+template <int QB, bool TOP2>
+constexpr int PF = QB == 64 && TOP2 ? 2 : 4;
 
 enum Source { ALL = 0, TABLE = 1 };
 // how the codes of a row block are staged into shared memory: byte by
@@ -138,27 +178,44 @@ __host__ __device__ inline int q_stride(int dp) { return dp + 2 * (((8 - dp / 2)
 
 // Shared memory layout, in bytes: the queries, two code blocks, two
 // local-byte blocks, two l2-bias blocks and two mask blocks (each present
-// only when used), the score tile (QB x RS f32), the tile's running best
-// per (query, slot) while r < R (value and r; two of each with top-2), the
-// centroid term C (QB x W f32).
+// only when used), the score tile (QB x RS f32), at QB 32 the tile's running
+// best per (query, slot) while r < R (value and r; two of each with top-2),
+// the centroid term C (QB x W f32), at QB 64 the slots' rows (each
+// thread's NJ, two of each with top-2).
 struct Layout {
-  int q, codes, local, bias, mask, red, tile, c, total;
+  int q, codes, local, bias, mask, red, tile, c, ids, total;
 };
 
-__host__ __device__ inline Layout layout(int m, int dsub, int w, bool top2, bool mask = false,
-                                         bool l2 = false) {
+template <int QB>
+__host__ __device__ inline Layout layout(int m, int dsub, int w, bool top2, bool mask, bool l2) {
+  using S = Shape<QB>;
   const int dp = align16(m * dsub);
   Layout l;
   l.q = 0;
   l.codes = l.q + align16(QB * q_stride(dp) * 2);
-  l.local = l.codes + 2 * align16(SB * (m + 4));
-  l.bias = l.local + 2 * SB;
-  l.mask = l.bias + (l2 ? 2 * SB * 4 : 0);
-  l.red = l.mask + (mask ? 2 * SB : 0);
-  l.tile = l.red + QB * RS * 4;
-  l.c = l.tile + QB * RS * (top2 ? 16 : 8);
-  l.total = l.c + align16(QB * w * 4);
+  l.local = l.codes + 2 * align16(S::SB * (m + 4));
+  l.bias = l.local + 2 * S::SB;
+  l.mask = l.bias + (l2 ? 2 * S::SB * 4 : 0);
+  l.red = l.mask + (mask ? 2 * S::SB : 0);
+  l.tile = l.red + QB * S::RS * 4;
+  l.c = l.tile + (S::WIDE ? 0 : QB * S::RS * (top2 ? 16 : 8));
+  l.ids = l.c + align16(QB * w * 4);
+  l.total = l.ids + (S::WIDE ? S::THREADS * S::NJ * (top2 ? 8 : 4) : 0);
   return l;
+}
+
+// The queries one block holds (file header): 64 where the query tile is a
+// multiple of 64, R = 1, the launch is unmasked and ranks by inner product
+// (the variants a 64-query plan reaches: QB 64 is instantiated for those
+// alone, which keeps the build's time within a third of the 32-query
+// one's), and the 64-query layout fits; else 32. The wrapper asks it
+// (cvdb_pq_scan_block_queries) for the width of each launch it makes.
+__host__ __device__ inline int block_queries(int tile_q, int tile_n, int l_buckets, int m,
+                                             int dsub, int w, bool top2, bool mask, bool l2) {
+  return tile_q % 64 == 0 && l_buckets == tile_n && !mask && !l2 &&
+                 layout<64>(m, dsub, w, top2, false, false).total <= SMEM_MAX
+             ? 64
+             : 32;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -211,10 +268,16 @@ struct Block {
 // 2t + 1, 2t + 8 and 2t + 9, and its B values at the same k, are taken from
 // dims 4t .. 4t + 3 of the step's 16: a permutation of the sum's terms,
 // which lets one 8-byte load fetch a lane's four values of a row.
-template <int SRC, bool RESID, bool TOP2, bool MASK, bool L2>
-__global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
+template <int SRC, bool RESID, bool TOP2, bool MASK, bool L2, int QB>
+__global__ void __launch_bounds__(Shape<QB>::THREADS, QB == 32 ? 2 : 1)
+    pq_scan_kernel(const ScanArgs a) {
+  using S = Shape<QB>;
+  constexpr int SB = S::SB, RS = S::RS, THREADS = S::THREADS, NJ = S::NJ;
+  // n8 tiles of queries for kloop and reduce: all QB, or the 32 of C's part
+  using NT = std::integral_constant<int, S::NT>;
+  using NT32 = std::integral_constant<int, 4>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = layout(a.m, a.dsub, RESID ? a.w : 0, TOP2, MASK, L2);
+  const Layout lay = layout<QB>(a.m, a.dsub, RESID ? a.w : 0, TOP2, MASK, L2);
   bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
   uint8_t* codes_s = smem + lay.codes;
   uint8_t* local_s = smem + lay.local;
@@ -230,8 +293,8 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
   const int d = a.m * a.dsub, dp = align16(d), nks = dp / 16, qs = q_stride(dp);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int mt = warp & 3;  // the warp's 16 rows: 16 mt ..
-  const int kh = warp >> 2;  // and its half of the k-steps
+  const int mt = warp & (S::MT - 1);      // the warp's 16 rows: 16 mt ..
+  const int kh = warp >> (S::WIDE ? 3 : 2);  // and its half of the k-steps
   const int qblocks = (a.tile_q + QB - 1) / QB;
   const int qt = blockIdx.y / qblocks;
   const int q_lo = qt * a.tile_q + (blockIdx.y % qblocks) * QB;
@@ -239,7 +302,7 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
   const int b0 = blockIdx.x * SB;
   const int pid = blockIdx.z;
   const int L = a.l_buckets;
-  const int R = a.tile_n / L;
+  const int R = S::WIDE ? 1 : a.tile_n / L;
   // code (row, sub-space) of a staged block at row * cr + sub * cs
   const int cr = a.code_copy == ROW4 ? a.m + 4 : 1;
   const int cs = a.code_copy == ROW4 ? 1 : SB;
@@ -312,27 +375,29 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
   };
 
   // k-steps [lo, hi) of the product of this warp's 16 rows (A, from
-  // `load`) with the 32 queries (B, from shared memory): acc[nt] holds
-  // queries 8 nt ..; load(f) fetches the next k-step's A values of rows g
-  // and g + 8
-  float acc[4][4];
-  auto kloop = [&](auto&& load, int ks_lo, int ks_hi) {
+  // `load`) with the 8 N queries from q0 (B, from shared memory; N from the
+  // type of nt_count): acc[nt] holds queries q0 + 8 nt ..; load(f) fetches
+  // the next k-step's A values of rows g and g + 8
+  float acc[S::NT][4];
+  auto kloop = [&](auto nt_count, auto&& load, int ks_lo, int ks_hi, int q0) {
+    constexpr int N = decltype(nt_count)::value;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    uint2 fa[PF][2];
+    for (int nt = 0; nt < N; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    constexpr int F = PF<QB, TOP2>;
+    uint2 fa[F][2];
 #pragma unroll
-    for (int i = 0; i < PF; ++i)
+    for (int i = 0; i < F; ++i)
       if (ks_lo + i < ks_hi) load(fa[i]);
-    const bf16* qb = q_s + g * qs + 4 * t4;
-    for (int base = ks_lo; base < ks_hi; base += PF) {
+    const bf16* qb = q_s + (q0 + g) * qs + 4 * t4;
+    for (int base = ks_lo; base < ks_hi; base += F) {
 #pragma unroll
-      for (int i = 0; i < PF; ++i) {
+      for (int i = 0; i < F; ++i) {
         const int ks = base + i;
         if (ks < ks_hi) {
           const uint32_t af[4] = {fa[i][0].x, fa[i][1].x, fa[i][0].y, fa[i][1].y};
-          if (ks + PF < ks_hi) load(fa[i]);
+          if (ks + F < ks_hi) load(fa[i]);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < N; ++nt) {
             const uint2 b = *reinterpret_cast<const uint2*>(qb + 8 * nt * qs + 16 * ks);
             mma_bf16(acc[nt], af, b.x, b.y);
           }
@@ -412,15 +477,18 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
 
   // the nsplit parts of the depth summed into the score tile
   // red[query][row], in one fixed order: the last part written first, each
-  // earlier one added to it. The warp holds rows 16 tile .. of part split.
-  auto reduce = [&](int tile, int split, int nsplit, bool live) {
+  // earlier one added to it. The warp holds rows 16 tile .. of part split
+  // for kloop's queries.
+  auto reduce = [&](auto nt_count, int tile, int split, int nsplit, bool live, int q0) {
+    constexpr int N = decltype(nt_count)::value;
     for (int part = nsplit - 1; part >= 0; --part) {
       if (live && split == part) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < N; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float& r = red[(8 * nt + 2 * t4 + (e & 1)) * RS + 16 * tile + g + 8 * (e >> 1)];
+            float& r =
+                red[(q0 + 8 * nt + 2 * t4 + (e & 1)) * RS + 16 * tile + g + 8 * (e >> 1)];
             r = part == nsplit - 1 ? acc[nt][e] : acc[nt][e] + r;
           }
       }
@@ -428,20 +496,31 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
     }
   };
 
-  float v1[8], v2[8];
-  int i1[8], i2[8];
+  // the slots: values in registers, rows in registers (QB 32) or in this
+  // thread's entries of shared memory (QB 64)
+  float v1[NJ], v2[NJ];
+  int i1r[S::WIDE ? 1 : NJ], i2r[S::WIDE ? 1 : NJ];
+  int* ids_s = reinterpret_cast<int*>(smem + lay.ids) + tid;
+  auto i1 = [&](int j) -> int& {
+    if constexpr (S::WIDE) return ids_s[j * THREADS];
+    else return i1r[j];
+  };
+  auto i2 = [&](int j) -> int& {
+    if constexpr (S::WIDE) return ids_s[(NJ + j) * THREADS];
+    else return i2r[j];
+  };
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    slot_init(v1[j], i1[j]);
-    slot_init(v2[j], i2[j]);
+  for (int j = 0; j < NJ; ++j) {
+    slot_init(v1[j], i1(j));
+    if (TOP2) slot_init(v2[j], i2(j));
   }
 
-  // each of the thread's 8 (query mq, row mr + 8 j) scores into the tile's
+  // each of the thread's NJ (query mq, row mr + 8 j) scores into the tile's
   // running best (shared memory, this thread's own entries); after the last
   // r, into the slots. With R = 1 the score is the tile's best.
   auto merge = [&](const Block& x, int bi) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int row = mr + 8 * j, o = mq * RS + row;
       float sc = -INFINITY;
       if (row < x.n_rows && (!MASK || mask_s[bi * SB + row])) {
@@ -455,9 +534,9 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
       const long long col = b0 + row;
       if (R == 1) {
         if (TOP2)
-          slot_merge2(sc, x.base + col, -INFINITY, x.base + col, v1[j], i1[j], v2[j], i2[j]);
+          slot_merge2(sc, x.base + col, -INFINITY, x.base + col, v1[j], i1(j), v2[j], i2(j));
         else
-          slot_merge(sc, x.base + col, v1[j], i1[j]);
+          slot_merge(sc, x.base + col, v1[j], i1(j));
         continue;
       }
       if (TOP2)
@@ -467,9 +546,9 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
       if (x.r != R - 1) continue;
       if (TOP2)
         slot_merge2(tm1[o], x.base + (long long)tr1[o] * L + col, tm2[o],
-                    x.base + (long long)tr2[o] * L + col, v1[j], i1[j], v2[j], i2[j]);
+                    x.base + (long long)tr2[o] * L + col, v1[j], i1(j), v2[j], i2(j));
       else
-        slot_merge(tm1[o], x.base + (long long)tr1[o] * L + col, v1[j], i1[j]);
+        slot_merge(tm1[o], x.base + (long long)tr1[o] * L + col, v1[j], i1(j));
     }
   };
 
@@ -487,18 +566,22 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
         stage(nxt, (k + 1) & 1);
       }
       cp_commit();
-      if (RESID && cur.r == 0) {  // C[q, w] = q . ct[t, w], 64 centroid rows at a time
-        for (int w0 = 0; w0 < a.w; w0 += SB) {
+      if (RESID && cur.r == 0) {  // C[q, w] = q . ct[t, w], CW centroid rows at a time
+        for (int w0 = 0; w0 < a.w; w0 += CW) {
           // up to 2 tiles of 16 centroid rows: 8 warps as 2 tiles x 4
-          // quarters of the depth; else 4 tiles x 2 halves
-          const int wn = min(SB, a.w - w0), quarters = wn <= 32;
-          const int tile = quarters ? warp & 1 : mt, split = quarters ? warp >> 1 : kh;
+          // quarters of the depth; else 4 tiles x 2 halves; 8 warps for
+          // each 32 queries (at QB 64 warps 8-15 the second 32). At QB 32
+          // mt and kh, the same values, keep the machine code it had.
+          const int wn = min(CW, a.w - w0), quarters = wn <= 32;
+          const int w8 = S::WIDE ? warp & 7 : warp, q0 = S::WIDE ? 32 * (warp >> 3) : 0;
+          const int tile = quarters ? w8 & 1 : S::WIDE ? w8 & 3 : mt;
+          const int split = quarters ? w8 >> 1 : S::WIDE ? w8 >> 2 : kh;
           const int nsplit = quarters ? 4 : 2;
           const int lo = split * nks / nsplit, hi = (split + 1) * nks / nsplit;
           const bool live = 16 * tile < wn;  // else: columns C never reads
           start(lo);
-          if (live) kloop(ct_loader(cur, w0, tile), lo, hi);
-          reduce(tile, split, nsplit, live);
+          if (live) kloop(NT32(), ct_loader(cur, w0, tile), lo, hi, q0);
+          reduce(NT32(), tile, split, nsplit, live, q0);
           for (int i = tid; i < QB * wn; i += THREADS) {
             const int qi = i / wn, w = i - qi * wn;
             c_s[qi * a.w + w0 + w] = red[qi * RS + w];
@@ -509,8 +592,8 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
       const int lo = kh * nks / 2, hi = (kh + 1) * nks / 2;
       const bool live = 16 * mt < cur.n_rows;  // else: dead rows
       start(lo);
-      if (live) kloop(row_loader(cur, k & 1), lo, hi);
-      reduce(mt, kh, 2, live);
+      if (live) kloop(NT(), row_loader(cur, k & 1), lo, hi, 0);
+      reduce(NT(), mt, kh, 2, live, 0);
       merge(cur, k & 1);
       cur = nxt;
       it = it_next;
@@ -519,35 +602,46 @@ __global__ void __launch_bounds__(THREADS, 2) pq_scan_kernel(const ScanArgs a) {
 
   const int s1 = TOP2 ? 2 * pid : pid;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const int b = b0 + mr + 8 * j;
     if (mq < nq_blk && b < L) {
       const size_t o = ((size_t)s1 * a.nq + q_lo + mq) * L + b;
       a.out_v[o] = v1[j];
-      a.out_i[o] = i1[j];
+      a.out_i[o] = i1(j);
       if (TOP2) {
         const size_t o2 = o + (size_t)a.nq * L;
         a.out_v[o2] = v2[j];
-        a.out_i[o2] = i2[j];
+        a.out_i[o2] = i2(j);
       }
     }
   }
 }
 
-template <int SRC, bool RESID, bool TOP2, bool MASK, bool L2>
-cudaError_t launch(const ScanArgs& a, int n_qt, cudaStream_t stream) {
-  const int smem = layout(a.m, a.dsub, RESID ? a.w : 0, TOP2, MASK, L2).total;
+template <int SRC, bool RESID, bool TOP2, bool MASK, bool L2, int QB>
+cudaError_t launch_width(const ScanArgs& a, int n_qt, cudaStream_t stream) {
+  using S = Shape<QB>;
+  const int smem = layout<QB>(a.m, a.dsub, RESID ? a.w : 0, TOP2, MASK, L2).total;
   const cudaError_t err =
-      cudaFuncSetAttribute(pq_scan_kernel<SRC, RESID, TOP2, MASK, L2>,
+      cudaFuncSetAttribute(pq_scan_kernel<SRC, RESID, TOP2, MASK, L2, QB>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int qblocks = (a.tile_q + QB - 1) / QB;
-  const dim3 grid((a.l_buckets + SB - 1) / SB, n_qt * qblocks, a.n_pools);
-  pq_scan_kernel<SRC, RESID, TOP2, MASK, L2><<<grid, THREADS, smem, stream>>>(a);
+  const dim3 grid((a.l_buckets + S::SB - 1) / S::SB, n_qt * qblocks, a.n_pools);
+  pq_scan_kernel<SRC, RESID, TOP2, MASK, L2, QB><<<grid, S::THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// TABLE's 16 instantiations, one per (residual, top-2, mask, l2).
+template <int SRC, bool RESID, bool TOP2, bool MASK, bool L2>
+cudaError_t launch(const ScanArgs& a, int n_qt, cudaStream_t stream) {
+  if constexpr (!MASK && !L2)
+    if (block_queries(a.tile_q, a.tile_n, a.l_buckets, a.m, a.dsub, RESID ? a.w : 0, TOP2,
+                      false, false) == 64)
+      return launch_width<SRC, RESID, TOP2, false, false, 64>(a, n_qt, stream);
+  return launch_width<SRC, RESID, TOP2, MASK, L2, 32>(a, n_qt, stream);
+}
+
+// TABLE's 20 instantiations: one per (residual, top-2, mask, l2) at QB 32,
+// and the 4 unmasked inner-product ones at QB 64.
 template <bool RESID, bool TOP2, bool MASK>
 cudaError_t launch_l2(const ScanArgs& a, int n_qt, cudaStream_t s) {
   return a.bias ? launch<TABLE, RESID, TOP2, MASK, true>(a, n_qt, s)
@@ -593,9 +687,16 @@ const char* cvdb_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory one block needs (w = 0 without the residual term).
+// Dynamic shared memory a block of 32 queries needs (w = 0 without the
+// residual term); the 64-query block is launched only where its own fits.
 int cvdb_pq_scan_smem_bytes(int m, int dsub, int w, int top2, int mask, int l2) {
-  return layout(m, dsub, w, top2, mask, l2).total;
+  return layout<32>(m, dsub, w, top2, mask, l2).total;
+}
+
+// The queries one block of a launch at these shapes holds: 32 or 64.
+int cvdb_pq_scan_block_queries(int tile_q, int tile_n, int l_buckets, int m, int dsub, int w,
+                               int top2, int mask, int l2) {
+  return block_queries(tile_q, tile_n, l_buckets, m, dsub, w, top2, mask, l2);
 }
 
 // Launches the scan on `stream`; returns the launch's cudaGetLastError()

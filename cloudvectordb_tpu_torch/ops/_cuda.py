@@ -53,6 +53,7 @@ _SIGNATURES = {
     "pq_scan": {
         "cvdb_pq_scan": ([_CI, _CI, _VP, _CLL, _CLL] + [_VP] * 9 + [_CI] * 13 + [_VP], _CI),
         "cvdb_pq_scan_smem_bytes": ([_CI] * 6, _CI),
+        "cvdb_pq_scan_block_queries": ([_CI] * 9, _CI),
         "cvdb_pq_row_bias": ([_VP, _CLL, _CLL] + [_VP] * 4 + [_CLL] + [_CI] * 6 + [_VP], _CI),
         "cvdb_cuda_error_string": ([_CI], ctypes.c_char_p),
     },
@@ -319,7 +320,9 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, row_mask=None, ro
                   n_valid: int, n_pools: int, top2: bool, n_live_tiles: int | None = None):
     """Launch the PQ scan (K5 with ``source`` TABLE, K6 with ALL, numbered
     as ops/band.py's SCAN_*): (n_slots, Q, L) f32 slot values and int32
-    arena rows, on the tensors' device and PyTorch's current stream.
+    arena rows, on the tensors' device and PyTorch's current stream, and
+    the queries one block held (32 or 64: the launch's own rule,
+    ``cvdb_pq_scan_block_queries``, on its arguments).
     ``codes`` is the (N, m) uint8 code of each row under any strides (the
     row-major arena, or a code-major matrix transposed); ``local`` (N,)
     uint8 and ``ct`` (n_tiles, W, D) bf16 are both None without a residual
@@ -365,7 +368,10 @@ def pq_scan_slots(source: int, codes, local, cb, ct, q, table, row_mask=None, ro
         2**31 - 1 if n_live_tiles is None else n_live_tiles, _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(lib, rc, "pq_scan")
-    return out_v, out_i
+    block_q = lib.cvdb_pq_scan_block_queries(tile_q, tile_n, l_buckets, m, dsub, w, int(top2),
+                                             int(row_mask is not None),
+                                             int(row_bias is not None))
+    return out_v, out_i, block_q
 
 
 def pq_row_bias(codes, local, cb, ct, *, tile_n: int):

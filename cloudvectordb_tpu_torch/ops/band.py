@@ -380,20 +380,23 @@ def tiles_topk_resid_reference(
     return _final_topk(out_v, out_i, k)
 
 
-#: queries one block of K1 or K5 holds (csrc/tc_scan.cuh ``Narrow::QB``,
-#: csrc/pq_scan.cu ``QB``); each block reads every tile of its query
-#: tile's table once
+#: queries one block of K1 holds (csrc/tc_scan.cuh ``Narrow::QB``); each
+#: block reads every tile of its query tile's table once. K5 counts its
+#: reads at the block width its launches report (ops/pq.py::pq_tiles_topk),
+#: and at this one where its plain version, which has no grid, ran
 SCAN_QB = 32
+#: the span of one K1 or K5 dispatch
+SCAN_SPAN = "cvdb.scan"
 
 
 def scan_span(tile_table, tile_q: int, tile_bytes: int):
-    """The ``cvdb.scan`` span of one K1 or K5 dispatch over ``tile_table``
+    """The ``cvdb.scan`` span of one K1 dispatch over ``tile_table``
     (n_qt, P): ``tile_reads``, the whole-tile reads its grid schedules,
     n_qt · P · ceil(tile_q / SCAN_QB) (slot blocks split a tile's buckets,
     not its reads), and ``tile_read_bytes``, those reads times
     ``tile_bytes``. A kernel that changes its schedule changes this count."""
     reads = tile_table.shape[0] * tile_table.shape[1] * -(-tile_q // SCAN_QB)
-    return span("cvdb.scan", tile_reads=reads, tile_read_bytes=reads * tile_bytes)
+    return span(SCAN_SPAN, tile_reads=reads, tile_read_bytes=reads * tile_bytes)
 
 
 def tiles_topk_resid(

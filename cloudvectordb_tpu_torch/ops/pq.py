@@ -57,9 +57,11 @@ from __future__ import annotations
 import torch
 
 from cloudvectordb_tpu_torch.ops.band import (
-    SCAN_ALL, SCAN_TABLE, _bucket_merge, _bucket_merge_top2, _final_topk, _resolve_buckets,
-    scan_span)
+    SCAN_ALL, SCAN_QB, SCAN_SPAN, SCAN_TABLE, _bucket_merge, _bucket_merge_top2, _final_topk,
+    _resolve_buckets)
 from cloudvectordb_tpu_torch.ops.topk import NEG_INF, f32_const
+from cloudvectordb_tpu_torch.utils.metrics import span
+
 
 def _decode_rows(codes, local, cbf, ctf, g, tile_n: int):
     """f32 x̂ of arena rows ``g`` (any shape): the codewords of each row
@@ -159,7 +161,8 @@ def _pq_slots(source: int, codes, local, cb, ct, q, table, steps: int, *, tile_n
     or on CPU tensors, the kernel (csrc/pq_scan.cu) on CUDA tensors, which
     takes the l2 key as ``row_bias`` (computed here when None). Table
     entries at or past ``n_live_tiles`` are skipped.
-    Returns (values, rows, launched)."""
+    Returns (values, rows, block_q): the queries one block of the launch
+    held, 0 where the plain version ran."""
     dev = codes.device
     if plain or dev.type == "cpu":
         step = torch.arange(steps, device=dev, dtype=torch.int64)
@@ -168,21 +171,20 @@ def _pq_slots(source: int, codes, local, cb, ct, q, table, steps: int, *, tile_n
                                   tile_q=tile_q, l_buckets=l_buckets, n_valid=n_valid,
                                   n_pools=n_pools, top2=top2, row_mask=row_mask, l2=l2,
                                   row_bias=row_bias, n_live_tiles=n_live_tiles)
-        return (*out, False)
+        return (*out, 0)
     if dev.type != "cuda":
         raise NotImplementedError(f"no PQ scan for {dev.type} tensors")
     from cloudvectordb_tpu_torch.ops import _cuda
 
     if l2 and row_bias is None:
         row_bias = pq_row_bias(codes, local, cb, ct, tile_n=tile_n)
-    out = _cuda.pq_scan_slots(
+    return _cuda.pq_scan_slots(
         source, codes, local, cb, ct, q,
         None if table is None else table.to(torch.int32).contiguous(),
         row_mask, row_bias if l2 else None,
         n_qt=q.shape[0] // tile_q, tile_q=tile_q, steps=steps, tile_n=tile_n,
         l_buckets=l_buckets, n_valid=n_valid, n_pools=n_pools, top2=top2,
         n_live_tiles=n_live_tiles)
-    return (*out, True)
 
 
 def pq_row_bias_reference(codes, local, codebooks, centroid_tiles, tile_n: int,
@@ -297,7 +299,8 @@ def _tiles_args(codes_cm, codebooks, queries_sorted, tile_table, centroid_tiles,
 def _one_arena(codes_cm, codebooks, queries_sorted, tile_table, k, centroid_tiles, tile_n,
                tile_q, l_buckets, n_valid, row_major, local_ids, n_pools, n_live_tiles,
                row_mask, l2, top2, plain, row_bias):
-    """K5 over one arena or one segment: (top-k values, rows, launched)."""
+    """K5 over one arena or one segment: (top-k values, rows, block_q as
+    ``_pq_slots`` gives it)."""
     codes, local, cb, ct, q, l_buckets, n_valid, row_mask = _tiles_args(
         codes_cm, codebooks, queries_sorted, tile_table, centroid_tiles, tile_n, tile_q,
         l_buckets, n_valid, row_major, local_ids, n_pools, n_live_tiles, row_mask, l2)
@@ -305,12 +308,12 @@ def _one_arena(codes_cm, codebooks, queries_sorted, tile_table, k, centroid_tile
         if row_bias.numel() != codes.shape[0]:
             raise ValueError(f"row_bias: {row_bias.numel()} entries for {codes.shape[0]} rows")
         row_bias = row_bias.reshape(-1).float()
-    out_v, out_i, launched = _pq_slots(
+    out_v, out_i, block_q = _pq_slots(
         SCAN_TABLE, codes, local, cb, ct, q, tile_table, tile_table.shape[1],
         tile_n=tile_n, tile_q=tile_q, l_buckets=l_buckets, n_valid=n_valid,
         n_pools=n_pools, top2=top2, plain=plain, row_mask=row_mask, l2=l2,
         row_bias=row_bias, n_live_tiles=n_live_tiles)
-    return (*_slots_topk(out_v, out_i, k), launched)
+    return (*_slots_topk(out_v, out_i, k), block_q)
 
 
 def _parallel(x, n_seg: int, name: str) -> list:
@@ -369,34 +372,46 @@ def _cut(x, sl: slice):
 def _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k, centroid_tiles,
                    tile_n, tile_q, l_buckets, n_valid, row_major, local_ids, n_pools,
                    n_live_tiles, row_mask, l2, top2, plain, row_bias=None, segments=None):
+    """(values, rows, reads): ``reads`` is the whole-tile reads the
+    launches' grids schedule, each table entry counted ceil(tile_q / QB)
+    times at the block width QB of the launch that reads it (SCAN_QB where
+    the plain version ran); an int, or a 0-d tensor where segments launch
+    at different widths (read it only when it is wanted: a sync)."""
     if row_bias is not None and not l2:
         raise ValueError("row_bias is the l2 key's; pass l2=True")
+    per_entry = lambda qb: -(-tile_q // (qb or SCAN_QB))  # noqa: E731
     if not isinstance(codes_cm, (list, tuple)) and segments is None:
-        v, i, launched = _one_arena(
+        v, i, block_q = _one_arena(
             codes_cm, codebooks, queries_sorted, tile_table, k, centroid_tiles, tile_n,
             tile_q, l_buckets, n_valid, row_major, local_ids, n_pools, n_live_tiles, row_mask,
             l2, top2, plain, row_bias)
-        pq_tiles_topk.launches += launched
-        return v, i
+        pq_tiles_topk.launches += block_q > 0
+        return v, i, tile_table.numel() * per_entry(block_q)
     if not row_major or n_live_tiles is not None:
         raise ValueError("a segmented arena is row-major and sets each segment's "
                          "n_live_tiles itself")
-    outs_v, outs_i, t_off = [], [], 0
+    # every entry counts at the first segment's width, plus the difference
+    # in the segment it lies in (an entry in none is read by no launch)
+    outs_v, outs_i, t_off, first, reads = [], [], 0, None, 0
     for codes, ct, local, nv, rm, rb, live in _segment_parts(
             codes_cm, centroid_tiles, local_ids, n_valid, row_mask, row_bias, segments,
             tile_n):
         # entries outside the segment point at its pad tile, which is skipped
         in_seg = (tile_table >= t_off) & (tile_table < t_off + live)
         table = torch.where(in_seg, tile_table - t_off, live).to(torch.int32)
-        v, i, launched = _one_arena(codes, codebooks, queries_sorted, table, k, ct, tile_n,
-                                    tile_q, l_buckets, nv, True, local, n_pools, live, rm,
-                                    l2, top2, plain, rb)
-        pq_tiles_topk.launches += launched
-        pq_tiles_topk.seg_launches += launched
+        v, i, block_q = _one_arena(codes, codebooks, queries_sorted, table, k, ct, tile_n,
+                                   tile_q, l_buckets, nv, True, local, n_pools, live, rm,
+                                   l2, top2, plain, rb)
+        pq_tiles_topk.launches += block_q > 0
+        pq_tiles_topk.seg_launches += block_q > 0
+        first = per_entry(block_q) if first is None else first
+        if per_entry(block_q) != first:
+            reads = reads + in_seg.sum() * (per_entry(block_q) - first)
         outs_v.append(v)
         outs_i.append(torch.where(v > NEG_INF, i + t_off * tile_n, i))
         t_off += live
-    return _final_topk(torch.cat(outs_v, 1), torch.cat(outs_i, 1), k)
+    v, i = _final_topk(torch.cat(outs_v, 1), torch.cat(outs_i, 1), k)
+    return v, i, reads + tile_table.numel() * first
 
 
 def pq_tiles_topk(
@@ -428,13 +443,19 @@ def pq_tiles_topk(
     ``row_bias`` are then parallel tuples. CUDA tensors launch the
     hand-written kernel, once a segment; CPU tensors run the plain
     version. A table entry lies in one segment, so the segments' launches
-    read its tile once between them (``scan_span``'s count)."""
+    read its tile once between them. The ``cvdb.scan`` span counts those
+    reads as ops/band.py::scan_span does for K1, at the block width each
+    launch reports (csrc/pq_scan.cu ``block_queries``: 32 or 64 queries)."""
     row_bytes = codebooks.shape[0] + (centroid_tiles is not None)  # codes, local byte
-    with scan_span(tile_table, tile_q, tile_n * row_bytes):
-        return _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k,
-                              centroid_tiles, tile_n, tile_q, l_buckets, n_valid, row_major,
-                              local_ids, n_pools, n_live_tiles, row_mask, l2, top2,
-                              plain=False, row_bias=row_bias, segments=segments)
+    with span(SCAN_SPAN) as sp:
+        v, i, reads = _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k,
+                                     centroid_tiles, tile_n, tile_q, l_buckets, n_valid,
+                                     row_major, local_ids, n_pools, n_live_tiles, row_mask, l2,
+                                     top2, plain=False, row_bias=row_bias, segments=segments)
+        if sp is not None:  # a profiler records
+            reads = int(reads)
+            sp.counts.update(tile_reads=reads, tile_read_bytes=reads * tile_n * row_bytes)
+    return v, i
 
 
 def pq_tiles_topk_reference(codes_cm, codebooks, queries_sorted, tile_table, k: int,
@@ -449,7 +470,7 @@ def pq_tiles_topk_reference(codes_cm, codebooks, queries_sorted, tile_table, k: 
     return _pq_tiles_topk(codes_cm, codebooks, queries_sorted, tile_table, k,
                           centroid_tiles, tile_n, tile_q, l_buckets, n_valid, row_major,
                           local_ids, n_pools, n_live_tiles, row_mask, l2, top2, plain=True,
-                          row_bias=row_bias, segments=segments)
+                          row_bias=row_bias, segments=segments)[:2]
 
 
 def _pq_topk(codes_cm, codebooks, queries, k, tile_n, l_buckets, plain):
@@ -466,11 +487,11 @@ def _pq_topk(codes_cm, codebooks, queries, k, tile_n, l_buckets, plain):
     # every query is scored against every row independently of the others,
     # so all queries form one query tile: the reference's tile_q, which only
     # pads the batch, has no counterpart here
-    out_v, out_i, launched = _pq_slots(
+    out_v, out_i, block_q = _pq_slots(
         SCAN_ALL, codes_cm.T, None, codebooks.to(torch.bfloat16).contiguous(), None,
         queries.to(torch.bfloat16).contiguous(), None, -(-n // tile_n), tile_n=tile_n,
         tile_q=nq, l_buckets=l_buckets, n_valid=n, n_pools=1, top2=False, plain=plain)
-    pq_topk.launches += launched
+    pq_topk.launches += block_q > 0
     return _slots_topk(out_v, out_i, min(k, n))
 
 

@@ -167,9 +167,10 @@ class _Span:
 
 def span(name: str, **counts: int):
     """A span of ``name`` around a ``with`` block; ``counts`` are host
-    integers the caller already holds. Live only while a profiler records
-    (module docstring); otherwise the shared no-op context, after one flag
-    read."""
+    integers the caller already holds (counts known only inside the block
+    go into the ``counts`` dict of the span that ``with`` gives). Live only
+    while a profiler records (module docstring); otherwise the shared no-op
+    context, after one flag read, and ``with`` gives None."""
     if not _profiler._is_profiler_enabled:
         return _NOOP
     return _Span(name, counts)

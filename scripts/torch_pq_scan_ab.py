@@ -10,14 +10,17 @@ The package's csrc/<source>.cu (default pq_scan) comes first, then each
 SOURCE.cu given (a whole variant of it, with the same C interface). Each is
 built by nvcc
 (all at once), bound in place of the package's library, held against the
-plain version (a build that fails the hold is logged and still timed) and
+plain version (through exact f64 scores where a shape gives them; a build
+that fails the hold is logged and still timed) and
 timed (CUDA events, median) at the source's shapes whose name starts with
 ``--only`` (default: all), random data made on the device:
 
-- pq_scan: K5 at BASELINE config #3's PQ-route plans (B 4096, 224 table
-  entries of tile_q 32 over a 10M x 64-code arena of 1024-row tiles with W
-  24 centroid rows; L 1024, L 256, and L 512 with top-2) and K6 over 1M x
-  64 codes at B 4096;
+- pq_scan: K5 at the opqpq10m.b4096 cell's plan (B 4096, 320 table entries
+  of tile_q 64, two pools of L 1024 with top-2, k_cand 2050, W CELL_W: 64
+  queries a block), at BASELINE config #3's PQ-route plans (B 4096, 224
+  table entries of tile_q 32 over a 10M x 64-code arena of 1024-row tiles
+  with W 24 centroid rows; L 1024, L 256, and L 512 with top-2: 32 queries
+  a block) and K6 over 1M x 64 codes at B 4096 (64 a block);
 - tiles_scan: K3 at the whole-row path's plan (B 4096, 96 table entries of
   tile_q 32 over a 12.5M x 768 int8 arena of 2048-row tiles; hybrid and
   int8 queries, and hybrid with top-2), K7 at its band plan (int8, tile_q 256, a band of every
@@ -72,6 +75,10 @@ def build(name: str, sources: list[Path], out: Path) -> dict[str, ctypes.CDLL]:
         dll = ctypes.CDLL(str(lib))
         print(f"[build] {label}: {'; '.join(c.ptxas_report(err))}", flush=True)
         for fn, (argtypes, restype) in _cuda._SIGNATURES[name].items():
+            if not hasattr(dll, fn):  # an older source
+                if fn == "cvdb_pq_scan_block_queries":  # one width: 32 queries a block
+                    setattr(dll, fn, lambda *a: 32)
+                continue
             getattr(dll, fn).argtypes = argtypes
             getattr(dll, fn).restype = restype
         libs[label] = dll
@@ -90,6 +97,23 @@ def pq_shapes(dev):
     ct = (torch.randn((n_tiles, w, d), generator=g, device=dev) / d ** 0.5).to(torch.bfloat16)
     q = torch.randn((c.B, d), generator=g, device=dev)
     q = q / q.norm(dim=1, keepdim=True)
+    # the opqpq10m.b4096 cell's plan: 320 entries of tile_q 64, k_cand 2050
+    # over two pools of 1024 buckets with top-2
+    cell_ct = (torch.randn((n_tiles, CELL_W, d), generator=g, device=dev)
+               / d ** 0.5).to(torch.bfloat16)
+    cell_local = torch.sort(torch.randint(0, CELL_W, (n_tiles, tile_n), generator=g,
+                                          device=dev), dim=1)[0].to(torch.uint8).reshape(-1)
+    cell_table = torch.randint(0, n_tiles, (c.B // 64, 320), generator=g, device=dev,
+                               dtype=torch.int32)
+    args = dict(codes_cm=codes, codebooks=cb, queries_sorted=q, tile_table=cell_table, k=2050,
+                centroid_tiles=cell_ct, tile_n=tile_n, tile_q=64, l_buckets=0, n_pools=2,
+                n_valid=n_tiles * tile_n - 100, row_major=True, local_ids=cell_local, top2=True)
+    # held through exact f64 scores: 2050 candidates a query of random rows
+    # hold near-ties that the two f32 orders rank either way
+    yield (f"K5 cell tq64 p320 pools2 top2 W{CELL_W}", lambda a=args: pq.pq_tiles_topk(**a),
+           lambda a=args: pq.pq_tiles_topk_reference(**a),
+           c.pq_exact(codes, cell_local, cb, cell_ct, tile_n, q))
+    del cell_ct, cell_local, args
     table = torch.randint(0, n_tiles, (c.B // 32, 224), generator=g, device=dev,
                           dtype=torch.int32)
     for label, lb, top2 in (("rf64 L1024", 0, False), ("rf16 L256", 256, False),
@@ -193,6 +217,9 @@ def resid_shapes(dev):
                    lambda a=args: band.tiles_topk_resid_reference(**a, k=c.K))
 
 
+#: centroid rows a tile of the opqpq10m.b4096 cell's index (its tile window)
+CELL_W = 4
+
 SHAPES = {"pq_scan": pq_shapes,
           "tiles_scan": lambda dev: itertools.chain(scan_shapes(dev), flat_shapes(dev)),
           "tiles_resid": resid_shapes}
@@ -214,7 +241,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(args.source, sources, Path(tmp))
         variants = list(libs)
-        for name, kernel, plain in SHAPES[args.source](dev):
+        for name, kernel, plain, *exact in SHAPES[args.source](dev):
             if not name.startswith(args.only):
                 continue
             ms = {v: [] for v in variants}
@@ -224,7 +251,8 @@ def main() -> int:
                     _cuda._libs[args.source] = libs[v]
                     if not ms[v]:
                         try:
-                            c.compare(f"{name} {v}", kernel, lambda: ref)
+                            c.compare(f"{name} {v}", kernel, lambda: ref,
+                                      exact=exact[0] if exact else None)
                         except AssertionError as e:
                             print(f"[ab] {name} {v}: FAILED the hold: {e}", flush=True)
                     ms[v].append(c.time_ms(kernel, 3))

@@ -2,7 +2,8 @@
 recorded and the same answers with no profiler; under one, a
 ``cvdb.search`` root a call with its planner, scan, copy, pending and
 rescore spans inside it on the profiler's host timeline, the scan's tile
-reads from its grid (a span a launch), no user annotation among them,
+reads from its grid (a span a launch; K5's at the block width its launch
+reports), no user annotation among them,
 ``StageTimer``'s stage span, the buffer's bound, and the benchmark's traced
 run of a tiny cell recording one root a traced call."""
 
@@ -18,7 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from cloudvectordb_tpu_torch.index import ivf_band, ivf_band_pq
 from cloudvectordb_tpu_torch.index.ivf_band import BandIVFIndex
 from cloudvectordb_tpu_torch.index.ivf_band_pq import BandIVFPQIndex
-from cloudvectordb_tpu_torch.ops import band
+from cloudvectordb_tpu_torch.ops import band, pq
 from cloudvectordb_tpu_torch.utils import metrics
 
 REPO = Path(__file__).resolve().parents[2]
@@ -95,7 +96,7 @@ def test_no_profiler_records_nothing_and_changes_no_answer(db, monkeypatch, kind
     with_spans = answers()
     assert metrics.span_records() == {"records": [], "dropped": 0}
     stub = lambda *a, **kw: contextlib.nullcontext()  # noqa: E731
-    for mod in (ivf_band, ivf_band_pq, band):
+    for mod in (ivf_band, ivf_band_pq, band, pq):
         monkeypatch.setattr(mod, "span", stub)
     for a, b in zip(with_spans, answers()):
         assert a.dtype == b.dtype and np.array_equal(a, b)
@@ -142,6 +143,76 @@ def test_scan_counts_the_grid_reads_and_the_launches_it_saw(db, monkeypatch, p, 
     n_qt = -(-NQ // tq)
     reads = n_qt * p * -(-tq // 32)
     assert scans[0]["counts"] == {"tile_reads": reads, "tile_read_bytes": reads * 128 * (D + 1)}
+
+
+def _pq_inputs(rng, nq: int, tq: int, p: int, n_tiles: int = 3, tile_n: int = 128, m: int = 4,
+               dsub: int = 8, w: int = 2):
+    t = torch.as_tensor
+    return dict(
+        codes_cm=t(rng.integers(0, 32, size=(n_tiles * tile_n, m), dtype=np.uint8)),
+        codebooks=t(rng.normal(size=(m, 32, dsub)).astype(np.float32)),
+        queries_sorted=t(rng.normal(size=(nq, m * dsub)).astype(np.float32)),
+        tile_table=t(rng.integers(0, n_tiles, size=(nq // tq, p)).astype(np.int32)),
+        k=K, centroid_tiles=t(rng.normal(size=(n_tiles, w, m * dsub)).astype(np.float32)),
+        local_ids=t(rng.integers(0, w, size=n_tiles * tile_n).astype(np.uint8)),
+        tile_n=tile_n, tile_q=tq, row_major=True)
+
+
+def _launching(monkeypatch, width):
+    """K5's plain version standing in for a launch that reports the block
+    width ``width(row_mask)`` (the card's rule decides it there)."""
+    real = pq._pq_slots
+
+    def launch(*a, **kw):
+        v, r, _ = real(*a, **kw)
+        return v, r, width(kw.get("row_mask"))
+
+    monkeypatch.setattr(pq, "_pq_slots", launch)
+
+
+@pytest.mark.parametrize("tq,width,blocks", [(32, 0, 1), (64, 0, 2), (128, 0, 4),
+                                             (64, 64, 1), (128, 64, 2)])
+def test_pq_scan_counts_the_reads_at_its_block_width(monkeypatch, tq, width, blocks):
+    """K5's ``cvdb.scan`` span counts n_qt · P · ceil(tile_q / QB) at the
+    block width QB its launch reports (64 or 32 on the card), and at
+    SCAN_QB (32) where the plain version ran (width 0: the CPU's)."""
+    p, nq = 5, 256
+    args = _pq_inputs(np.random.default_rng(5), nq, tq, p)
+    if width:
+        _launching(monkeypatch, lambda mask: width)
+    before = pq.pq_tiles_topk.launches
+    (v, i), _, recs = traced(lambda: pq.pq_tiles_topk(**args))
+    assert pq.pq_tiles_topk.launches - before == (1 if width else 0)
+    (scan,) = named(recs, "cvdb.scan")
+    reads = nq // tq * p * blocks
+    assert scan["counts"] == {"tile_reads": reads, "tile_read_bytes": reads * 128 * (4 + 1)}
+    v_ref, i_ref = pq.pq_tiles_topk_reference(**args)
+    assert torch.equal(v, v_ref) and torch.equal(i, i_ref)
+
+
+def test_pq_segmented_scan_counts_each_entry_at_its_segments_width(monkeypatch):
+    """Segments that launch at different widths (here a masked one at 32
+    and an unmasked one at 64, as the card's rule has it): each table entry
+    counts at the width of the segment it lies in, an entry in no segment
+    at the first segment's."""
+    rng = np.random.default_rng(9)
+    tq, p, nq, tile_n, m = 64, 6, 256, 128, 4
+    parts = [_pq_inputs(rng, nq, tq, p, n_tiles=live + 1) for live in (2, 3)]
+    mask0 = torch.as_tensor((rng.random(3 * tile_n) < 0.5).astype(np.int8))
+    table = torch.as_tensor(rng.integers(0, 5, size=(nq // tq, p)).astype(np.int32))
+    table[0, 0] = 7  # past both segments' 5 live tiles
+    args = dict(parts[0], codes_cm=tuple(a["codes_cm"] for a in parts),
+                centroid_tiles=tuple(a["centroid_tiles"] for a in parts),
+                local_ids=tuple(a["local_ids"] for a in parts), row_mask=(mask0, None),
+                tile_table=table)
+    _launching(monkeypatch, lambda mask: 32 if mask is not None else 64)
+    before = pq.pq_tiles_topk.seg_launches
+    _, _, recs = traced(lambda: pq.pq_tiles_topk(**args))
+    assert pq.pq_tiles_topk.seg_launches - before == 2
+    (scan,) = named(recs, "cvdb.scan")
+    t = table.numpy()
+    reads = 2 * int((t < 2).sum()) + int(((t >= 2) & (t < 5)).sum()) + 2 * int((t >= 5).sum())
+    assert scan["counts"] == {"tile_reads": reads, "tile_read_bytes": reads * tile_n * (m + 1)}
 
 
 def test_search_adds_the_copy_spans(db):
