@@ -2293,7 +2293,7 @@ def run_sharded(dev, chunk_fn, n_chunks, queries, gt, card, cell1: dict | None) 
         f"{merge_ms:.3f} ms; K1 {split['K1']:.1%} of the batch's kernel time")
     k1_a = band.tiles_topk_resid.launches  # (a)'s main path; the hold's launches not
     sh0 = idx._shards[0]
-    p0 = min(idx._resolve(queries.shape[0], 32, 0, None)[0], sh0._tune_n_tiles())
+    p0 = min(idx._resolve(queries, 32, 0, None)[0], sh0._tune_n_tiles())
     mp = k1_check(f"shard 0 of {SHARDS} B{queries.shape[0]} p{p0} tq{SHARD_TILE_Q}", sh0,
                   k1_plan(sh0, queries, p0, SHARD_TILE_Q), reps=5, plain_reps=1)
     band.tiles_topk_resid.launches = k1_a

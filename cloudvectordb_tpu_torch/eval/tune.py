@@ -8,7 +8,9 @@ supplied exact ground truth). The first passing config in each ``tile_q``
 branch becomes a finalist, every finalist is timed, and the fastest
 measured one wins. The op point is stored on the index (``_op_point``),
 where ``search()`` picks it up for any knob the caller leaves at its
-sentinel default, and is persisted in the artifact manifest.
+sentinel default (``TunableMixin._op_knobs``, the one place that decides
+it), and is persisted in the artifact manifest. ``coverage_ladder`` is the
+tiles kinds' shared ``p_tiles`` ladder.
 
 Differences from the reference: timing is the host clock around
 ``search()`` calls fenced by ``torch.cuda.synchronize`` (the reference
@@ -27,6 +29,27 @@ import torch
 
 from cloudvectordb_tpu_torch.eval.recall import recall_at_k
 
+#: a serving knob's default where neither the call nor the op point sets it
+#: (nprobe: the probe-scan families'); p_tiles, tile_q and n_pools have
+#: none here: their auto sizes depend on the batch
+KNOB_DEFAULTS = {"nprobe": 8, "refine_factor": 16, "host_factor": 64, "serve_from": "pq",
+                 "top2": False}
+#: knobs whose sentinel is <= 0 (their public default 0), not None
+_ZERO_SENTINELS = ("p_tiles", "n_pools")
+
+
+def coverage_ladder(base: int, n_tiles: int) -> list[int]:
+    """The tune ladder's ``p_tiles`` rungs over the auto budget ``base``:
+    multiples of it rounded down to 32 (at least 32), capped at
+    ``n_tiles``, up to the first rung that covers every tile. Rungs may
+    repeat; callers drop repeated candidates."""
+    out = []
+    for mult in (1.0, 1.5, 2.5, 4.0, 7.0, 12.0):
+        out.append(min(n_tiles, max(32, int(base * mult) // 32 * 32)))
+        if out[-1] >= n_tiles:
+            break
+    return out
+
 
 class TunableMixin:
     """``tune()`` + tuned-op-point storage. Subclasses supply
@@ -36,6 +59,20 @@ class TunableMixin:
     #: tuned serving knobs — search() uses these for any parameter the
     #: caller leaves at its sentinel default; persisted in the manifest
     _op_point: dict | None = None
+
+    def _op_knobs(self, **knobs) -> dict:
+        """The knobs a call was given, resolved, by name: one at its
+        sentinel (None; <= 0 for p_tiles and n_pools) takes the op point's
+        value, else ``KNOB_DEFAULTS``' (else 0 or None, for the auto sizes
+        to fill)."""
+        op = self._op_point or {}
+        for name, v in knobs.items():
+            if name in _ZERO_SENTINELS:
+                if v <= 0:
+                    knobs[name] = op.get(name, 0)
+            elif v is None:
+                knobs[name] = op.get(name, KNOB_DEFAULTS.get(name))
+        return knobs
 
     def _tune_candidates(self, nq: int) -> list[dict]:
         raise NotImplementedError(f"{type(self).__name__} does not support tune()")

@@ -48,6 +48,18 @@ def from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(dtype)
 
 
+def pad_rows(x, mult: int):
+    """``x`` (a numpy array or a tensor) with its last row repeated up to a
+    multiple of ``mult`` rows: a batch padded to whole query groups or
+    replica slices. ``x`` itself when no row is missing."""
+    pad = -x.shape[0] % mult
+    if not pad:
+        return x
+    if isinstance(x, np.ndarray):
+        return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+
 def replace_dir_atomic(tmp: Path, path: Path, old_prefix: str) -> None:
     """Swap a fully-written ``tmp`` dir into ``path``, moving any existing
     artifact aside first (never delete-then-rename: a crash in that window

@@ -48,8 +48,9 @@ import itertools
 import numpy as np
 import torch
 
+from cloudvectordb_tpu_torch.eval.tune import coverage_ladder
 from cloudvectordb_tpu_torch.index.arena import PendingBuffer, normalize_remove_ids
-from cloudvectordb_tpu_torch.index.base import Index, from_numpy, to_numpy
+from cloudvectordb_tpu_torch.index.base import Index, from_numpy, pad_rows, to_numpy
 from cloudvectordb_tpu_torch.index.kmeans import train_kmeans
 from cloudvectordb_tpu_torch.ops.assign import assign_clusters
 from cloudvectordb_tpu_torch.ops.band import (
@@ -140,19 +141,25 @@ def auto_p_tiles(n: int, nlist: int, tile_n: int, tile_q: int, nq: int, nprobe: 
     return int(min(n_tiles, max(8, int(np.ceil(span * r + margin)))))
 
 
+def query_tile(tile_q: int | None, default: int, nq: int) -> int:
+    """The query tile a batch of ``nq`` is served at: ``tile_q``, else the
+    index's ``default``; a batch smaller than that, given no tile_q, pads
+    to the pow2 cover of the batch (at least 8), not to a full query group
+    (bucketed: bounded distinct shapes)."""
+    if tile_q is None and nq < default:
+        return max(8, _next_pow2(nq))
+    return tile_q or default
+
+
 def _queries_in(queries: np.ndarray, tq: int, device, rotate: np.ndarray | None = None):
     """``search()``'s way in: the (Q, D) f32 host queries (times
     ``rotate``ᵀ on the host when given), padded to a multiple of ``tq`` by
     repeating the last, copied to ``device``; the ``cvdb.search.in``
     span."""
-    nq = queries.shape[0]
-    q_pad = -(-nq // tq) * tq
     with span("cvdb.search.in"):
         if rotate is not None:
             queries = queries @ rotate.T
-        if q_pad != nq:
-            queries = np.concatenate([queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
-        return torch.as_tensor(queries, device=device)
+        return torch.as_tensor(pad_rows(queries, tq), device=device)
 
 
 def _answers_out(v: torch.Tensor, gids: torch.Tensor):
@@ -1453,26 +1460,23 @@ class BandIVFIndex(Index):
         are scanned exactly and merged in (``_merge_pending_topk``)."""
         assert self._n, "empty index"
         queries = np.asarray(queries, np.float32)
-        nq = queries.shape[0]
         with span(SEARCH):
             flt = self.make_filter(where) if where is not None else None
-            if strategy == "band":
+            if strategy == "tiles":
+                v, gids = self._search_tiles(queries, k, nprobe, p_tiles, scoring, tile_q,
+                                             flt, top2, host=True)
+            elif strategy == "band":
                 if self.residual:
                     raise ValueError("band strategy lacks the centroid term; use tiles")
                 if flt is not None:
                     raise ValueError("filtered search: use strategy='tiles' (residual "
                                      "arenas) or index.filters.filtered_search")
-                v, gids = self._search_band(queries, k, nprobe)
-                q = torch.as_tensor(queries, device=self.device)
-                v, gids = (torch.as_tensor(a, device=self.device) for a in (v, gids))
-            elif strategy == "tiles":
-                p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
-                qp = _queries_in(queries, tq, self.device)
-                v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
-                q, v, gids = qp[:nq], v[:nq], gids[:nq]
+                v, gids = (torch.as_tensor(a, device=self.device)
+                           for a in self._search_band(queries, k, nprobe))
+                v, gids = self._merge_pending_topk(
+                    v, gids, torch.as_tensor(queries, device=self.device), k, flt)
             else:
                 raise ValueError(f"unknown strategy {strategy!r}")
-            v, gids = self._merge_pending_topk(v, gids, q, k, flt)
             return _answers_out(v, gids)
 
     def search_device(self, queries, k: int, nprobe: int = 32,
@@ -1487,25 +1491,31 @@ class BandIVFIndex(Index):
         with span(SEARCH):
             flt = self.make_filter(where) if where is not None else None
             queries = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
-            nq = queries.shape[0]
-            p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
-            q_pad = -(-nq // tq) * tq
-            qp = queries if q_pad == nq else torch.cat(
-                [queries, queries[-1:].expand(q_pad - nq, -1)])
-            v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
-            return self._merge_pending_topk(v[:nq], gids[:nq], queries, k, flt)
+            return self._search_tiles(queries, k, nprobe, p_tiles, scoring, tile_q, flt, top2,
+                                      host=False)
+
+    def _search_tiles(self, queries, k, nprobe, p_tiles, scoring, tile_q, flt, top2, host):
+        """The tiles strategy's body under ``search()`` and ``search_device()``:
+        the knobs resolved (``_resolve_knobs``), the batch padded to the
+        query tile, the dispatch, pending and annex rows merged in. ``host``:
+        ``queries`` is search()'s numpy batch, in through ``_queries_in``;
+        else a device tensor, padded in place. (v, gids) on the device, one
+        row a query."""
+        nq = queries.shape[0]
+        p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
+        qp = _queries_in(queries, tq, self.device) if host else pad_rows(queries, tq)
+        v, gids = self._tiles_kernel_dispatch(qp, k, p_tiles, tq, scoring, flt, top2)
+        return self._merge_pending_topk(v[:nq], gids[:nq], qp[:nq], k, flt)
 
     def _resolve_knobs(self, nq: int, nprobe: int, p_tiles: int, tile_q, top2=None):
-        """Tuned op point for knobs left at their sentinels, then
-        _resolve_tiles_knobs: (p_tiles, tile_q, top2)."""
-        op = self._op_point or {}
-        if p_tiles <= 0:
-            p_tiles = op.get("p_tiles", 0)
-        if tile_q is None:
-            tile_q = op.get("tile_q")
-        if top2 is None:
-            top2 = bool(op.get("top2", False))
-        return (*self._resolve_tiles_knobs(nq, nprobe, p_tiles, tile_q), top2)
+        """(p_tiles, tile_q, top2) of a tiles search: the op point or the
+        default for knobs at their sentinels (``_op_knobs``), the
+        small-batch query tile (``query_tile``), the span-aware auto
+        coverage."""
+        kn = self._op_knobs(p_tiles=p_tiles, tile_q=tile_q, top2=top2)
+        tq = query_tile(kn["tile_q"], self.tile_q, nq)
+        p_tiles = kn["p_tiles"] or self._auto_p_tiles(nq, nprobe, self._tune_n_tiles(), tile_q=tq)
+        return p_tiles, tq, kn["top2"]
 
     def _arena_filter(self, flt):
         """(K1's (and K5's) arena-order allow bits for ``flt``, the plan's
@@ -1622,7 +1632,6 @@ class BandIVFIndex(Index):
         band ends inside the arena. Returns (perm, device queries in the
         score mode's type, (Q_pad, 1) f32 query scales, (n_qt,) int32
         band_start on the device, band_tiles)."""
-        nq = queries.shape[0]
         nprobe = min(nprobe, self.nlist)
         st = self._device_state()
         _, probed = tiled_topk(st["centroids"], torch.as_tensor(queries, device=self.device),
@@ -1631,9 +1640,8 @@ class BandIVFIndex(Index):
         lo = probed.min(axis=1)
         hi = probed.max(axis=1)
 
-        order = np.argsort(lo + hi, kind="stable")
-        q_pad = -(-nq // self.tile_q) * self.tile_q
-        perm = np.concatenate([order, np.full(q_pad - nq, order[-1])])
+        perm = pad_rows(np.argsort(lo + hi, kind="stable"), self.tile_q)
+        q_pad = perm.shape[0]
         q_sorted = queries[perm]
         lo_s, hi_s = lo[perm], hi[perm]
 
@@ -1662,18 +1670,6 @@ class BandIVFIndex(Index):
         return (perm, q_dev, q_scale,
                 torch.as_tensor(band_start, device=self.device), band_tiles)
 
-    def _resolve_tiles_knobs(self, nq, nprobe, p_tiles, tile_q):
-        """Small-batch query-tile shrink + span-aware auto coverage."""
-        n_tiles = int(self._payload.shape[0]) // self.tile_n
-        tq = tile_q or self.tile_q
-        if tile_q is None and nq < tq:
-            # small batches: pad to the pow2 cover of the batch, not to a
-            # full query group (bucketed: bounded distinct shapes)
-            tq = max(8, _next_pow2(nq))
-        if p_tiles <= 0:
-            p_tiles = self._auto_p_tiles(nq, nprobe, n_tiles, tile_q=tq)
-        return p_tiles, tq
-
     def _auto_p_tiles(self, nq: int, nprobe: int, n_tiles: int,
                       tile_q: int | None = None) -> int:
         """Span-aware tile budget (``auto_p_tiles``) of this arena."""
@@ -1694,14 +1690,10 @@ class BandIVFIndex(Index):
         n_tiles = self._tune_n_tiles()
         seen, out = set(), []
         for tq in self._tune_tile_qs(nq):
-            base = self._auto_p_tiles(nq, 32, n_tiles, tile_q=tq)
-            for mult in (1.0, 1.5, 2.5, 4.0, 7.0, 12.0):
-                p = min(n_tiles, max(32, int(base * mult) // 32 * 32))
+            for p in coverage_ladder(self._auto_p_tiles(nq, 32, n_tiles, tile_q=tq), n_tiles):
                 if (p, tq) not in seen:
                     seen.add((p, tq))
                     out.append({"p_tiles": p, "tile_q": tq})
-                if p >= n_tiles:
-                    break
         # scan cost ∝ p_tiles · query-groups; prefer larger tile_q at equal
         # coverage (fewer groups, one shared table each)
         out.sort(key=lambda c: (c["p_tiles"], -c["tile_q"]))

@@ -61,7 +61,8 @@ import numpy as np
 import torch
 
 from cloudvectordb_tpu_torch.index.arena import grow_scatter_gid, normalize_remove_ids
-from cloudvectordb_tpu_torch.index.base import to_numpy
+from cloudvectordb_tpu_torch.eval.tune import coverage_ladder
+from cloudvectordb_tpu_torch.index.base import pad_rows, to_numpy
 from cloudvectordb_tpu_torch.index.ivf_band import (
     BandIVFIndex, _answers_out, _host_rescore, _next_pow2, _pq2_rescore, _pq_tiles_plan_search,
     _queries_in, _tiles_resid_plan_search, host_rows_sq)
@@ -1123,33 +1124,6 @@ class BandIVFPQIndex(BandIVFIndex):
             self._caches[("bias", route)] = hit
         return hit[2]
 
-    def _resolve_pq_knobs(self, nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
-                          serve_from, top2=None, host_factor=None):
-        """Tuned op-point fills for knobs left at their sentinels, the
-        small-batch query-tile shrink, and the span-aware auto coverage.
-        ``host_factor`` sizes the cascade's shortlist, k·host_factor rows."""
-        op = self._op_point or {}
-        if serve_from is None:
-            serve_from = op.get("serve_from", "pq")
-        if refine_factor is None:
-            refine_factor = op.get("refine_factor", 16)
-        if host_factor is None:
-            host_factor = op.get("host_factor", 64)
-        if p_tiles <= 0:
-            p_tiles = op.get("p_tiles", 0)
-        if tile_q is None:
-            tile_q = op.get("tile_q")
-        if n_pools <= 0:
-            n_pools = op.get("n_pools", 0)
-        if top2 is None:
-            top2 = bool(op.get("top2", False))
-        tq = tile_q or self.tile_q
-        if tile_q is None and nq < tq:
-            tq = max(8, _next_pow2(nq))
-        if p_tiles <= 0:
-            p_tiles = self._auto_p_tiles(nq, nprobe, self._tune_n_tiles(), tile_q=tq)
-        return serve_from, refine_factor, p_tiles, tq, n_pools, top2, host_factor
-
     def _have_tier2(self) -> bool:
         return (self._tier2_active and self.codebooks2 is not None
                 and (self._codes2 is not None or bool(self._codes2_pending)))
@@ -1238,16 +1212,10 @@ class BandIVFPQIndex(BandIVFIndex):
         (-inf, -1) tails. Pending rows are scanned exactly and merged in."""
         assert self._n, "empty index"
         queries = np.asarray(queries, np.float32)
-        nq = queries.shape[0]
         with span(SEARCH):
             flt = self.make_filter(where) if where is not None else None
-            serve_from, refine_factor, p_tiles, tq, n_pools, top2, host_factor = \
-                self._resolve_pq_knobs(nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
-                                       serve_from, top2, host_factor)
-            qp = _queries_in(queries, tq, self.device, rotate=self.opq_matrix)
-            v, gids = self._serve(qp, k, serve_from, refine_factor, p_tiles, tq, n_pools,
-                                  top2, flt, host_factor, host=True)
-            v, gids = self._merge_pending_topk(v[:nq], gids[:nq], qp[:nq], k, flt)
+            v, gids = self._search_pq(queries, k, nprobe, p_tiles, refine_factor, n_pools,
+                                      tile_q, serve_from, flt, top2, host_factor, host=True)
             return _answers_out(v, gids)
 
     def search_device(self, queries, k: int, nprobe: int = 32, p_tiles: int = 0,
@@ -1264,17 +1232,28 @@ class BandIVFPQIndex(BandIVFIndex):
         with span(SEARCH):
             queries = self._rotate(
                 torch.as_tensor(queries, dtype=torch.float32).to(self.device))
-            nq = queries.shape[0]
             flt = self.make_filter(where) if where is not None else None
-            serve_from, refine_factor, p_tiles, tq, n_pools, top2, host_factor = \
-                self._resolve_pq_knobs(nq, nprobe, p_tiles, tile_q, refine_factor, n_pools,
-                                       serve_from, top2)
-            q_pad = -(-nq // tq) * tq
-            qp = queries if q_pad == nq else torch.cat(
-                [queries, queries[-1:].expand(q_pad - nq, -1)])
-            v, gids = self._serve(qp, k, serve_from, refine_factor, p_tiles, tq, n_pools,
-                                  top2, flt, host_factor, host=False)
-            return self._merge_pending_topk(v[:nq], gids[:nq], queries, k, flt)
+            return self._search_pq(queries, k, nprobe, p_tiles, refine_factor, n_pools, tile_q,
+                                   serve_from, flt, top2, None, host=False)
+
+    def _search_pq(self, queries, k, nprobe, p_tiles, refine_factor, n_pools, tile_q,
+                   serve_from, flt, top2, host_factor, host):
+        """The body under ``search()`` and ``search_device()``: the knobs
+        resolved (``_op_knobs``, ``_resolve_knobs``), the batch padded to
+        the query tile, ``_serve``, pending rows merged in. ``host``:
+        ``queries`` is search()'s numpy batch, rotated on the host and in
+        through ``_queries_in``, and the host tier runs; else a device
+        tensor, rotated already, padded in place. (v, gids) on the device,
+        one row a query."""
+        nq = queries.shape[0]
+        kn = self._op_knobs(serve_from=serve_from, refine_factor=refine_factor, n_pools=n_pools,
+                            host_factor=host_factor)
+        p_tiles, tq, top2 = self._resolve_knobs(nq, nprobe, p_tiles, tile_q, top2)
+        qp = (_queries_in(queries, tq, self.device, rotate=self.opq_matrix) if host
+              else pad_rows(queries, tq))
+        v, gids = self._serve(qp, k, p_tiles=p_tiles, tq=tq, top2=top2, flt=flt, host=host,
+                              **kn)
+        return self._merge_pending_topk(v[:nq], gids[:nq], qp[:nq], k, flt)
 
     # -- op-point tuning (eval/tune.py) -----------------------------------------
     def _tune_candidates(self, nq: int) -> list[dict]:
@@ -1287,9 +1266,7 @@ class BandIVFPQIndex(BandIVFIndex):
         n_tiles = self._tune_n_tiles()
         out = []
         for tq in self._tune_tile_qs(nq):
-            base = self._auto_p_tiles(nq, 32, n_tiles, tile_q=tq)
-            for mult in (1.0, 1.5, 2.5, 4.0, 7.0, 12.0):
-                p = min(n_tiles, max(32, int(base * mult) // 32 * 32))
+            for p in coverage_ladder(self._auto_p_tiles(nq, 32, n_tiles, tile_q=tq), n_tiles):
                 if can_refine_scan:
                     out.append({"p_tiles": p, "tile_q": tq, "serve_from": "refine"})
                 elif self.refine == "pq2+host":
@@ -1309,8 +1286,6 @@ class BandIVFPQIndex(BandIVFIndex):
                         out.append(cfg)
                         if rf is not None and rf >= 64:
                             out.append({**cfg, "top2": True})
-                if p >= n_tiles:
-                    break
         seen = set()
         out = [c for c in out
                if (key := tuple(sorted(c.items()))) not in seen and not seen.add(key)]

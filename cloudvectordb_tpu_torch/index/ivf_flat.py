@@ -282,9 +282,7 @@ class IVFFlatIndex(ListArenaIndex):
         batches of ``batch`` queries. nprobe defaults to the tuned op point,
         else 8."""
         assert self.is_trained
-        if nprobe is None:
-            nprobe = (self._op_point or {}).get("nprobe", 8)
-        nprobe = min(nprobe, self.nlist)
+        nprobe = min(self._op_knobs(nprobe=nprobe)["nprobe"], self.nlist)
         st = self._device_state()
 
         def scan(q):

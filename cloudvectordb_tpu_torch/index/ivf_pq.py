@@ -344,14 +344,10 @@ class IVFPQIndex(ListArenaIndex):
         else 8 and 16."""
         assert self.is_trained
         self.merge_pending()  # pending rows are codes: the simplest right path
-        op = self._op_point or {}
-        if nprobe is None:
-            nprobe = op.get("nprobe", 8)
-        if refine_factor is None:
-            refine_factor = op.get("refine_factor", 16)
-        nprobe = min(nprobe, self.nlist)
+        kn = self._op_knobs(nprobe=nprobe, refine_factor=refine_factor)
+        nprobe = min(kn["nprobe"], self.nlist)
         do_refine = self.refine == "int8" and self._refine_rows.shape[0]
-        kk = min(max(k * refine_factor, 32), self.ntotal) if do_refine else k
+        kk = min(max(k * kn["refine_factor"], 32), self.ntotal) if do_refine else k
         st = self._device_state()
 
         def scan(q_raw):

@@ -38,7 +38,8 @@ import zlib
 import numpy as np
 import torch
 
-from cloudvectordb_tpu_torch.eval.tune import TunableMixin
+from cloudvectordb_tpu_torch.eval.tune import TunableMixin, coverage_ladder
+from cloudvectordb_tpu_torch.index.base import pad_rows
 from cloudvectordb_tpu_torch.index.filters import IdFilter
 from cloudvectordb_tpu_torch.index.ivf_band import (
     BandIVFIndex, auto_p_tiles, train_ordered_centroids)
@@ -226,23 +227,20 @@ class ShardedBandIndex(TunableMixin, RangeSearchMixin):
         return auto_p_tiles(m0["n"], m0["nlist"], sh.tile_n, sh.tile_q, nq, nprobe,
                             self._n_tiles())
 
-    def _resolve(self, nq: int, nprobe: int, p_tiles: int, top2):
-        """(p_tiles, top2, tile_q, padded batch): the tuned op point for the
-        sentinels, else the auto budget over each replica's own slice; the
-        batch padded so every replica's slice is a tile_q multiple."""
-        op = self._op_point or {}
-        if p_tiles <= 0:
-            p_tiles = op.get("p_tiles", 0)
-        if top2 is None:
-            top2 = bool(op.get("top2", False))
-        tq = self._proto().tile_q
+    def _resolve(self, queries, nprobe: int, p_tiles: int, top2):
+        """(p_tiles, top2, tile_q, the padded batch) for ``queries`` (numpy
+        or a tensor): the op point or the default for the sentinels
+        (``_op_knobs``), else the auto budget over each replica's own slice;
+        the batch padded so every replica's slice is a tile_q multiple. The
+        query tile is the index's at every batch size."""
+        kn = self._op_knobs(p_tiles=p_tiles, top2=top2)
+        tq, nq = self._proto().tile_q, queries.shape[0]
         if self.mesh.nproc > 1:  # this process's traffic, or the broadcast batch
             nq_plan, q_mult = nq, tq
         else:
             nq_plan, q_mult = max(1, nq // self.mesh.n_replica), tq * self.mesh.n_replica
-        if p_tiles <= 0:
-            p_tiles = self._auto_p_tiles(nq_plan, nprobe)
-        return p_tiles, top2, tq, -(-nq // q_mult) * q_mult
+        p_tiles = kn["p_tiles"] or self._auto_p_tiles(nq_plan, nprobe)
+        return p_tiles, kn["top2"], tq, pad_rows(queries, q_mult)
 
     def _serve(self, qp, k: int, p_tiles: int, tq: int, scoring: str, flt, top2: bool):
         """Fan-out and fan-in of a padded batch (numpy or a tensor): each
@@ -280,9 +278,7 @@ class ShardedBandIndex(TunableMixin, RangeSearchMixin):
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
         flt = self.make_filter(where) if where is not None else None
-        p_tiles, top2, tq, q_pad = self._resolve(nq, nprobe, p_tiles, top2)
-        qp = queries if q_pad == nq else np.concatenate(
-            [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
+        p_tiles, top2, tq, qp = self._resolve(queries, nprobe, p_tiles, top2)
         # every knob that shapes the collective is part of the contract;
         # the filter rides as a CRC of its bitmap (a mismatch would corrupt
         # the merge, not hang it)
@@ -307,8 +303,7 @@ class ShardedBandIndex(TunableMixin, RangeSearchMixin):
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = q.shape[0]
         flt = self.make_filter(where) if where is not None else None
-        p_tiles, top2, tq, q_pad = self._resolve(nq, nprobe, p_tiles, top2)
-        qp = q if q_pad == nq else torch.cat([q, q[-1:].expand(q_pad - nq, -1)])
+        p_tiles, top2, tq, qp = self._resolve(q, nprobe, p_tiles, top2)
         v, i = self._serve(qp, k, p_tiles, tq, scoring, flt, top2)
         v, i = v[:nq], i[:nq]
         if flt is not None:
@@ -319,15 +314,8 @@ class ShardedBandIndex(TunableMixin, RangeSearchMixin):
     def _tune_candidates(self, nq: int) -> list[dict]:
         """The cheapest tile budget meeting the recall target; the op point
         becomes search()'s default and persists with save()."""
-        n_tiles = self._n_tiles()
-        base = self._auto_p_tiles(nq, 32)
-        out = []
-        for mult in (1.0, 1.5, 2.5, 4.0, 7.0, 12.0):
-            p = min(n_tiles, max(32, int(base * mult) // 32 * 32))
-            out.append({"p_tiles": p})
-            if p >= n_tiles:
-                break
-        return out
+        return [{"p_tiles": p}
+                for p in coverage_ladder(self._auto_p_tiles(nq, 32), self._n_tiles())]
 
     def _tune_reference_kw(self, nq: int) -> dict:
         return {"p_tiles": self._n_tiles()}

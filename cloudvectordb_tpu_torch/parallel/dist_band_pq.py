@@ -48,10 +48,11 @@ import zlib
 import numpy as np
 import torch
 
-from cloudvectordb_tpu_torch.eval.tune import TunableMixin
+from cloudvectordb_tpu_torch.eval.tune import TunableMixin, coverage_ladder
+from cloudvectordb_tpu_torch.index.base import pad_rows
 from cloudvectordb_tpu_torch.index.filters import IdFilter
 from cloudvectordb_tpu_torch.index.ivf_band import (
-    _next_pow2, _pq2_rescore, _pq_tiles_core, auto_p_tiles, host_rows_sq)
+    _pq2_rescore, _pq_tiles_core, auto_p_tiles, host_rows_sq, query_tile)
 from cloudvectordb_tpu_torch.index.ivf_band_pq import (
     BandIVFPQIndex, _quantize, _scale_of, host_tier_rescore, pq_candidate_budget)
 from cloudvectordb_tpu_torch.index.range import RangeSearchMixin
@@ -505,36 +506,17 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
             queries = queries @ proto.opq_matrix.T
         nq = queries.shape[0]
         flt = self.make_filter(where) if where is not None else None
-        op = self._op_point or {}
-        if refine_factor is None:
-            refine_factor = op.get("refine_factor", 16)
-        if host_factor is None:
-            host_factor = op.get("host_factor", 64)
-        if p_tiles <= 0:
-            p_tiles = op.get("p_tiles", 0)
-        if tile_q is None:
-            tile_q = op.get("tile_q")
-        if n_pools <= 0:
-            n_pools = op.get("n_pools", 0)
-        if top2 is None:
-            top2 = bool(op.get("top2", False))
-        n_rep = self.mesh.n_replica
-        tq0 = tile_q or proto.tile_q
-        if self.mesh.nproc > 1:  # this process's traffic, or the broadcast batch
-            nq_plan, q_mult = nq, tq0
-        else:
-            nq_plan, q_mult = max(1, nq // n_rep), tq0 * n_rep
-        tq = tq0
-        if tile_q is None and nq_plan < tq:
-            tq = max(8, _next_pow2(nq_plan))
-            q_mult = tq * (1 if self.mesh.nproc > 1 else n_rep)
-        if p_tiles <= 0:
-            p_tiles = self._auto_p_tiles(nq_plan, nprobe, tq)
+        kn = self._op_knobs(refine_factor=refine_factor, host_factor=host_factor,
+                            n_pools=n_pools, p_tiles=p_tiles, tile_q=tile_q, top2=top2)
+        # this process's traffic or the broadcast batch, else a replica's slice
+        n_rep = 1 if self.mesh.nproc > 1 else self.mesh.n_replica
+        nq_plan = nq if self.mesh.nproc > 1 else max(1, nq // n_rep)
+        tq = query_tile(kn["tile_q"], proto.tile_q, nq_plan)
+        p_tiles = kn["p_tiles"] or self._auto_p_tiles(nq_plan, nprobe, tq)
+        top2 = kn["top2"]
         two_stage, tier2, host, k_cand, n_pools, l_buckets, k_out = self._stage_plan(
-            k, refine_factor, host_factor, n_pools, tq, p_tiles, top2)
-        q_pad = -(-nq // q_mult) * q_mult
-        qp = queries if q_pad == nq else np.concatenate(
-            [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
+            k, kn["refine_factor"], kn["host_factor"], kn["n_pools"], tq, p_tiles, top2)
+        qp = pad_rows(queries, tq * n_rep)
         int8 = self.refine == "int8"
         flt_crc = zlib.crc32(flt.mask_np.tobytes()) if flt is not None else 0
         qp = stage_queries(qp, self.mesh, statics=(p_tiles, k, k_cand, k_out, n_pools,
@@ -568,11 +550,9 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
         """The reference's ladder: coverage x refine depth (x the cascade's
         shortlist width), cheapest first by its cost proxy."""
         n_tiles = self._n_tiles()
-        base = self._auto_p_tiles(nq, 32, self.proto.tile_q)
         host = self._host_active and any(m["n_host"] for m in self._meta)
         out = []
-        for mult in (1.0, 1.5, 2.5, 4.0, 7.0, 12.0):
-            p = min(n_tiles, max(32, int(base * mult) // 32 * 32))
+        for p in coverage_ladder(self._auto_p_tiles(nq, 32, self.proto.tile_q), n_tiles):
             if self.refine == "none":
                 out.append({"p_tiles": p})
             elif host and self._tier2_active:
@@ -584,8 +564,6 @@ class ShardedBandIVFPQIndex(TunableMixin, RangeSearchMixin):
                     out.append({"p_tiles": p, "refine_factor": rf})
                     if rf >= 64:
                         out.append({"p_tiles": p, "refine_factor": rf, "top2": True})
-            if p >= n_tiles:
-                break
         seen = set()
         out = [c for c in out
                if (key := tuple(sorted(c.items()))) not in seen and not seen.add(key)]

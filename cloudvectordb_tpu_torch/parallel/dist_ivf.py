@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from cloudvectordb_tpu_torch.eval.tune import TunableMixin
+from cloudvectordb_tpu_torch.index.base import pad_rows
 from cloudvectordb_tpu_torch.index.ivf_flat import _pad_k, as_f32, rows_to_ids, unfilled
 from cloudvectordb_tpu_torch.index.ivf_pq import IVFPQIndex, _ivfpq_scan_search, _refine_rescore
 from cloudvectordb_tpu_torch.index.pq import pq_encode
@@ -318,15 +319,11 @@ class ShardedIVFPQIndex(TunableMixin, RangeSearchMixin):
         keeps refine_factor·k candidates (at least 32, at most the largest
         shard's rows), rescored exactly before the merge."""
         queries = np.asarray(queries, np.float32)
-        op = self._op_point or {}
-        if nprobe is None:
-            nprobe = op.get("nprobe", 8)
-        if refine_factor is None:
-            refine_factor = op.get("refine_factor", 16)
-        nprobe = min(nprobe, self.kw["nlist"])
+        kn = self._op_knobs(nprobe=nprobe, refine_factor=refine_factor)
+        nprobe = min(kn["nprobe"], self.kw["nlist"])
         do_refine = self.refine == "int8" and sum(m["n_refine"] for m in self._meta) > 0
         per_shard = max(m["ntotal"] for m in self._meta)
-        k_cand = min(max(k * refine_factor, 32), per_shard) if do_refine else k
+        k_cand = min(max(k * kn["refine_factor"], 32), per_shard) if do_refine else k
         # the batch loop's length and every knob that shapes a collective
         # must match across processes before the first collective
         assert_equal_across_processes((queries.shape[0], k, k_cand, nprobe, batch),
@@ -335,10 +332,8 @@ class ShardedIVFPQIndex(TunableMixin, RangeSearchMixin):
         outs_v, outs_i = [], []
         for s0 in range(0, queries.shape[0], batch):
             qh = queries[s0:s0 + batch]
-            pad = (-qh.shape[0]) % n_rep
-            if pad:  # every replica's slice equal-sized
-                qh = np.concatenate([qh, np.repeat(qh[-1:], pad, axis=0)])
-            real = qh.shape[0] - pad
+            real = qh.shape[0]
+            qh = pad_rows(qh, n_rep)  # every replica's slice equal-sized
             v, i = self._serve(stage_queries(qh, self.mesh), k, k_cand, nprobe, do_refine)
             outs_v.append(v[:real])
             outs_i.append(i[:real])

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from cloudvectordb_tpu_torch.index.arena import normalize_remove_ids
+from cloudvectordb_tpu_torch.index.base import pad_rows
 from cloudvectordb_tpu_torch.ops.flat_topk import flat_topk
 from cloudvectordb_tpu_torch.ops.topk import NEG_INF
 from cloudvectordb_tpu_torch.parallel.mesh import (
@@ -103,10 +104,8 @@ class DistributedFlatIndex:
         pool): K2 on every held block, merged in shard order."""
         queries = np.asarray(queries, np.float32)
         nq = queries.shape[0]
-        n_rep = self.mesh.n_replica if self.mesh.nproc == 1 else 1
-        q_pad = -(-nq // n_rep) * n_rep
-        qp = queries if q_pad == nq else np.concatenate(
-            [queries, np.repeat(queries[-1:], q_pad - nq, axis=0)])
+        qp = pad_rows(queries, self.mesh.n_replica if self.mesh.nproc == 1 else 1)
+        q_pad = qp.shape[0]
         qp = stage_queries(qp, self.mesh, statics=(k,))
         staged = self._staged()
         outs_v, outs_i = [], []

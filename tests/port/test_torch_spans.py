@@ -215,22 +215,30 @@ def test_pq_segmented_scan_counts_each_entry_at_its_segments_width(monkeypatch):
     assert scan["counts"] == {"tile_reads": reads, "tile_read_bytes": reads * tile_n * (m + 1)}
 
 
-def test_search_adds_the_copy_spans(db):
-    idx = resid_index(db)
-    _, events, recs = traced(lambda: idx.search(db[:NQ], K, p_tiles=4, tile_q=32))
-    (root,) = [r for r in recs if r["root"]]
-    (cin,), (cout,) = named(recs, "cvdb.search.in"), named(recs, "cvdb.search.out")
-    assert cin["call"] == cout["call"] == root["call"]
+@pytest.mark.parametrize("method", ["search", "search_device"])
+@pytest.mark.parametrize("kind", ["resid", "pq"])
+def test_search_adds_the_copy_spans(db, kind, method):
+    """One ``cvdb.search`` record a call, the root; ``search()`` adds the
+    copies in and out around the planner and the scan, ``search_device()``
+    none."""
+    idx = resid_index(db) if kind == "resid" else pq_index(db)
+    kw = dict(p_tiles=4, tile_q=32) if kind == "resid" else dict(
+        p_tiles=4, tile_q=32, serve_from="pq", refine_factor=8)
+    q = db[:NQ] if method == "search" else torch.as_tensor(db[:NQ])
+    _, events, recs = traced(lambda: getattr(idx, method)(q, K, **kw))
+    (root,) = named(recs, "cvdb.search")
+    assert root["root"] and [r for r in recs if r["root"]] == [root]
+    assert all(r["call"] == root["call"] for r in recs)
     assert not any(e.is_user_annotation for e in events if e.name.startswith("cvdb."))
+    if method == "search_device":
+        assert not named(recs, "cvdb.search.in") and not named(recs, "cvdb.search.out")
+        return
     # the copy in before the planner, the copy out after the scan, in the call
     (call,), (cin,), (cout,) = (intervals(events, n) for n in (
         "cvdb.search", "cvdb.search.in", "cvdb.search.out"))
     (plan,), (scan,) = intervals(events, "cvdb.plan"), intervals(events, "cvdb.scan")
     assert inside(cin, call) and inside(cout, call)
     assert cin[1] <= plan[0] and scan[1] <= cout[0]
-    _, _, recs = traced(lambda: idx.search_device(torch.as_tensor(db[:NQ]), K, p_tiles=4,
-                                                  tile_q=32))
-    assert not named(recs, "cvdb.search.in") and not named(recs, "cvdb.search.out")
 
 
 def test_pending_span_only_once_rows_are_added(db):
